@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Where the time of a t2v_1.3B request goes on the GPU (PyTorch port).
+
+    python3 scripts/profile_torch_step.py [--frames 81] [--out DIR]
+
+Builds the port's random-weight t2v_1.3B pipeline on cuda, then traces with
+torch.profiler one denoise step (one DiT forward with joint CFG, batch 2)
+and one VAE decode of the result, 832x480.  For each window it prints one
+JSON line: wall seconds, device busy seconds (sum of kernel times) and the
+idle share, and device time grouped by kernel family, largest first.  The
+full per-kernel tables go to --out (default wan2gp_tpu_torch/_build/
+profile/).  Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# kernel-name substrings -> family, first match wins
+FAMILIES = (
+    ("flash_fwd_kernel", "flash_attention (port kernel)"),
+    ("w8_matmul_kernel", "matmul_w8 (port kernel)"),
+    # cuDNN's implicit-GEMM convolutions also say "gemm": match them first
+    ("fprop", "cuDNN convolution"), ("conv", "cuDNN convolution"),
+    ("implicit", "cuDNN convolution"), ("winograd", "cuDNN convolution"),
+    ("fft", "cuDNN convolution"),
+    ("gemm", "cuBLAS GEMM"), ("sm90_xmma", "cuBLAS GEMM"),
+    ("cutlass", "cuBLAS GEMM"), ("nvjet", "cuBLAS GEMM"),
+    ("reduce", "reductions"), ("norm", "reductions"),
+    ("softmax", "softmax"),
+    ("elementwise", "elementwise"), ("vectorized", "elementwise"),
+    ("copy", "copies/transposes"), ("cat", "copies/transposes"),
+    ("pad", "copies/transposes"), ("upsample", "copies/transposes"),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for key, fam in FAMILIES:
+        if key in low:
+            return fam
+    return "other"
+
+
+def trace(label, fn, out_dir):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, rows = {}, []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = family(ev.key)
+        groups[fam] = groups.get(fam, 0.0) + dev_us / 1e6
+        rows.append((dev_us / 1e6, ev.count, ev.key))
+    busy = sum(groups.values())
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{label}.txt"), "w") as f:
+        for sec, count, key in sorted(rows, reverse=True):
+            f.write(f"{sec:10.4f} s {count:6d}x  {key}\n")
+    print(json.dumps({
+        "window": label, "wall_s": wall, "device_busy_s": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / wall),
+        "by_family_s": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+    }), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frames", type=int, default=81)
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "wan2gp_tpu_torch", "_build", "profile"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from wan2gp_tpu_torch.families.wan import WanFamilyHandler
+    from wan2gp_tpu_torch.models.wan.pipeline import SamplingConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip())
+    pipe = WanFamilyHandler.load_model("t2v_1.3B", {}, init_random=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lat = torch.randn(pipe.latent_shape(args.frames, 480, 832),
+                      generator=gen, device="cuda")
+    ctx = pipe.encode_text(["a red fox"])
+    ctx_null = pipe.encode_text(["blurry"])
+    sampling = SamplingConfig(steps=1, guide_scale=5.0)
+    pipe.denoise(lat, ctx, ctx_null, sampling)          # warm-up
+    out = {}
+    trace("denoise_step", lambda: out.setdefault(
+        "x", pipe.denoise(lat, ctx, ctx_null, sampling)), args.out)
+    pipe.decode(out["x"])                               # warm-up
+    trace("vae_decode", lambda: pipe.decode(out["x"]), args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,3 +31,9 @@ def _clear_jax_caches_per_module():
     this bounds accumulation within one)."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips without one")

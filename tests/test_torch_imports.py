@@ -1,0 +1,139 @@
+"""The PyTorch port stands alone and never falls back to the CPU.
+
+- Importing its entry points pulls in neither `jax` nor any module of the
+  JAX package `wan2gp_tpu` (checked in a fresh interpreter in which both
+  are made unimportable), and no source file of the port imports them.
+- On a host without a GPU, every entry point called without `device=`
+  raises instead of running on the CPU.
+- A tensor that is not on the CPU never reaches a kernel's plain version.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "wan2gp_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "wan2gp_tpu")
+
+ENTRY_MODULES = (
+    "wan2gp_tpu_torch",
+    "wan2gp_tpu_torch.runtime.service",
+    "wan2gp_tpu_torch.runtime.api",
+    "wan2gp_tpu_torch.runtime.cli",
+    "wan2gp_tpu_torch.runtime.queue",
+    "wan2gp_tpu_torch.families.wan",
+    "wan2gp_tpu_torch.models.wan.pipeline",
+    "wan2gp_tpu_torch.models.wan.t5",
+    "wan2gp_tpu_torch.models.wan.vae_scan",
+    "wan2gp_tpu_torch.ops.attention",
+    "wan2gp_tpu_torch.ops.quant",
+    "wan2gp_tpu_torch.convert",
+    "wan2gp_tpu_torch.utils.media",
+)
+
+_PROBE = r"""
+import importlib.abc, sys
+FORBIDDEN = {forbidden!r}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError("forbidden import: " + name)
+        return None
+
+before = set(sys.modules)
+sys.meta_path.insert(0, Block())
+for mod in {modules!r}:
+    importlib.import_module(mod)
+leaked = sorted(m for m in set(sys.modules) - before
+                if m.split(".")[0] in FORBIDDEN)
+print("LEAKED", leaked)
+"""
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_entry_points_import_without_jax():
+    code = _PROBE.format(forbidden=FORBIDDEN, modules=ENTRY_MODULES)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def _imports_of(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_sources_import_no_jax():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = {os.path.relpath(f, REPO): m for f in files
+           for m in _imports_of(f) if _forbidden(m)}
+    assert bad == {}
+
+
+@pytest.fixture()
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+
+
+def test_default_device_entry_points_raise_without_a_card(no_card,
+                                                          tmp_path):
+    from wan2gp_tpu_torch import resolve_device
+    from wan2gp_tpu_torch.families.wan import WanFamilyHandler
+    from wan2gp_tpu_torch.models.wan.dit import WanDiTConfig
+    from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
+    from wan2gp_tpu_torch.runtime import api, cli
+    from wan2gp_tpu_torch.runtime.service import GenerationService
+    calls = {
+        "resolve_device": lambda: resolve_device(),
+        "GenerationService": lambda: GenerationService(
+            init_random_weights=True, output_dir=str(tmp_path)),
+        "api.init": lambda: api.init(init_random_weights=True),
+        "cli": lambda: cli.main(["--random-weights", "--prompt", "x",
+                                 "--output-dir", str(tmp_path)]),
+        "WanPipeline": lambda: WanPipeline({}, WanDiTConfig()),
+        "load_model": lambda: WanFamilyHandler.load_model(
+            "t2v_1.3B", {}, init_random=True),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert os.listdir(tmp_path) == []
+
+
+def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
+    from wan2gp_tpu_torch.ops import attention, quant
+
+    def plain(*args, **kwargs):
+        raise AssertionError("plain version called for a non-CPU tensor")
+    monkeypatch.setattr(attention, "flash_attention_ref", plain)
+    monkeypatch.setattr(quant, "matmul_w8_ref", plain)
+    q = torch.empty((1, 8, 2, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.attention(q, q, q)
+    x = torch.empty((4, 32), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((32, 16), dtype=torch.int8, device="meta")
+    s = torch.empty((16,), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.matmul_w8(x, w, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.dense_quant(x, {"w_q": w, "scale": s})
+    assert attention.launches == 0 and quant.launches == 0

@@ -1,0 +1,210 @@
+"""Parity of the PyTorch port's ops with the JAX package on the CPU.
+
+Both packages get the same seeded numpy inputs.  On the JAX side the
+Pallas kernels run as the JAX tests run them (interpret mode, or the XLA
+reference path); on the port's side CPU tensors run the kernels' plain
+PyTorch versions.  fp32 tolerance 1e-5; bf16 cases at 3e-2 * max|ref|.
+The CUDA kernels themselves are held to their plain versions in
+test_torch_kernels.py.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import importlib
+
+# wan2gp_tpu.ops re-exports functions under its modules' names (`attention`)
+jnorms = importlib.import_module("wan2gp_tpu.ops.norms")
+jrope = importlib.import_module("wan2gp_tpu.ops.rope")
+jattn = importlib.import_module("wan2gp_tpu.ops.attention")
+jquant = importlib.import_module("wan2gp_tpu.ops.quant")
+from wan2gp_tpu_torch.ops import norms, rope, attention, quant
+
+from tests.test_goldens import _load
+
+TOL = 1e-5
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+# --------------------------------------------------------------------- norms
+
+def test_rms_and_layer_norm_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 32)).astype(np.float32) * 3
+    w = rng.standard_normal(32).astype(np.float32)
+    b = rng.standard_normal(32).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(norms.rms_norm(_t(x), _t(w), 1e-6)),
+        np.asarray(jnorms.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6)),
+        rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        _np(norms.layer_norm(_t(x), _t(w), _t(b))),
+        np.asarray(jnorms.layer_norm(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(b))),
+        rtol=TOL, atol=TOL)
+
+
+def test_modulated_layer_norm_matches_jax():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 1, 7, 16)).astype(np.float32)
+    sh = rng.standard_normal((2, 1, 1, 16)).astype(np.float32)
+    sc = rng.standard_normal((2, 1, 1, 16)).astype(np.float32)
+    got = norms.modulated_layer_norm(_t(x), _t(sh), _t(sc),
+                                     out_dtype=torch.float32)
+    ref = jnorms.modulated_layer_norm(jnp.asarray(x), jnp.asarray(sh),
+                                      jnp.asarray(sc), out_dtype=jnp.float32)
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------- rope
+
+@pytest.mark.parametrize("head_dim,riflex", [(128, False), (32, True)])
+def test_rope_tables_and_apply_match_jax(head_dim, riflex):
+    grid = (3, 4, 5)
+    cos, sin = rope.build_rope_3d(grid, head_dim=head_dim,
+                                  enable_riflex=riflex)
+    jcos, jsin = jrope.build_rope_3d(grid, head_dim=head_dim,
+                                     enable_riflex=riflex)
+    np.testing.assert_array_equal(_np(cos), np.asarray(jcos))
+    np.testing.assert_array_equal(_np(sin), np.asarray(jsin))
+    x = np.random.default_rng(2).standard_normal(
+        (2, 60, 2, head_dim)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(rope.apply_rope(_t(x), cos, sin)),
+        np.asarray(jrope.apply_rope(jnp.asarray(x), jcos, jsin)),
+        rtol=TOL, atol=TOL)
+
+
+def test_rope_golden():
+    g = _load("wan_rope.npz")
+    cos, sin = rope.build_rope_3d([int(v) for v in g["grid"]],
+                                  head_dim=int(g["head_dim"]))
+    np.testing.assert_allclose(_np(rope.apply_rope(_t(g["x"]), cos, sin)),
+                               g["out"], rtol=2e-5, atol=2e-5)
+
+
+# ----------------------------------------------------------------- attention
+
+def _qkv(b, l, s, n, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, l, n, d)).astype(np.float32),
+            rng.standard_normal((b, s, n, d)).astype(np.float32),
+            rng.standard_normal((b, s, n, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("jax_backend", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("shape", [(1, 70, 70, 2, 64), (2, 33, 150, 2, 128)])
+def test_attention_fp32_matches_jax(jax_backend, shape):
+    q, k, v = _qkv(*shape, seed=3)
+    ref = jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          backend=jax_backend)
+    for backend in ("auto", "pallas", "xla"):
+        got = attention.attention(_t(q), _t(k), _t(v), backend=backend)
+        np.testing.assert_allclose(_np(got), np.asarray(ref),
+                                   rtol=TOL, atol=TOL)
+
+
+def test_attention_bf16_matches_jax_kernel():
+    q, k, v = _qkv(1, 40, 130, 2, 64, seed=4)
+    ref = np.asarray(jattn.attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), backend="pallas_interpret"),
+        np.float32)
+    got = attention.attention(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                              _t(v, torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), ref, rtol=0,
+                               atol=3e-2 * np.abs(ref).max())
+
+
+def test_flash_attention_ref_row_blocks(monkeypatch):
+    """The plain version's query-row blocking changes only the fp32
+    summation order of the einsums (<= 1e-6)."""
+    q, k, v = _qkv(2, 37, 29, 2, 16, seed=5)
+    whole = attention.flash_attention_ref(_t(q), _t(k), _t(v), 0.25)
+    monkeypatch.setattr(attention, "_REF_SCORE_BYTES", 4 * 2 * 2 * 29 * 5)
+    blocked = attention.flash_attention_ref(_t(q), _t(k), _t(v), 0.25)
+    torch.testing.assert_close(blocked, whole, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["radial", "swa:4", "sol", "ring:cp",
+                                     "ulysses"])
+def test_unported_attention_backends_raise(backend):
+    q = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(NotImplementedError):
+        attention.attention(q, q, q, backend=backend)
+
+
+def test_kv_mask_and_non_cuda_devices_raise():
+    q = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(NotImplementedError):
+        attention.attention(q, q, q, kv_mask=torch.ones(1, 4))
+    m = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        attention.flash_attention(m, m, m, 0.125)
+    with pytest.raises(ValueError):
+        attention.attention(q, q, q, backend="bogus")
+
+
+# --------------------------------------------------------------------- quant
+
+def test_quantize_int8_matches_jax():
+    w = np.random.default_rng(6).standard_normal((48, 40)).astype(np.float32)
+    w[:, 3] = 0.0
+    jq, js = jquant.quantize_int8(w)
+    q, s = quant.quantize_int8(_t(w))
+    np.testing.assert_array_equal(q.numpy(), jq)
+    np.testing.assert_array_equal(s.numpy(), js)
+    stacked_q, stacked_s = quant.quantize_int8(_t(np.stack([w, 2 * w])))
+    np.testing.assert_array_equal(stacked_q[1].numpy(),
+                                  jquant.quantize_int8(2 * w)[0])
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 96, 80), (13, 40, 24)])
+def test_matmul_w8_matches_jax_interpret(m, k, n):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    wq, s = jquant.quantize_int8(rng.standard_normal((k, n)))
+    ref = jquant.matmul_w8(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s),
+                           block_m=32, block_n=32, block_k=32,
+                           interpret=True)
+    got = quant.matmul_w8(_t(x), torch.from_numpy(wq), torch.from_numpy(s))
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=TOL,
+                               atol=TOL * np.abs(np.asarray(ref)).max())
+
+
+def test_dense_quant_matches_jax():
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 9, 64)).astype(np.float32)
+    wq, s = jquant.quantize_int8(rng.standard_normal((64, 48)))
+    b = rng.standard_normal(48).astype(np.float32)
+    ref = jquant.dense_quant(
+        jnp.asarray(x), {"w_q": jnp.asarray(wq), "scale": jnp.asarray(s),
+                         "b": jnp.asarray(b)}, backend="pallas_interpret")
+    got = quant.dense_quant(_t(x), {"w_q": torch.from_numpy(wq),
+                                    "scale": torch.from_numpy(s),
+                                    "b": _t(b)})
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=TOL,
+                               atol=TOL * np.abs(np.asarray(ref)).max())
+
+
+def test_quantize_params_tree_and_unported_modes():
+    tree = {"blocks": {"fc": {"w": torch.randn(3, 32, 16),
+                              "b": torch.zeros(3, 16)}},
+            "head": {"w": torch.randn(32, 16)}}
+    out = quant.quantize_params_tree(tree, predicate=lambda p: "blocks" in p)
+    assert out["blocks"]["fc"]["w_q"].shape == (3, 32, 16)
+    assert out["blocks"]["fc"]["scale"].shape == (3, 16)
+    assert "w" in out["head"]
+    with pytest.raises(NotImplementedError):
+        quant.quantize_params_tree(tree, bits=4)
+    with pytest.raises(NotImplementedError):
+        quant.dense_quant(torch.zeros(2, 4), {"w_q4": None})

@@ -1,0 +1,17 @@
+"""Device selection shared by every public entry point."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless the caller asks for another device.
+
+    Raises when CUDA is asked for (explicitly or by default) and no GPU is
+    present: the port never carries on silently on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev

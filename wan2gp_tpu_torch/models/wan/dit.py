@@ -1,0 +1,295 @@
+"""Wan 2.1 diffusion transformer (DiT), text-to-video core.
+
+Counterpart of wan2gp_tpu/models/wan/dit.py for the t2v path: patch
+embedding as reshape + matmul, adaLN-zero blocks with RMSNorm-QK
+self-attention + 3D RoPE and text cross-attention, and the adaLN head.
+Params keep the JAX tree layout ([K, N] linears, blocks stacked on a
+leading layer axis); the block loop is a Python loop over that axis.
+The residual stream and modulation math are fp32, matmuls run in
+`compute_dtype` (bf16 by default).
+
+Variant hooks of the JAX module (VACE, i2v, NAG, caches, audio, ...) are
+not ported yet (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from ...ops.attention import attention
+from ...ops.norms import rms_norm, layer_norm, modulated_layer_norm
+from ...ops.rope import apply_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class WanDiTConfig:
+    """Architecture hyperparameters (Wan2.1 t2v 1.3B defaults)."""
+    dim: int = 1536
+    ffn_dim: int = 8960
+    freq_dim: int = 256
+    num_heads: int = 12
+    num_layers: int = 30
+    patch_size: tuple = (1, 2, 2)
+    in_dim: int = 16
+    out_dim: int = 16
+    text_dim: int = 4096
+    text_len: int = 512
+    eps: float = 1e-6
+    model_type: str = "t2v"
+    compute_dtype: Any = torch.bfloat16
+    residual_dtype: Any = torch.float32
+
+    @property
+    def head_dim(self):
+        return self.dim // self.num_heads
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialization (random weights; checkpoints would replace them)
+# ---------------------------------------------------------------------------
+
+def _uniform(gen, shape, limit, dtype):
+    w = torch.rand(shape, generator=gen, device=gen.device)
+    return (w * (2 * limit) - limit).to(dtype)
+
+
+def _normal(gen, shape, std, dtype):
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * std).to(dtype)
+
+
+def _linear(gen, n, d_in, d_out, dtype, std=None, bias=True):
+    """n stacked linears [n, d_in, d_out] (n=None: a single one)."""
+    shape = (d_in, d_out) if n is None else (n, d_in, d_out)
+    if std is None:      # xavier uniform, as the reference initializes
+        p = {"w": _uniform(gen, shape, math.sqrt(6.0 / (d_in + d_out)),
+                           dtype)}
+    else:
+        p = {"w": _normal(gen, shape, std, dtype)}
+    if bias:
+        p["b"] = torch.zeros(shape[:-2] + (d_out,), dtype=dtype,
+                             device=gen.device)
+    return p
+
+
+def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
+                 dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Random DiT params on the generator's device."""
+    if cfg.model_type != "t2v":
+        raise NotImplementedError(
+            f"model_type {cfg.model_type!r} is not ported yet (ROADMAP "
+            "Queue 1: Wan for the other BASELINE configs)")
+    d, n = cfg.dim, cfg.num_layers
+    dev = gen.device
+    pt, ph, pw = cfg.patch_size
+    patch_in = cfg.in_dim * pt * ph * pw
+
+    def attn():
+        return {"q": _linear(gen, n, d, d, dtype),
+                "k": _linear(gen, n, d, d, dtype),
+                "v": _linear(gen, n, d, d, dtype),
+                "o": _linear(gen, n, d, d, dtype),
+                "norm_q": torch.ones((n, d), device=dev),
+                "norm_k": torch.ones((n, d), device=dev)}
+
+    blocks = {
+        "self_attn": attn(),
+        "cross_attn": attn(),
+        "norm3": {"w": torch.ones((n, d), device=dev),
+                  "b": torch.zeros((n, d), device=dev)},
+        "ffn": {"fc1": _linear(gen, n, d, cfg.ffn_dim, dtype),
+                "fc2": _linear(gen, n, cfg.ffn_dim, d, dtype)},
+        "modulation": _normal(gen, (n, 6, d), 1.0 / math.sqrt(d),
+                              torch.float32),
+    }
+    f32 = torch.float32
+    return {
+        "patch_embedding": _linear(gen, None, patch_in, d, f32),
+        "text_embedding": {
+            "fc1": _linear(gen, None, cfg.text_dim, d, dtype, std=0.02),
+            "fc2": _linear(gen, None, d, d, dtype, std=0.02),
+        },
+        "time_embedding": {
+            "fc1": _linear(gen, None, cfg.freq_dim, d, f32, std=0.02),
+            "fc2": _linear(gen, None, d, d, f32, std=0.02),
+        },
+        "time_projection": _linear(gen, None, d, 6 * d, f32),
+        "blocks": blocks,
+        "head": {
+            "head": _linear(gen, None, d, cfg.out_dim * pt * ph * pw, f32),
+            "modulation": _normal(gen, (2, d), 1.0 / math.sqrt(d), f32),
+        },
+    }
+
+
+def layer_params(tree, i: int):
+    """Layer i of a stacked [L, ...] param tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _dense(x, p, dtype=None):
+    """x @ W + b: products in `dtype`, bias added in fp32, cast to `dtype`.
+    int8 params {w_q, scale} go through the dequant-fused matmul."""
+    dtype = dtype or x.dtype
+    if "w_q" in p or "w_q4" in p:
+        from ...ops.quant import dense_quant
+        return dense_quant(x, p, dtype)
+    y = torch.matmul(x.to(dtype), p["w"].to(dtype))
+    if "b" in p:
+        y = y.float() + p["b"].float()
+    return y.to(dtype)
+
+
+def sinusoidal_embedding_1d(dim: int, t):
+    """cat([cos, sin], -1) with freqs 10000^(-i/half); t: [N] -> [N, dim]."""
+    half = dim // 2
+    t = t.float()
+    freqs = torch.pow(10000.0, -torch.arange(half, dtype=torch.float32,
+                                              device=t.device) / half)
+    args = t[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def patchify(latents, patch_size):
+    """[B, C, F, H, W] -> [B, L, C*pt*ph*pw], features ordered (c, dt,
+    dh, dw) like a Conv3d(kernel=stride=patch) flattening."""
+    b, c, f, h, w = latents.shape
+    pt, ph, pw = patch_size
+    x = latents.reshape(b, c, f // pt, pt, h // ph, ph, w // pw, pw)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(b, (f // pt) * (h // ph) * (w // pw), c * pt * ph * pw)
+
+
+def unpatchify(x, grid, patch_size, out_dim):
+    """[B, L, out*pt*ph*pw] -> [B, out, F, H, W]."""
+    b = x.shape[0]
+    f, h, w = grid
+    pt, ph, pw = patch_size
+    x = x.reshape(b, f, h, w, pt, ph, pw, out_dim)
+    x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
+    return x.reshape(b, out_dim, f * pt, h * ph, w * pw)
+
+
+def _heads(x, n):
+    b, l, d = x.shape
+    return x.reshape(b, l, n, d // n)
+
+
+def _self_attention(p, x, rope_cos, rope_sin, cfg, attn_backend):
+    cdt = cfg.compute_dtype
+    xc = x.to(cdt)
+    q = rms_norm(_dense(xc, p["q"], cdt), p["norm_q"], cfg.eps)
+    k = rms_norm(_dense(xc, p["k"], cdt), p["norm_k"], cfg.eps)
+    v = _heads(_dense(xc, p["v"], cdt), cfg.num_heads)
+    q = apply_rope(_heads(q, cfg.num_heads), rope_cos, rope_sin)
+    k = apply_rope(_heads(k, cfg.num_heads), rope_cos, rope_sin)
+    o = attention(q, k, v, backend=attn_backend)
+    return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt)
+
+
+def _cross_attention(p, x, context, cfg, attn_backend):
+    cdt = cfg.compute_dtype
+    xc = x.to(cdt)
+    q = _heads(rms_norm(_dense(xc, p["q"], cdt), p["norm_q"], cfg.eps),
+               cfg.num_heads)
+    k = _heads(rms_norm(_dense(context, p["k"], cdt), p["norm_k"], cfg.eps),
+               cfg.num_heads)
+    v = _heads(_dense(context, p["v"], cdt), cfg.num_heads)
+    o = attention(q, k, v, backend=attn_backend)
+    return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt)
+
+
+def _ffn(p, y, cfg):
+    cdt = cfg.compute_dtype
+    h = _dense(y.to(cdt), p["fc1"], cdt)
+    h = F.gelu(h.float(), approximate="tanh").to(cdt)
+    return _dense(h, p["fc2"], cdt)
+
+
+def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend):
+    """One WanAttentionBlock.  x [B, L, C] in residual_dtype; e6 fp32
+    [B, T_mod, 6, C] broadcast over tokens."""
+    rdt, cdt = cfg.residual_dtype, cfg.compute_dtype
+    e = e6 + bp["modulation"].float()[None, None]
+    b, l, c = x.shape
+    t_mod = e.shape[1]
+    xr = x.reshape(b, t_mod, l // t_mod, c)
+
+    def emod(i):
+        return e[:, :, i][:, :, None, :]
+
+    y = modulated_layer_norm(xr, emod(0), emod(1), eps=cfg.eps,
+                             out_dtype=cdt).reshape(b, l, c)
+    y = _self_attention(bp["self_attn"], y, rope_cos, rope_sin, cfg,
+                        attn_backend)
+    x = (xr.float() + y.float().reshape(b, t_mod, -1, c) * emod(2)).to(rdt)
+    x = x.reshape(b, l, c)
+
+    y = layer_norm(x, bp["norm3"]["w"], bp["norm3"]["b"], eps=cfg.eps,
+                   out_dtype=cdt)
+    x = (x.float() + _cross_attention(bp["cross_attn"], y, context, cfg,
+                                      attn_backend).float()).to(rdt)
+
+    xr = x.reshape(b, t_mod, l // t_mod, c)
+    y = modulated_layer_norm(xr, emod(3), emod(4), eps=cfg.eps,
+                             out_dtype=cdt).reshape(b, l, c)
+    y = _ffn(bp["ffn"], y, cfg)
+    x = xr.float() + y.float().reshape(b, t_mod, -1, c) * emod(5)
+    return x.reshape(b, l, c).to(rdt)
+
+
+def time_embedding_vec(params, cfg: WanDiTConfig, t):
+    """Time embedding e (before the 6-way projection); t: [B] -> [B, dim]."""
+    e = sinusoidal_embedding_1d(cfg.freq_dim, t.reshape(-1))
+    e = _dense(e, params["time_embedding"]["fc1"], torch.float32)
+    return _dense(F.silu(e), params["time_embedding"]["fc2"], torch.float32)
+
+
+def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
+                    rope_cos, rope_sin, attn_backend: str = "auto"):
+    """latents [B, C, F, H, W]; t [B] or [B, F_lat] (0..1000); context
+    [B, text_len, text_dim].  Returns the velocity [B, C_out, F, H, W]
+    in fp32."""
+    b = latents.shape[0]
+    pt, ph, pw = cfg.patch_size
+    grid = (latents.shape[2] // pt, latents.shape[3] // ph,
+            latents.shape[4] // pw)
+    x = patchify(latents.float(), cfg.patch_size)
+    x = _dense(x, params["patch_embedding"], torch.float32)
+    x = x.to(cfg.residual_dtype)
+
+    t_flat = t.reshape(-1)
+    e = time_embedding_vec(params, cfg, t_flat)
+    e0 = _dense(F.silu(e), params["time_projection"], torch.float32)
+    t_mod = t_flat.shape[0] // b
+    e6 = e0.reshape(b, t_mod, 6, cfg.dim)
+    e_head = e.reshape(b, t_mod, cfg.dim)
+
+    cdt = cfg.compute_dtype
+    te = params["text_embedding"]
+    h = _dense(context.to(cdt), te["fc1"], cdt)
+    h = F.gelu(h.float(), approximate="tanh").to(cdt)
+    ctx = _dense(h, te["fc2"], cdt)
+
+    for i in range(cfg.num_layers):
+        x = _block(layer_params(params["blocks"], i), x, e6, ctx, rope_cos,
+                   rope_sin, cfg, attn_backend)
+
+    hp = params["head"]
+    eh = e_head[:, :, None, :] + hp["modulation"].float()[None, None]
+    l = x.shape[1]
+    xr = x.reshape(b, t_mod, l // t_mod, cfg.dim).float()
+    xn = layer_norm(xr, eps=cfg.eps)
+    xn = xn * (1.0 + eh[:, :, 1][:, :, None, :]) + eh[:, :, 0][:, :, None, :]
+    out = _dense(xn.reshape(b, l, cfg.dim), hp["head"], torch.float32)
+    return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)

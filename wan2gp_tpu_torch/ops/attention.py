@@ -1,0 +1,134 @@
+"""Attention: the `attention()` dispatcher and the dense flash kernel.
+
+Counterpart of wan2gp_tpu/ops/attention.py.  Semantics: scaled dot-product
+attention over [B, L, N, D] tensors, default scale 1/sqrt(D), softmax in
+fp32.  On a CUDA tensor the dense backends ("auto", "pallas", "xla")
+launch the hand-written kernel of csrc/flash_attention.cu; on a CPU tensor
+they run its plain PyTorch version, `flash_attention_ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _cuda
+
+_NEG_INF = -1e30
+_DENSE_BACKENDS = ("auto", "pallas", "pallas_interpret", "xla")
+_LATER = {
+    "radial": "ROADMAP Queue 2: ops/sparse_attention.py::_sparse_flash_kernel",
+    "swa": "ROADMAP Queue 2: ops/sparse_attention.py::_sparse_flash_kernel",
+    "sol": "ROADMAP Queue 2: ops/sol_attention.py::_sol_flash_kernel",
+    "ring": "ROADMAP Queue 1: parallel/ (ring attention)",
+    "ulysses": "ROADMAP Queue 1: parallel/ (Ulysses attention)",
+}
+
+# plain integer count of kernel launches (read and reset by callers)
+launches = 0
+
+# working-set cap of the plain version's fp32 score block
+_REF_SCORE_BYTES = 1 << 30
+
+
+def _scaled_q(q, scale):
+    """q * scale in q's dtype, as the Pallas wrapper pre-scales q."""
+    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+
+
+def flash_attention_ref(q, k, v, scale: float):
+    """Plain PyTorch version of the kernel, same roundings: q scaled in its
+    dtype, fp32 scores and softmax statistics, P rounded to v's dtype
+    before P.V, a zero denominator becomes 1.  Processes query rows in
+    blocks so the fp32 score block stays under ~1 GiB."""
+    b, l, n, _ = q.shape
+    s_len = k.shape[1]
+    qs = _scaled_q(q, scale)
+    kf = k.float()
+    vf = v.float()
+    rows = max(1, _REF_SCORE_BYTES // (4 * b * n * s_len))
+    out = torch.empty_like(q)
+    for i in range(0, l, rows):
+        s = torch.einsum("blnd,bsnd->bnls", qs[:, i:i + rows].float(), kf)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        denom = torch.sum(p, dim=-1, keepdim=True)
+        denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+        o = torch.einsum("bnls,bsnd->blnd", p.to(v.dtype).float(), vf)
+        out[:, i:i + rows] = (o / denom.permute(0, 2, 1, 3)).to(q.dtype)
+    return out
+
+
+def _check_flash_inputs(q, k, v):
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention: q, k and v must all be CUDA "
+                         "tensors")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention: q, k and v on different devices")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(f"flash_attention kernel takes bf16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash_attention: expected [B, L, N, D] tensors")
+    b, l, n, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (n, d):
+        raise ValueError(f"flash_attention: shape mismatch q {tuple(q.shape)}"
+                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention kernel takes D in (64, 128), "
+                         f"got {d}")
+    if l == 0 or k.shape[1] == 0:
+        raise ValueError("flash_attention: empty sequence")
+    if n > 65535 or b > 65535:
+        raise ValueError("flash_attention: B and N must be <= 65535")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} needs unit stride on"
+                             f" D, 16-byte aligned rows and strides that "
+                             f"are multiples of 8, got {t.stride()}")
+
+
+def flash_attention(q, k, v, scale: float):
+    """Dense attention over [B, L, N, D] q and [B, S, N, D] k/v.
+
+    CPU tensors run `flash_attention_ref`; CUDA tensors launch the kernel
+    (bf16, D in {64, 128}, any L and S) or raise."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale)
+    _check_flash_inputs(q, k, v)
+    b, l, n, d = q.shape
+    s_len = k.shape[1]
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+    lib = _cuda.library("flash_attention")
+    _cuda.check(lib.wg_flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, s_len,
+        n, d, strides, scale_q, _cuda.stream_handle(q)),
+        "flash_attention launch")
+    launches += 1
+    return o
+
+
+def attention(q, k, v, scale: float | None = None, backend: str = "auto",
+              kv_mask=None):
+    """Scaled dot-product attention, q: [B, L, N, D]; k, v: [B, S, N, D].
+    Returns [B, L, N, D] in q.dtype."""
+    kind = backend.split(":", 1)[0]
+    if kind in _LATER:
+        raise NotImplementedError(
+            f"attention backend {backend!r} is not ported yet "
+            f"({_LATER[kind]})")
+    if backend not in _DENSE_BACKENDS:
+        raise ValueError(f"unknown attention backend {backend!r}")
+    if kv_mask is not None:
+        raise NotImplementedError(
+            "attention with kv_mask is not ported yet (ROADMAP Queue 2: "
+            "ops/attention.py::_flash_kernel_kvmask)")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return flash_attention(q, k, v, scale)

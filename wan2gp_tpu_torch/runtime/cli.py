@@ -1,0 +1,117 @@
+"""Headless CLI of the PyTorch/CUDA port.
+
+Usage:
+  python -m wan2gp_tpu_torch --model t2v_1.3B --prompt "a cat" --random-weights
+  python -m wan2gp_tpu_torch --process queue.json
+  python -m wan2gp_tpu_torch --list-models
+
+Runs on the GPU unless `--device cpu` is given.
+Exit codes: 0 success, 1 task error, 130 interrupted.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .queue import TaskQueue
+from .service import GenerationService
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("wan2gp_tpu_torch",
+                                description="Wan generation on PyTorch/CUDA")
+    p.add_argument("--process", metavar="QUEUE",
+                   help="headless: process a queue .json and exit")
+    p.add_argument("--dry-run", action="store_true",
+                   help="validate the queue without generating")
+    p.add_argument("--list-models", action="store_true")
+    p.add_argument("--model", default=None, help="model type for one-shot")
+    p.add_argument("--prompt", default=None)
+    p.add_argument("--negative-prompt", default="")
+    p.add_argument("--resolution", default=None, help="e.g. 832x480")
+    p.add_argument("--frames", type=int, default=None)
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--guidance-scale", type=float, default=None)
+    p.add_argument("--flow-shift", type=float, default=None)
+    p.add_argument("--solver", default=None, choices=["unipc"])
+    p.add_argument("--seed", type=int, default=-1)
+    p.add_argument("--output-dir", default="outputs")
+    p.add_argument("--attention", default="auto",
+                   help="attention backend: auto | pallas | xla (all dense)")
+    p.add_argument("--quantize", default="", choices=["", "int8"],
+                   help="quantize transformer linears to int8 on load")
+    p.add_argument("--random-weights", action="store_true",
+                   help="run with randomly initialized weights")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch versions of the kernels)")
+    p.add_argument("--verbose", type=int, default=1)
+    return p
+
+
+def _settings_from_args(args) -> dict:
+    s = {"model_type": args.model or "t2v_1.3B", "seed": args.seed}
+    for key, value in (("prompt", args.prompt),
+                       ("resolution", args.resolution),
+                       ("video_length", args.frames),
+                       ("num_inference_steps", args.steps),
+                       ("guidance_scale", args.guidance_scale),
+                       ("flow_shift", args.flow_shift),
+                       ("sample_solver", args.solver)):
+        if value is not None:
+            s[key] = value
+    if args.negative_prompt:
+        s["negative_prompt"] = args.negative_prompt
+    return s
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    service = GenerationService(output_dir=args.output_dir,
+                                attn_backend=args.attention,
+                                init_random_weights=args.random_weights,
+                                quantize=args.quantize, device=args.device)
+    if args.list_models:
+        for mt in service.registry.model_types():
+            print(f"{mt:24s} {service.registry.get(mt).get('name', '')}")
+        return 0
+
+    q = TaskQueue()
+    if args.process:
+        q.load(args.process)
+        if args.dry_run:
+            errors = 0
+            for t in q.tasks():
+                mt = t.settings.get("model_type", "t2v_1.3B")
+                if mt not in service.registry.models_def:
+                    print(f"task {t.id}: unknown model_type {mt!r}")
+                    errors += 1
+            print(f"{len(q.tasks())} task(s), {errors} error(s)")
+            return 1 if errors else 0
+    else:
+        if args.prompt is None and not args.random_weights:
+            print("nothing to do: pass --prompt / --process / --list-models")
+            return 0
+        q.add(_settings_from_args(args))
+
+    def on_event(kind, data):
+        if args.verbose < 1:
+            return
+        if kind == "task_start":
+            print(f"[task {data.id}] start: "
+                  f"{data.settings.get('model_type')}")
+        elif kind == "task_done":
+            print(f"[task {data.id}] done -> {', '.join(data.outputs)}")
+        elif kind == "task_error":
+            print(f"[task {data.id}] ERROR: {data.error}", file=sys.stderr)
+        elif kind == "status":
+            print(f"  {data}")
+
+    try:
+        return service.process_queue(q, on_event=on_event)
+    except KeyboardInterrupt:
+        return 130
+
+
+if __name__ == "__main__":
+    sys.exit(main())

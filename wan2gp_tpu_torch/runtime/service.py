@@ -1,0 +1,156 @@
+"""GenerationService: settings dict -> video files.
+
+Counterpart of wan2gp_tpu/runtime/service.py for the t2v path: model
+resolution and a pipeline cache, settings merge, resolution alignment,
+family dispatch and saving with embedded settings.  Settings keys follow
+the reference task format (prompt, negative_prompt, resolution "WxH",
+video_length, num_inference_steps, guidance_scale, flow_shift,
+sample_solver, seed, model_type, ...).
+
+Not ported yet (ROADMAP Queue 1): checkpoint resolution, plugins, LoRA,
+profiles, config groups, multi-chip meshes and post-processing.
+"""
+from __future__ import annotations
+
+import os
+import random
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+
+from ..config.registry import ModelRegistry
+from ..config.resolutions import parse_resolution, resolve_resolution
+from ..device import resolve_device
+from ..families import build_handler_map
+from ..utils import media
+
+
+def quantize_dit_params(params, mode: str):
+    """Quantize transformer-block linears on load: every stacked
+    {"w": [L, K, N]} under a *blocks* subtree with K, N >= 256 becomes
+    {"w_q", "scale"}; embeddings, norms and modulation stay float."""
+    from ..ops.quant import quantize_params_tree
+    if mode in ("int4", "int8a8", "int4a8"):
+        raise NotImplementedError(
+            f"quantize={mode!r} is not ported yet (ROADMAP Queue 2: the "
+            "int4 / int8-activation kernels)")
+    if mode not in ("int8", "quanto_int8"):
+        raise ValueError(f"unknown quantization mode {mode!r} (use 'int8')")
+    return quantize_params_tree(params, predicate=lambda path: "blocks" in path,
+                                bits=8, min_dim=256)
+
+
+class GenerationService:
+    def __init__(self, registry: Optional[ModelRegistry] = None,
+                 output_dir: str = "outputs", attn_backend: str = "auto",
+                 init_random_weights: bool = False,
+                 quantize: str = "", device=None):
+        self.device = resolve_device(device)
+        self.registry = registry or ModelRegistry(build_handler_map())
+        self.output_dir = output_dir
+        self.attn_backend = attn_backend
+        self.init_random_weights = init_random_weights
+        self.quantize = quantize or ""
+        self._pipelines: Dict[str, Any] = {}
+
+    # -- model management ----------------------------------------------
+
+    def get_pipeline(self, model_type: str, model_def: Optional[dict] = None):
+        pipe = self._pipelines.get(model_type)
+        if pipe is None:
+            if model_def is None:
+                model_def = self.registry.get(model_type)
+            handler = self.registry.handler_for(model_type)
+            base = self.registry.base_model_type(model_type)
+            # without random weights the handler raises: checkpoint
+            # loading is not ported yet
+            pipe = handler.load_model(
+                base, model_def, attn_backend=self.attn_backend,
+                init_random=self.init_random_weights, device=self.device)
+            if self.quantize:
+                pipe.dit_params = quantize_dit_params(pipe.dit_params,
+                                                      self.quantize)
+            self._pipelines[model_type] = pipe
+        return pipe
+
+    def release_model(self, model_type: Optional[str] = None):
+        if model_type is None:
+            self._pipelines.clear()
+        else:
+            self._pipelines.pop(model_type, None)
+
+    # -- generation -------------------------------------------------------
+
+    def generate(self, settings: Dict[str, Any],
+                 on_progress: Optional[Callable] = None) -> List[str]:
+        """Run one task; returns the list of output file paths."""
+        s = dict(settings)
+        model_type = s.get("model_type") or "t2v_1.3B"
+        defaults = self.registry.default_settings(model_type)
+        model_def = self.registry.get(model_type)
+        merged = {**defaults, **s}
+        seed = int(merged.get("seed", -1))
+        if seed < 0:
+            seed = random.randint(0, 2 ** 31 - 1)
+            merged["seed"] = seed
+        requested = merged.get("resolution", "832x480")
+        merged["resolution"] = resolve_resolution(model_def, requested) \
+            or requested
+        width, height = parse_resolution(merged["resolution"])
+
+        pipe = self.get_pipeline(model_type, model_def=model_def)
+        if merged.get("attention_mode"):
+            pipe.attn_backend = str(merged["attention_mode"])
+        os.makedirs(self.output_dir, exist_ok=True)
+        if on_progress:
+            on_progress("status", f"generating with {model_type}")
+        frame_num = int(merged.get("video_length", 81))
+        handler = self.registry.handler_for(model_type)
+        result = handler.generate_video(pipe, merged, width, height,
+                                        frame_num, seed)
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        path = os.path.join(self.output_dir,
+                            f"{model_type}_{stamp}_{seed}.avi")
+        path = media.save_video(np.asarray(result["video"]), path,
+                                fps=int(result.get("fps", 16)),
+                                metadata=_clean_settings(merged))
+        return [path]
+
+    # -- queue worker ------------------------------------------------------
+
+    def process_queue(self, queue, on_event: Optional[Callable] = None):
+        """Drain the queue.  Returns exit code: 0 ok, 1 a task errored."""
+        code = 0
+        while True:
+            task = queue.next_pending()
+            if task is None:
+                break
+            task.status = "running"
+            if on_event:
+                on_event("task_start", task)
+            try:
+                task.outputs = self.generate(
+                    task.settings,
+                    on_progress=(lambda kind, data:
+                                 on_event(kind, data) if on_event else None))
+                task.status = "done"
+            except Exception as e:  # noqa: BLE001 — a task error ends the queue
+                task.status = "error"
+                task.error = f"{type(e).__name__}: {e}"
+                code = 1
+                if on_event:
+                    on_event("task_error", task)
+                break
+            if on_event:
+                on_event("task_done", task)
+        return code
+
+
+def _clean_settings(settings: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: v for k, v in settings.items()
+            if not k.startswith("_") and _jsonable(v)}
+
+
+def _jsonable(v):
+    return isinstance(v, (str, int, float, bool, list, dict, type(None)))
