@@ -7,24 +7,35 @@ Needs one CUDA card (exits non-zero without one, and outside a checkout of
 the repository).  Phases, each printing one JSON line:
 
 1. env      card name and power limit, torch/CUDA versions, TF32 flags and
-            the time nvcc took to build every kernel of csrc/ (in parallel).
+            the time nvcc took to build every kernel of csrc/ (one nvcc per
+            source, in parallel).
 2. check    each kernel against its plain PyTorch version on the card, from
             the same bf16 inputs (plain version in fp32), at small and
-            ragged shapes.  Flash attention: mean abs err <= 2e-2 * mean|ref|
-            and max abs err <= 2e-1 * max|ref| (bf16 rounding of P and the
-            summation order; relative, since attention outputs shrink like
-            1/sqrt(S)); int8 matmul: relative Frobenius error <= 1e-2.
-3. dit      a small bf16 DiT forward (bf16 and int8 weights) on the card,
-            through the kernels, against the same forward on the CPU
-            through the plain versions: max abs err <= 3e-2 * max|ref|.
-4. time     each kernel at the main path's shapes beside its bound, its
+            ragged shapes.  Dense, block-sparse and Sol flash attention:
+            mean abs err <= 2e-2 * mean|ref| and max abs err <= 2e-1 *
+            max|ref| (bf16 rounding of P and the summation order; relative,
+            since attention outputs shrink like 1/sqrt(S)); Sol's
+            logsumexp: max abs err <= 1e-2; int8, int4 and W4A8 matmuls:
+            relative Frobenius error <= 1e-2.
+3. dit      a small DiT forward on the card, through the kernels, against
+            the same forward on the CPU through the plain versions: bf16
+            and int8 weights with dense attention (48 tokens), int4 weights
+            with the radial mask and W4A8 with Sol (1,024 tokens, so both
+            engage): max abs err <= 3e-2 * max|ref|.
+4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
             the kernel's output there is held to the plain version in fp32
-            with the limits of phase 2.
+            with the limits of phase 2.  The 14B 720p shapes for the four
+            kernels of the 14B path, with the radial mask's density and
+            Sol's mean count over its table width.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16 and 1 with
-            quantize="int8", with the launch counters reset just before and
-            read just after.
+            quantize="int8"; then 14B (t2v) requests at 1280x720x81f:
+            (A) quantize="int4a8", attention_mode="sol", all 40 layers;
+            (B) quantize="int4", attention_mode="radial", its depth cut to
+            B_LAYERS.  Every launch counter is reset just before each
+            model's requests and read just after; the launches per DiT
+            forward are asserted.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -47,10 +58,13 @@ import torch
 import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 STEPS = 2                       # denoise steps per service request
+B_LAYERS = 10                   # depth of the 14B request (B), of 40
 FLASH_MEAN_REL, FLASH_MAX_REL = 2e-2, 2e-1     # of mean|ref|, max|ref|
-W8_REL_FRO = 1e-2
+LSE_MAX_ABS = 1e-2
+MM_REL_FRO = 1e-2               # int8 / int4 / W4A8 matmuls
 REPO = os.path.dirname(os.path.abspath(__file__))
 # logs and the (deleted after checking) videos, beside the built kernels
 OUT = os.path.join(REPO, "wan2gp_tpu_torch", "_build", "chip_smoke")
@@ -81,9 +95,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """(least time in ms, "operations" | "bytes") on the card's peaks."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -115,9 +129,36 @@ def phase_env():
          kernels_built=sorted(logs), build_s=build_s, ptxas=ptxas)
 
 
-TOLERANCE = {"flash_attention": f"mean_abs<={FLASH_MEAN_REL}*mean|ref|, "
-                                 f"max_abs<={FLASH_MAX_REL}*max|ref|",
-             "matmul_w8": f"rel_fro<={W8_REL_FRO}"}
+_ATTN_TOL = (f"mean_abs<={FLASH_MEAN_REL}*mean|ref|, "
+             f"max_abs<={FLASH_MAX_REL}*max|ref|")
+TOLERANCE = {"flash_attention": _ATTN_TOL, "sparse_flash": _ATTN_TOL,
+             "sol_flash": _ATTN_TOL + f", lse max_abs<={LSE_MAX_ABS}",
+             "matmul_w8": f"rel_fro<={MM_REL_FRO}",
+             "matmul_w4": f"rel_fro<={MM_REL_FRO}",
+             "matmul_w4a8": f"rel_fro<={MM_REL_FRO}"}
+
+
+def counters():
+    """{kernel name: (module, attribute)} of every launch counter."""
+    from wan2gp_tpu_torch.ops import attention as A, quant as Q
+    from wan2gp_tpu_torch.ops import sparse_attention as SP
+    from wan2gp_tpu_torch.ops import sol_attention as SOL
+    return {"flash_attention": (A, "launches"),
+            "matmul_w8": (Q, "launches"),
+            "sparse_flash": (SP, "launches"),
+            "sol_flash": (SOL, "launches"),
+            "matmul_w4": (Q, "w4_launches"),
+            "matmul_w4a8": (Q, "w4a8_launches")}
+
+
+def reset_counts():
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in counters().items()}
 
 
 def phase_check():
@@ -153,9 +194,56 @@ def phase_check():
         x = randn((m, k), gen)
         wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
                                              device="cuda"))
-        w8[name] = w8_check(name, x, wq, sc, Q.matmul_w8(x, wq, sc))
-    emit("check", flash_attention=flash, matmul_w8=w8, tolerance=TOLERANCE)
-    return flash, w8
+        w8[name] = mm_check("matmul_w8", name, Q.matmul_w8(x, wq, sc),
+                            Q.matmul_w8_ref(x.float(), wq, sc))
+
+    from wan2gp_tpu_torch.ops import sparse_attention as SP
+    from wan2gp_tpu_torch.ops import sol_attention as SOL
+    sparse = {}
+    for name, (b, l, n, d, bq, bkv) in {
+            "ragged_d128_q128_kv64": (1, 1000, 2, 128, 128, 64),
+            "ragged_d64_q64_kv256": (2, 777, 3, 64, 64, 256),
+            "q512_kv256": (1, 2048, 2, 128, 512, 256)}.items():
+        q, k, v = (randn((b, l, n, d), gen) for _ in range(3))
+        mask = torch.rand((-(-l // bq), -(-l // bkv)), generator=gen,
+                          device="cuda") < 0.5
+        mask[1] = False                      # a q block that attends nothing
+        kv_idx, counts = (torch.from_numpy(a).cuda() for a in
+                          SP.compress_block_mask(mask.cpu().numpy()))
+        got = SP.sparse_flash(q, k, v, kv_idx, counts, _scale(q), bq, bkv)
+        ref = SP.table_attention_ref(q.float(), k.float(), v.float(),
+                                     kv_idx[None], counts[None], _scale(q),
+                                     bq, bkv)[0]
+        sparse[name] = attn_check("sparse_flash", name, q, k, got, ref)
+    sol = {}
+    for name, (b, l, n, d) in {"ragged_l1500": (1, 1500, 2, 128),
+                               "b2_l2048": (2, 2048, 3, 128)}.items():
+        q, k, v = (randn((b, l, n, d), gen) for _ in range(3))
+        idx, cnt, _, _ = SOL.sol_route(q, k, _scale(q), 0.5, 512, 256,
+                                       budget=0.5)
+        cnt[1, 0] = 0                        # a row that attends nothing
+        got, lse = SOL.sol_flash(q, k, v, idx, cnt, _scale(q), 512, 256)
+        ref, ref_lse = SP.table_attention_ref(q.float(), k.float(),
+                                              v.float(), idx, cnt,
+                                              _scale(q), 512, 256)
+        sol[name] = sol_check(name, q, k, got, lse, ref, ref_lse)
+    w4, w4a8 = {}, {}
+    for name, (m, k, n) in {"qkvo_5120x5120": (4096, 5120, 5120),
+                            "fc1_ragged_m": (333, 5120, 13824),
+                            "fc2_ragged_m": (77, 13824, 512),
+                            "ragged_mnk": (77, 100, 51)}.items():
+        x = randn((m, k), gen)
+        wp, sc = Q.quantize_int4(torch.randn((k, n), generator=gen,
+                                             device="cuda"))
+        w4[name] = mm_check("matmul_w4", name, Q.matmul_w4(x, wp, sc),
+                            Q.matmul_w4_ref(x.float(), wp, sc))
+        w4a8[name] = mm_check("matmul_w4a8", name, Q.matmul_w4a8(x, wp, sc),
+                              Q.matmul_w4a8_ref(x.float(), wp, sc))
+    emit("check", flash_attention=flash, matmul_w8=w8, sparse_flash=sparse,
+         sol_flash=sol, matmul_w4=w4, matmul_w4a8=w4a8, tolerance=TOLERANCE)
+    return {"flash_attention": flash, "matmul_w8": w8,
+            "sparse_flash": sparse, "sol_flash": sol, "matmul_w4": w4,
+            "matmul_w4a8": w4a8}
 
 
 def _scale(q):
@@ -167,59 +255,82 @@ def flash_check(name, q, k, v, got):
     same bf16 inputs; raises past the limits."""
     from wan2gp_tpu_torch.ops import attention as A
     ref = A.flash_attention_ref(q.float(), k.float(), v.float(), _scale(q))
-    err = (got.float() - ref).abs()
+    return attn_check("flash_attention", name, q, k, got, ref)
+
+
+def attn_check(kernel, name, q, k, got, ref):
+    """An attention kernel's output against its fp32 plain version `ref`
+    (consumed); raises past the limits."""
+    err = (got.float() - ref).abs_()
     ref = ref.abs_()
     e = {"shape": list(q.shape[:3]) + [k.shape[1], q.shape[3]],
          "max_abs": err.max().item(), "mean_abs": err.mean().item(),
          "max_ref": ref.max().item(), "mean_ref": ref.mean().item()}
+    del err
     if not (e["mean_abs"] <= FLASH_MEAN_REL * e["mean_ref"]
             and e["max_abs"] <= FLASH_MAX_REL * e["max_ref"]):
-        raise AssertionError(f"flash_attention {name}: {e}")
+        raise AssertionError(f"{kernel} {name}: {e}")
     return e
 
 
-def w8_check(name, x, wq, sc, got):
-    """The kernel's output `got` against the plain version in fp32; raises
-    past the limit."""
-    from wan2gp_tpu_torch.ops import quant as Q
-    diff = Q.matmul_w8_ref(x.float(), wq, sc)
+def sol_check(name, q, k, got, lse, ref, ref_lse):
+    e = attn_check("sol_flash", name, q, k, got, ref)
+    e["lse_max_abs"] = (lse - ref_lse).abs_().max().item()
+    if not e["lse_max_abs"] <= LSE_MAX_ABS:
+        raise AssertionError(f"sol_flash {name} lse: {e}")
+    return e
+
+
+def mm_check(kernel, name, got, ref):
+    """A matmul kernel's output against its fp32 plain version; raises past
+    the limit."""
+    diff = ref.float()
     ref_norm = diff.norm().item()
     diff.sub_(got.float())
     e = {"rel_fro": diff.norm().item() / ref_norm,
          "max_abs": diff.abs_().max().item()}
-    if not e["rel_fro"] <= W8_REL_FRO:
-        raise AssertionError(f"matmul_w8 {name}: {e}")
+    if not e["rel_fro"] <= MM_REL_FRO:
+        raise AssertionError(f"{kernel} {name}: {e}")
     return e
 
 
 def phase_dit():
-    """Small bf16 DiT forward: card (kernels) against CPU (plain)."""
+    """Small DiT forwards: card (kernels) against CPU (plain versions)."""
+    import dataclasses
     from wan2gp_tpu_torch.models.wan import dit
     from wan2gp_tpu_torch.ops.rope import build_rope_3d
-    from wan2gp_tpu_torch.runtime.service import quantize_dit_params
+    from wan2gp_tpu_torch.runtime.service import (quantize_dit_params,
+                                                  activation_mode)
     cfg = dit.WanDiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2,
                            text_len=16)
     rng = np.random.default_rng(0)
-    lat = torch.from_numpy(rng.standard_normal((2, 16, 3, 8, 8),
-                                               dtype=np.float32))
     t = torch.tensor([900.0, 250.0])
     ctx = torch.from_numpy(rng.standard_normal((2, 16, 4096),
                                                dtype=np.float32))
-    params = dit.init_wan_dit(torch.Generator().manual_seed(0), cfg)
     out = {}
-    for mode in ("bf16", "int8"):
-        p = params if mode == "bf16" else quantize_dit_params(params, "int8")
+    # (mode, attention backend, latent grid): 1,024 tokens for the sparse
+    # backends (Sol engages from 1,024; radial needs frames x tokens)
+    for mode, backend, grid in (("bf16", "auto", (3, 4, 4)),
+                                ("int8", "auto", (3, 4, 4)),
+                                ("int4", "radial:4:256", (4, 16, 16)),
+                                ("int4a8", "sol", (4, 16, 16))):
+        lat = torch.from_numpy(rng.standard_normal(
+            (2, 16, grid[0], 2 * grid[1], 2 * grid[2]), dtype=np.float32))
+        p = dit.init_wan_dit(torch.Generator().manual_seed(0), cfg)
+        if mode != "bf16":
+            p = quantize_dit_params(p, mode)
+        mcfg = dataclasses.replace(cfg, act_quant=activation_mode(mode))
         res = {}
         for dev in ("cpu", "cuda"):
             pd = _tree_to(p, dev)
-            cos, sin = build_rope_3d((3, 4, 4), head_dim=cfg.head_dim,
-                                     device=dev)
+            cos, sin = build_rope_3d(grid, head_dim=cfg.head_dim, device=dev)
             res[dev] = dit.wan_dit_forward(
-                pd, cfg, lat.to(dev), t.to(dev), ctx.to(dev), cos,
-                sin).float().cpu()
+                pd, mcfg, lat.to(dev), t.to(dev), ctx.to(dev), cos,
+                sin, attn_backend=backend).float().cpu()
         ref_max = res["cpu"].abs().max().item()
         err = (res["cuda"] - res["cpu"]).abs().max().item()
-        out[mode] = {"max_abs": err, "ref_max": ref_max,
+        out[mode] = {"attention": backend, "tokens": int(np.prod(grid)),
+                     "max_abs": err, "ref_max": ref_max,
                      "finite": bool(torch.isfinite(res["cuda"]).all())}
         if not (out[mode]["finite"] and err <= 3e-2 * ref_max):
             raise AssertionError(f"small DiT forward ({mode}): {out[mode]}")
@@ -263,7 +374,8 @@ def time_w8(name, m, k, n):
     x = randn((m, k), gen)
     wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
                                          device="cuda"))
-    err = w8_check(name, x, wq, sc, Q.matmul_w8(x, wq, sc))
+    err = mm_check("matmul_w8", name, Q.matmul_w8(x, wq, sc),
+                   Q.matmul_w8_ref(x.float(), wq, sc))
     w_bf16 = (wq.float() * sc).to(torch.bfloat16)
     ms = cuda_ms(lambda: Q.matmul_w8(x, wq, sc), 20)
     plain_ms = cuda_ms(lambda: Q.matmul_w8_ref(x, wq, sc), 3)
@@ -277,20 +389,175 @@ def time_w8(name, m, k, n):
             "bound_ms": bound_ms, "bound_by": by, "err": err}
 
 
+def _pairs(kv_idx, counts, l, s_len, block_q, block_kv):
+    """(query, key) pairs a table attends, summed over its rows: the work
+    these inputs need.  kv_idx [G, nQb, W], counts [G, nQb]."""
+    keys = torch.clamp(s_len - kv_idx.long() * block_kv, 0, block_kv)
+    slot = torch.arange(kv_idx.shape[-1], device=kv_idx.device)
+    keys = (keys * (slot < counts[..., None])).sum(-1)      # [G, nQb]
+    rows = torch.clamp(l - torch.arange(kv_idx.shape[1],
+                                        device=kv_idx.device) * block_q,
+                       0, block_q)
+    return int((keys * rows).sum().item())
+
+
+def time_sparse(b, l, n, d, frames, tpf):
+    """The radial mask of the 14B 720p grid through sparse_flash."""
+    from wan2gp_tpu_torch.ops import attention as A
+    from wan2gp_tpu_torch.ops import sparse_attention as SP
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (randn((b, l, n, d), gen) for _ in range(3))
+    scale, bq = _scale(q), 512
+    kv_idx, counts, bkv = A._structured_tables(
+        f"radial:{frames}:{tpf}", l, l, bq, 256, str(q.device))
+    got = SP.sparse_flash(q, k, v, kv_idx, counts, scale, bq, bkv)
+    err = attn_check("sparse_flash", "radial_720p", q, k, got,
+                     SP.table_attention_ref(q.float(), k.float(), v.float(),
+                                            kv_idx[None], counts[None],
+                                            scale, bq, bkv)[0])
+    del got
+    ms = cuda_ms(lambda: SP.sparse_flash(q, k, v, kv_idx, counts, scale, bq,
+                                         bkv), 3)
+    plain_ms = cuda_ms(lambda: SP.table_attention_ref(
+        q, k, v, kv_idx[None], counts[None], scale, bq, bkv), 1, warmup=0)
+    pairs = _pairs(kv_idx[None], counts[None], l, l, bq, bkv)
+    # yardstick: SDPA (memory-efficient backend) with the block mask
+    # expanded to a [L, S] additive bf16 bias
+    blocks = torch.zeros((kv_idx.shape[0], -(-l // bkv)), dtype=torch.bool,
+                         device="cuda")
+    slot = torch.arange(kv_idx.shape[1], device="cuda")
+    blocks[torch.arange(kv_idx.shape[0], device="cuda")[:, None]
+           .expand_as(kv_idx)[slot < counts[:, None]],
+           kv_idx.long()[slot < counts[:, None]]] = True
+    dense = blocks.repeat_interleave(bq, 0)[:l].repeat_interleave(bkv, 1)[
+        :, :l]
+    bias = torch.zeros((l, l), dtype=torch.bfloat16, device="cuda")
+    bias.masked_fill_(~dense, float("-inf"))
+    del dense
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias[None, None], scale=scale), 3)
+    del bias, qt, kt, vt
+    torch.cuda.empty_cache()
+    bound_ms, by = bound(4.0 * d * b * n * pairs,
+                         2.0 * (2 * b * l * n * d + 2 * b * l * n * d))
+    return {"shape": [b, l, l, n, d], "block_q": bq, "block_kv": bkv,
+            "density": pairs / (l * l), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention (memory-"
+                            "efficient backend) with the block mask as a "
+                            "[L, S] bf16 bias",
+            "bound_ms": bound_ms, "bound_by": by, "err": err}
+
+
+def time_sol(b, l, n, d):
+    """Sol's exact branch at the 14B 720p shape, tables from sol_route."""
+    from wan2gp_tpu_torch.ops import sparse_attention as SP
+    from wan2gp_tpu_torch.ops import sol_attention as SOL
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (randn((b, l, n, d), gen) for _ in range(3))
+    scale, bq, bkv = _scale(q), 512, 256
+    idx, cnt, _, _ = SOL.sol_route(q, k, scale, 1.0, bq, bkv)
+    got, lse = SOL.sol_flash(q, k, v, idx, cnt, scale, bq, bkv)
+    ref, ref_lse = SP.table_attention_ref(q.float(), k.float(), v.float(),
+                                          idx, cnt, scale, bq, bkv)
+    err = sol_check("sol_720p", q, k, got, lse, ref, ref_lse)
+    del got, lse, ref, ref_lse
+    ms = cuda_ms(lambda: SOL.sol_flash(q, k, v, idx, cnt, scale, bq, bkv), 3)
+    plain_ms = cuda_ms(lambda: SP.table_attention_ref(
+        q, k, v, idx, cnt, scale, bq, bkv), 1, warmup=0)
+    pairs = _pairs(idx, cnt, l, l, bq, bkv)
+    bound_ms, by = bound(4.0 * d * pairs,
+                         2.0 * 4 * b * l * n * d + 4.0 * b * n * l)
+    return {"shape": [b, l, l, n, d], "block_q": bq, "block_kv": bkv,
+            "table_width": idx.shape[-1],
+            "mean_count_over_w": cnt.float().mean().item() / idx.shape[-1],
+            "density": pairs / (b * n * l * l), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library_call": "none: no single PyTorch call computes a "
+                            "per-head table-driven attention",
+            "bound_ms": bound_ms, "bound_by": by, "err": err}
+
+
+def time_w4(m, k, n):
+    """matmul_w4 and matmul_w4a8 at one (M, K, N) of the 14B path."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = randn((m, k), gen)
+    wp, sc = Q.quantize_int4(torch.randn((k, n), generator=gen,
+                                         device="cuda"))
+    name = f"{m}x{k}x{n}"
+    reps = 5 if m * k * n > 1e12 else 20
+    out = {}
+    w_int = Q._unpack_nibbles(wp, k)
+    # W4: bf16 activations
+    err = mm_check("matmul_w4", name, Q.matmul_w4(x, wp, sc),
+                   Q.matmul_w4_ref(x.float(), wp, sc))
+    w_bf16 = (w_int.float() * sc).to(torch.bfloat16)
+    b_ms, b_by = bound(2.0 * m * k * n, 2 * m * k + k * n / 2 + 4 * n
+                       + 2 * m * n)
+    out["matmul_w4"] = {
+        "shape": [m, k, n], "ms": cuda_ms(lambda: Q.matmul_w4(x, wp, sc),
+                                          reps),
+        "plain_ms": cuda_ms(lambda: Q.matmul_w4_ref(x, wp, sc), 1),
+        "library_ms": cuda_ms(lambda: torch.matmul(x, w_bf16), reps),
+        "library_call": "torch.matmul on a bf16 weight dequantized "
+                        "beforehand (reads 2 bytes per weight)",
+        "bound_ms": b_ms, "bound_by": b_by, "err": err}
+    del w_bf16
+    # W4A8: int8 activations (the wrapper quantizes them), int32 product
+    err = mm_check("matmul_w4a8", name, Q.matmul_w4a8(x, wp, sc),
+                   Q.matmul_w4a8_ref(x.float(), wp, sc))
+    xq, _ = Q.quantize_act_int8(x)
+    w_i8 = w_int.contiguous()
+    b_ms, b_by = bound(2.0 * m * k * n, 2 * m * k + k * n / 2 + 4 * n
+                       + 2 * m * n, peak=PEAK_INT8_OPS)
+    out["matmul_w4a8"] = {
+        "shape": [m, k, n], "ms": cuda_ms(lambda: Q.matmul_w4a8(x, wp, sc),
+                                          reps),
+        "act_quant_ms": cuda_ms(lambda: Q.quantize_act_int8(x), reps),
+        "plain_ms": cuda_ms(lambda: Q.matmul_w4a8_ref(x, wp, sc), 1),
+        "library_ms": (cuda_ms(lambda: torch._int_mm(xq, w_i8), reps)
+                       if m > 16 else None),
+        "library_call": "torch._int_mm on the int8 activations and the "
+                        "weight unpacked to int8 beforehand (int32 out, no "
+                        "scales)",
+        "bound_ms": b_ms, "bound_by": b_by, "err": err}
+    del xq, w_i8, w_int
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_time(tokens: int):
     flash = {name: time_flash(name, *shape) for name, shape in (
         ("self_1.3B", (2, tokens, tokens, 12, 128)),
         ("cross_1.3B", (2, tokens, 512, 12, 128)),
-        ("self_14B_720p", (1, 75600, 75600, 40, 128)))}
+        ("self_14B_720p", (1, 75600, 75600, 40, 128)),
+        ("cross_14B_720p", (2, 75600, 512, 40, 128)))}
     w8 = {f"{k}x{n}": time_w8(f"{k}x{n}", 2 * tokens, k, n)
           for k, n in ((1536, 1536), (1536, 8960), (8960, 1536))}
-    emit("time", flash_attention=flash, matmul_w8=w8, tolerance=TOLERANCE)
-    return flash, w8
+    sparse = {"radial_720p": time_sparse(2, 75600, 40, 128, 21, 3600)}
+    sol = {"sol_720p": time_sol(2, 75600, 40, 128)}
+    w4, w4a8 = {}, {}
+    for m, k, n in ((151200, 5120, 5120), (151200, 5120, 13824),
+                    (151200, 13824, 5120), (1024, 5120, 5120)):
+        t = time_w4(m, k, n)
+        w4[f"{m}x{k}x{n}"] = t["matmul_w4"]
+        w4a8[f"{m}x{k}x{n}"] = t["matmul_w4a8"]
+    emit("time", flash_attention=flash, matmul_w8=w8, sparse_flash=sparse,
+         sol_flash=sol, matmul_w4=w4, matmul_w4a8=w4a8, tolerance=TOLERANCE)
+    return {"flash_attention": flash, "matmul_w8": w8,
+            "sparse_flash": sparse, "sol_flash": sol, "matmul_w4": w4,
+            "matmul_w4a8": w4a8}
 
 
 def phase_service(frames: int):
+    """The main paths through GenerationService on cuda, each with the
+    launch counters reset just before its requests and read just after."""
+    from wan2gp_tpu_torch.families import wan as fam
     from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
-    from wan2gp_tpu_torch.ops import attention as A, quant as Q
     from wan2gp_tpu_torch.runtime import service as svc_mod
     from wan2gp_tpu_torch.utils import media
 
@@ -324,60 +591,83 @@ def phase_service(frames: int):
     WanPipeline.denoise = timed("denoise", real_denoise)
     WanPipeline.decode = timed("decode", real_decode)
     out_dir = os.path.join(OUT, "videos")
-    h, w = 480, 832
-    tokens = ((frames - 1) // 4 + 1) * (h // 16) * (w // 16)
-    results = {}
-    for quantize, n_req in (("", 2), ("int8", 1)):
+
+    def run(label, model_type, quantize, attention, n_req, w, h, layers,
+            per_forward):
+        """n_req requests; per_forward: the launches one DiT forward must
+        make, by kernel (the others must make none)."""
+        arch = fam._ARCH[model_type]
+        fam._ARCH[model_type] = {**arch, "num_layers": layers}
         svc = svc_mod.GenerationService(init_random_weights=True,
                                         output_dir=out_dir,
                                         quantize=quantize)
-        t0 = time.perf_counter()
-        svc.get_pipeline("t2v_1.3B")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        A.launches = Q.launches = 0
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            svc.get_pipeline(model_type)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            load_peak = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            fam._ARCH[model_type] = arch
+        reset_counts()
         reqs = []
         for i in range(n_req):
             seen.clear()
             split.clear()
             t0 = time.perf_counter()
             paths = svc.generate({
-                "model_type": "t2v_1.3B", "prompt": f"a red fox {i}",
+                "model_type": model_type, "prompt": f"a red fox {i}",
                 "resolution": f"{w}x{h}", "video_length": frames,
                 "num_inference_steps": STEPS, "guidance_scale": 5.0,
-                "sample_solver": "unipc", "seed": i})
+                "sample_solver": "unipc", "seed": i,
+                "attention_mode": attention})
             req_s = time.perf_counter() - t0
             ok = (len(paths) == 1 and os.path.getsize(paths[0]) > 0
                   and seen and seen[0]["finite"]
                   and seen[0]["shape"] == [frames, h, w, 3])
             if not ok:
-                raise AssertionError(f"request {i} ({quantize or 'bf16'}): "
-                                     f"{paths} {seen}")
+                raise AssertionError(f"{label} request {i}: {paths} {seen}")
             reqs.append({"request_s": req_s, **split,
                          "step_s": split["denoise_s"] / STEPS,
                          "bytes": os.path.getsize(paths[0])})
             os.remove(paths[0])             # frames are stored uncompressed
-        flash_n, w8_n = A.launches, Q.launches
-        mode = quantize or "bf16"
-        want_flash = 60 * STEPS * n_req
-        if flash_n != want_flash:
-            raise AssertionError(f"{mode}: flash_attention launched "
-                                 f"{flash_n} times, want {want_flash}")
-        if quantize and w8_n == 0:
-            raise AssertionError("int8: matmul_w8 never launched")
-        if not quantize and w8_n != 0:
-            raise AssertionError("bf16: matmul_w8 launched")
-        results[mode] = {"requests": reqs, "load_s": load_s,
-                         "launches": {"flash_attention": flash_n,
-                                      "matmul_w8": w8_n}}
+        counts = read_counts()
+        want = {name: per_forward.get(name, 0) * STEPS * n_req
+                for name in counts}
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, want {want}")
         svc.release_model()
         del svc
         torch.cuda.empty_cache()
-    media.save_video = real_save
-    WanPipeline.denoise, WanPipeline.decode = real_denoise, real_decode
-    emit("service", model="t2v_1.3B", resolution=f"{w}x{h}", frames=frames,
-         latent_frames=(frames - 1) // 4 + 1, tokens=tokens, steps=STEPS,
-         guidance_scale=5.0, solver="unipc", **results)
+        return {"model": model_type, "resolution": f"{w}x{h}",
+                "quantize": quantize or "bf16", "attention": attention,
+                "layers": layers, "requests": reqs, "load_s": load_s,
+                "load_peak_gb": load_peak, "launches": counts,
+                "launches_per_forward": per_forward}
+
+    results = {}
+    try:
+        h, w = 480, 832
+        results["bf16"] = run("1.3B bf16", "t2v_1.3B", "", "auto", 2, w, h,
+                              30, {"flash_attention": 60})
+        results["int8"] = run("1.3B int8", "t2v_1.3B", "int8", "auto", 1, w,
+                              h, 30, {"flash_attention": 60,
+                                      "matmul_w8": 300})
+        # 14B at 1280x720: (A) every layer; (B) depth cut to B_LAYERS
+        results["14B_int4a8_sol"] = run(
+            "14B int4a8 sol", "t2v", "int4a8", "sol", 1, 1280, 720, 40,
+            {"sol_flash": 40, "flash_attention": 40, "matmul_w4a8": 400})
+        results["14B_int4_radial"] = run(
+            "14B int4 radial", "t2v", "int4", "radial", 1, 1280, 720,
+            B_LAYERS, {"sparse_flash": B_LAYERS, "flash_attention": B_LAYERS,
+                       "matmul_w4": 10 * B_LAYERS})
+    finally:
+        media.save_video = real_save
+        WanPipeline.denoise, WanPipeline.decode = real_denoise, real_decode
+    emit("service", frames=frames, latent_frames=(frames - 1) // 4 + 1,
+         steps=STEPS, guidance_scale=5.0, solver="unipc",
+         depth_cut=f"14B (B) runs {B_LAYERS} of 40 layers", **results)
     return results
 
 
@@ -429,29 +719,44 @@ def main(argv=None):
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
     phase_env()
-    flash_chk, w8_chk = phase_check()
+    checks = phase_check()
     phase_dit()
     tokens = ((args.frames - 1) // 4 + 1) * 30 * 52
-    flash_t, w8_t = phase_time(tokens)
+    times = phase_time(tokens)
     svc = phase_service(args.frames)
     phase_t5()
-    # errors over every case of the check and time phases
-    flash_errs = [*flash_chk.values(), *(t["err"] for t in flash_t.values())]
-    w8_errs = [*w8_chk.values(), *(t["err"] for t in w8_t.values())]
-    kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "wan2gp_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "wan2gp_tpu/ops/attention.py:33",
-         "launches": svc["bf16"]["launches"]["flash_attention"],
-         "max_abs_err": max(e["max_abs"] for e in flash_errs),
-         "check": "pass", **flash_t["self_1.3B"]},
-        {"name": "matmul_w8", "route": "cuda",
-         "source": "wan2gp_tpu_torch/csrc/w8_matmul.cu",
-         "replaces": "wan2gp_tpu/ops/quant.py:32",
-         "launches": svc["int8"]["launches"]["matmul_w8"],
-         "max_abs_err": max(e["max_abs"] for e in w8_errs),
-         "check": "pass", **w8_t["1536x8960"]},
-    ]
+    # (kernel, source, replaced TPU kernel, service run that counts its
+    # launches, the timed case in the kernels line)
+    table = (
+        ("flash_attention", "flash_attention.cu",
+         "wan2gp_tpu/ops/attention.py:33", "bf16", "self_1.3B"),
+        ("matmul_w8", "w8_matmul.cu", "wan2gp_tpu/ops/quant.py:32", "int8",
+         "1536x8960"),
+        ("sparse_flash", "sparse_flash.cu",
+         "wan2gp_tpu/ops/sparse_attention.py:179", "14B_int4_radial",
+         "radial_720p"),
+        ("sol_flash", "sparse_flash.cu",
+         "wan2gp_tpu/ops/sol_attention.py:166", "14B_int4a8_sol",
+         "sol_720p"),
+        ("matmul_w4", "w4_matmul.cu", "wan2gp_tpu/ops/quant.py:127",
+         "14B_int4_radial", "151200x5120x13824"),
+        ("matmul_w4a8", "w4_matmul.cu", "wan2gp_tpu/ops/quant.py:304",
+         "14B_int4a8_sol", "151200x5120x13824"),
+    )
+    kernels = []
+    for name, src, replaces, run, case in table:
+        # errors over every case of the check and time phases
+        errs = [*checks[name].values(),
+                *(t["err"] for t in times[name].values())]
+        timed = {k: v for k, v in times[name][case].items()
+                 if k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "library_call")}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"wan2gp_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": svc[run]["launches"][name],
+            "max_abs_err": max(e["max_abs"] for e in errs),
+            "check": "pass", **timed})
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi_line(), flush=True)

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of a t2v_1.3B request goes on the GPU (PyTorch port).
+"""Where the time of a t2v request goes on the GPU (PyTorch port).
 
     python3 scripts/profile_torch_step.py [--frames 81] [--out DIR]
+        [--model t2v_1.3B] [--resolution 832x480] [--quantize MODE]
+        [--attention MODE] [--layers N]
 
-Builds the port's random-weight t2v_1.3B pipeline on cuda, then traces with
-torch.profiler one denoise step (one DiT forward with joint CFG, batch 2)
-and one VAE decode of the result, 832x480.  For each window it prints one
-JSON line: wall seconds, device busy seconds (sum of kernel times) and the
-idle share, and device time grouped by kernel family, largest first.  The
-full per-kernel tables go to --out (default wan2gp_tpu_torch/_build/
-profile/).  Needs one CUDA card.
+Builds the port's random-weight pipeline on cuda through GenerationService
+(t2v_1.3B at 832x480 by default; `--model t2v --resolution 1280x720
+--quantize int4a8 --attention sol` is the 14B path), optionally cut to
+`--layers` transformer blocks, then traces with torch.profiler one denoise
+step (one DiT forward with joint CFG, batch 2) and one VAE decode of the
+result.  For each window it prints one JSON line: wall seconds, device busy
+seconds (sum of kernel times) and the idle share, and device time grouped
+by kernel family, largest first.  The full per-kernel tables go to --out
+(default wan2gp_tpu_torch/_build/profile/).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -28,13 +32,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("flash_fwd_kernel", "flash_attention (port kernel)"),
+    ("sparse_flash_kernel", "sparse/sol flash (port kernel)"),
     ("w8_matmul_kernel", "matmul_w8 (port kernel)"),
+    ("w4a8_matmul_kernel", "matmul_w4a8 (port kernel)"),
+    ("w4_matmul_kernel", "matmul_w4 (port kernel)"),
     # cuDNN's implicit-GEMM convolutions also say "gemm": match them first
     ("fprop", "cuDNN convolution"), ("conv", "cuDNN convolution"),
     ("implicit", "cuDNN convolution"), ("winograd", "cuDNN convolution"),
     ("fft", "cuDNN convolution"),
     ("gemm", "cuBLAS GEMM"), ("sm90_xmma", "cuBLAS GEMM"),
     ("cutlass", "cuBLAS GEMM"), ("nvjet", "cuBLAS GEMM"),
+    ("sort", "sort/gather/scatter"), ("gather", "sort/gather/scatter"),
+    ("scatter", "sort/gather/scatter"), ("index", "sort/gather/scatter"),
     ("reduce", "reductions"), ("norm", "reductions"),
     ("softmax", "softmax"),
     ("elementwise", "elementwise"), ("vectorized", "elementwise"),
@@ -83,6 +92,12 @@ def trace(label, fn, out_dir):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=81)
+    ap.add_argument("--model", default="t2v_1.3B")
+    ap.add_argument("--resolution", default="832x480")
+    ap.add_argument("--quantize", default="")
+    ap.add_argument("--attention", default="auto")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="transformer blocks to build (0: all)")
     ap.add_argument("--out", default=os.path.join(
         REPO, "wan2gp_tpu_torch", "_build", "profile"))
     args = ap.parse_args(argv)
@@ -90,16 +105,29 @@ def main(argv=None):
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from wan2gp_tpu_torch.families.wan import WanFamilyHandler
+    from wan2gp_tpu_torch.families import wan as fam
     from wan2gp_tpu_torch.models.wan.pipeline import SamplingConfig
+    from wan2gp_tpu_torch.runtime.service import GenerationService
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
-    pipe = WanFamilyHandler.load_model("t2v_1.3B", {}, init_random=True)
+    arch = fam._ARCH[args.model]
+    if args.layers:
+        fam._ARCH[args.model] = {**arch, "num_layers": args.layers}
+    svc = GenerationService(init_random_weights=True,
+                            quantize=args.quantize)
+    pipe = svc.get_pipeline(args.model)
+    fam._ARCH[args.model] = arch
+    pipe.attn_backend = args.attention
+    w, h = (int(v) for v in args.resolution.split("x"))
+    print(json.dumps({"model": args.model, "resolution": args.resolution,
+                      "frames": args.frames, "quantize": args.quantize,
+                      "attention": args.attention,
+                      "layers": pipe.dit_cfg.num_layers}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    lat = torch.randn(pipe.latent_shape(args.frames, 480, 832),
+    lat = torch.randn(pipe.latent_shape(args.frames, h, w),
                       generator=gen, device="cuda")
     ctx = pipe.encode_text(["a red fox"])
     ctx_null = pipe.encode_text(["blurry"])

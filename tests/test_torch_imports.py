@@ -30,6 +30,8 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.models.wan.t5",
     "wan2gp_tpu_torch.models.wan.vae_scan",
     "wan2gp_tpu_torch.ops.attention",
+    "wan2gp_tpu_torch.ops.sparse_attention",
+    "wan2gp_tpu_torch.ops.sol_attention",
     "wan2gp_tpu_torch.ops.quant",
     "wan2gp_tpu_torch.convert",
     "wan2gp_tpu_torch.utils.media",
@@ -121,11 +123,17 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
 
 def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
     from wan2gp_tpu_torch.ops import attention, quant
+    from wan2gp_tpu_torch.ops import sparse_attention as sparse
+    from wan2gp_tpu_torch.ops import sol_attention as sol
 
     def plain(*args, **kwargs):
         raise AssertionError("plain version called for a non-CPU tensor")
     monkeypatch.setattr(attention, "flash_attention_ref", plain)
-    monkeypatch.setattr(quant, "matmul_w8_ref", plain)
+    for mod, name in ((quant, "matmul_w8_ref"), (quant, "matmul_w4_ref"),
+                      (quant, "matmul_w4a8_ref"),
+                      (sparse, "table_attention_ref"),
+                      (sol, "table_attention_ref")):
+        monkeypatch.setattr(mod, name, plain)
     q = torch.empty((1, 8, 2, 64), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         attention.attention(q, q, q)
@@ -136,4 +144,17 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
         quant.matmul_w8(x, w, s)
     with pytest.raises(ValueError, match="CUDA"):
         quant.dense_quant(x, {"w_q": w, "scale": s})
+    w4 = torch.empty((64, 16), dtype=torch.int8, device="meta")
+    for act in ("bf16", "int8"):
+        with pytest.raises(ValueError, match="CUDA"):
+            quant.dense_quant(x, {"w_q4": w4, "scale": s}, act_quant=act)
+    tables = (torch.zeros((1, 1), dtype=torch.int32, device="meta"),
+              torch.ones((1,), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse.sparse_flash(q, q, q, *tables, 0.125, 64, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        sol.sol_flash(q, q, q, tables[0][None], tables[1][None], 0.125, 64,
+                      64)
     assert attention.launches == 0 and quant.launches == 0
+    assert quant.w4_launches == quant.w4a8_launches == 0
+    assert sparse.launches == sol.launches == 0

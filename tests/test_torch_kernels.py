@@ -7,16 +7,20 @@ which has no JAX, it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 Tolerances, from the same bf16 inputs with the plain version in fp32:
-flash attention max abs err <= 2e-2 and mean abs err <= 2e-3 (bf16 rounding
-of q*scale and of P, and the summation order); int8 matmul relative
-Frobenius error <= 1e-2.
+flash attention, block-sparse and Sol flash max abs err <= 2e-2 and mean
+abs err <= 2e-3 (bf16 rounding of q*scale and of P, and the summation
+order), Sol's logsumexp max abs err <= 1e-2; int8 and int4 matmuls
+relative Frobenius error <= 1e-2.
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from wan2gp_tpu_torch.ops import attention, quant
+from wan2gp_tpu_torch.ops import sparse_attention as sparse
+from wan2gp_tpu_torch.ops import sol_attention as sol
 
 
 @pytest.fixture()
@@ -93,3 +97,66 @@ def test_w8_kernel_rejects_what_it_does_not_take(gen):
         quant.matmul_w8(x.float(), wq, s)
     with pytest.raises(ValueError):
         quant.matmul_w8(x.t(), wq[:8], s)
+
+
+def _tables_close(got, ref):
+    err = (got.float() - ref.float()).abs()
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,block_q,block_kv", [(1000, 128, 64),
+                                                (777, 64, 256),
+                                                (2048, 512, 256)])
+def test_sparse_flash_kernel_matches_plain(gen, l, block_q, block_kv):
+    q, k, v = (_randn((2, l, 3, 128), gen) for _ in range(3))
+    rng = np.random.default_rng(l)
+    mask = rng.random((-(-l // block_q), -(-l // block_kv))) < 0.5
+    mask[1] = False                                # a row with count 0
+    kv_idx, counts = (torch.from_numpy(a).cuda()
+                      for a in sparse.compress_block_mask(mask))
+    before = sparse.launches
+    got = sparse.sparse_flash(q, k, v, kv_idx, counts, 0.088, block_q,
+                              block_kv)
+    torch.cuda.synchronize()
+    assert sparse.launches == before + 1
+    ref = sparse.table_attention_ref(q.float(), k.float(), v.float(),
+                                     kv_idx[None], counts[None], 0.088,
+                                     block_q, block_kv)[0]
+    _tables_close(got, ref)
+    assert not got[:, block_q:2 * block_q].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1500, 2048])
+def test_sol_flash_kernel_matches_plain(gen, l):
+    q, k, v = (_randn((2, l, 2, 128), gen) for _ in range(3))
+    idx, cnt, _, _ = sol.sol_route(q, k, 0.088, 0.5, 512, 256, budget=0.5)
+    cnt[1, 0] = 0                                  # a row with count 0
+    before = sol.launches
+    out, lse = sol.sol_flash(q, k, v, idx, cnt, 0.088, 512, 256)
+    torch.cuda.synchronize()
+    assert sol.launches == before + 1
+    ref, ref_lse = sparse.table_attention_ref(q.float(), k.float(),
+                                              v.float(), idx, cnt, 0.088,
+                                              512, 256)
+    _tables_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 5120, 5120), (77, 13824, 512),
+                                   (129, 1000, 200), (33, 100, 51)])
+def test_w4_and_w4a8_kernels_match_plain(gen, m, k, n):
+    x = _randn((m, k), gen)
+    wp, s = quant.quantize_int4(torch.randn((k, n), generator=gen,
+                                            device="cuda"))
+    for fn, ref_fn, counter in (
+            (quant.matmul_w4, quant.matmul_w4_ref, "w4_launches"),
+            (quant.matmul_w4a8, quant.matmul_w4a8_ref, "w4a8_launches")):
+        before = getattr(quant, counter)
+        got = fn(x, wp, s).float()
+        torch.cuda.synchronize()
+        assert getattr(quant, counter) == before + 1
+        ref = ref_fn(x.float(), wp, s).float()
+        assert ((got - ref).norm() / ref.norm()).item() <= 1e-2

@@ -163,6 +163,11 @@ def test_api_and_cli(tiny_arch, tmp_path):
                      "--solver", "unipc", "--resolution", "32x32",
                      "--frames", "1", "--steps", "1", "--quantize", "int8",
                      "--output-dir", str(tmp_path / "cli")]) == 0
+    assert cli.main(["--random-weights", "--device", "cpu", "--prompt", "x",
+                     "--resolution", "32x32", "--frames", "1", "--steps",
+                     "1", "--quantize", "int4a8", "--attention", "sol",
+                     "--output-dir", str(tmp_path / "cli")]) == 0
+    assert len(os.listdir(tmp_path / "cli")) == 3
     queue = tmp_path / "queue.json"
     queue.write_text(json.dumps({"tasks": [
         {"settings": {"prompt": "a", "resolution": "32x32",

@@ -42,6 +42,9 @@ class WanDiTConfig:
     model_type: str = "t2v"
     compute_dtype: Any = torch.bfloat16
     residual_dtype: Any = torch.float32
+    # activations of the quantized block linears: "bf16" (compute dtype) or
+    # "int8" (per-row dynamic int8, W4A8); set by the service's quantize
+    act_quant: str = "bf16"
 
     @property
     def head_dim(self):
@@ -52,14 +55,15 @@ class WanDiTConfig:
 # Parameter initialization (random weights; checkpoints would replace them)
 # ---------------------------------------------------------------------------
 
+# in place: a stacked 14B weight is 11.3 GB in fp32, one temporary is enough
 def _uniform(gen, shape, limit, dtype):
     w = torch.rand(shape, generator=gen, device=gen.device)
-    return (w * (2 * limit) - limit).to(dtype)
+    return w.mul_(2 * limit).sub_(limit).to(dtype)
 
 
 def _normal(gen, shape, std, dtype):
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            * std).to(dtype)
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(
+        std).to(dtype)
 
 
 def _linear(gen, n, d_in, d_out, dtype, std=None, bias=True):
@@ -137,13 +141,14 @@ def layer_params(tree, i: int):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _dense(x, p, dtype=None):
+def _dense(x, p, dtype=None, act_quant: str = "bf16"):
     """x @ W + b: products in `dtype`, bias added in fp32, cast to `dtype`.
-    int8 params {w_q, scale} go through the dequant-fused matmul."""
+    Quantized params {w_q|w_q4, scale} go through the dequant-fused
+    matmuls, with activations as `act_quant` says."""
     dtype = dtype or x.dtype
     if "w_q" in p or "w_q4" in p:
         from ...ops.quant import dense_quant
-        return dense_quant(x, p, dtype)
+        return dense_quant(x, p, dtype, act_quant=act_quant)
     y = torch.matmul(x.to(dtype), p["w"].to(dtype))
     if "b" in p:
         y = y.float() + p["b"].float()
@@ -186,34 +191,34 @@ def _heads(x, n):
 
 
 def _self_attention(p, x, rope_cos, rope_sin, cfg, attn_backend):
-    cdt = cfg.compute_dtype
+    cdt, aq = cfg.compute_dtype, cfg.act_quant
     xc = x.to(cdt)
-    q = rms_norm(_dense(xc, p["q"], cdt), p["norm_q"], cfg.eps)
-    k = rms_norm(_dense(xc, p["k"], cdt), p["norm_k"], cfg.eps)
-    v = _heads(_dense(xc, p["v"], cdt), cfg.num_heads)
+    q = rms_norm(_dense(xc, p["q"], cdt, aq), p["norm_q"], cfg.eps)
+    k = rms_norm(_dense(xc, p["k"], cdt, aq), p["norm_k"], cfg.eps)
+    v = _heads(_dense(xc, p["v"], cdt, aq), cfg.num_heads)
     q = apply_rope(_heads(q, cfg.num_heads), rope_cos, rope_sin)
     k = apply_rope(_heads(k, cfg.num_heads), rope_cos, rope_sin)
     o = attention(q, k, v, backend=attn_backend)
-    return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt)
+    return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt, aq)
 
 
 def _cross_attention(p, x, context, cfg, attn_backend):
-    cdt = cfg.compute_dtype
+    cdt, aq = cfg.compute_dtype, cfg.act_quant
     xc = x.to(cdt)
-    q = _heads(rms_norm(_dense(xc, p["q"], cdt), p["norm_q"], cfg.eps),
+    q = _heads(rms_norm(_dense(xc, p["q"], cdt, aq), p["norm_q"], cfg.eps),
                cfg.num_heads)
-    k = _heads(rms_norm(_dense(context, p["k"], cdt), p["norm_k"], cfg.eps),
-               cfg.num_heads)
-    v = _heads(_dense(context, p["v"], cdt), cfg.num_heads)
+    k = _heads(rms_norm(_dense(context, p["k"], cdt, aq), p["norm_k"],
+                        cfg.eps), cfg.num_heads)
+    v = _heads(_dense(context, p["v"], cdt, aq), cfg.num_heads)
     o = attention(q, k, v, backend=attn_backend)
-    return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt)
+    return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt, aq)
 
 
 def _ffn(p, y, cfg):
-    cdt = cfg.compute_dtype
-    h = _dense(y.to(cdt), p["fc1"], cdt)
+    cdt, aq = cfg.compute_dtype, cfg.act_quant
+    h = _dense(y.to(cdt), p["fc1"], cdt, aq)
     h = F.gelu(h.float(), approximate="tanh").to(cdt)
-    return _dense(h, p["fc2"], cdt)
+    return _dense(h, p["fc2"], cdt, aq)
 
 
 def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend):

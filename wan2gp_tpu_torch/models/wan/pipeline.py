@@ -185,6 +185,19 @@ class WanPipeline:
         return (batch, self.dit_cfg.out_dim, (frame_num - 1) // st + 1,
                 height // sh, width // sw)
 
+    def resolved_backend(self, lat_shape):
+        """Expand a user-level sparse attention mode into the backend
+        string of ops/attention.py: "radial"/"sparse" become
+        "radial:<frames>:<tokens_per_frame>" from the latent grid; anything
+        else passes through unchanged."""
+        ab = self.attn_backend
+        if ab in ("radial", "sparse"):
+            pt, ph, pw = self.dit_cfg.patch_size
+            f = lat_shape[2] // pt
+            tpf = (lat_shape[3] // ph) * (lat_shape[4] // pw)
+            return f"radial:{f}:{tpf}"
+        return ab
+
     def _rope(self, lat_shape, enable_riflex=False):
         pt, ph, pw = self.dit_cfg.patch_size
         grid = (lat_shape[2] // pt, lat_shape[3] // ph, lat_shape[4] // pw)
@@ -208,11 +221,12 @@ class WanPipeline:
                  torch.zeros_like(latents))
         context = context.to(self.device)
         context_null = context_null.to(self.device)
+        backend = self.resolved_backend(latents.shape)
         for start, end, g, _ in segments:
             carry = denoise_segment(self.dit_params, self.dit_cfg, schedule,
                                     carry, context, context_null, sampling,
                                     g, rope_cos, rope_sin, start, end,
-                                    attn_backend=self.attn_backend)
+                                    attn_backend=backend)
         return carry[0]
 
     def decode(self, latents_bcfhw, mode: str = "auto"):

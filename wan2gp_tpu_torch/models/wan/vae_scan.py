@@ -15,10 +15,17 @@ from .vae import (WanVAEConfig, decoder_plan, causal_conv3d, vae_rms_norm,
                   _attnblock, _up2d, _interleave_time, _stats, no_tf32)
 
 
+def _last2(ext):
+    """The last two frames as a tensor of their own: a view would keep the
+    whole concatenation alive until the next chunk (2.1 GB a cache at
+    1280x720)."""
+    return ext[:, :, -2:].contiguous()
+
+
 def _cached_conv(x, p, cache):
     """kt=3 causal conv with an explicit 2-frame input history."""
     ext = torch.cat([cache, x], dim=2)
-    return causal_conv3d(ext, p["w"], p["b"], time_pad=0), ext[:, :, -2:]
+    return causal_conv3d(ext, p["w"], p["b"], time_pad=0), _last2(ext)
 
 
 def _res_cached(p, x, caches, idx):
@@ -40,7 +47,7 @@ def _up3d_cached(p, x, caches, idx, first: bool):
     ext = torch.cat([caches[idx], x], dim=2)
     rest = causal_conv3d(ext, p["time_conv"]["w"], p["time_conv"]["b"],
                          time_pad=0)
-    caches[idx] = ext[:, :, -2:]
+    caches[idx] = _last2(ext)
     return _up2d(p, _interleave_time(rest, x.shape[1])), idx + 1
 
 

@@ -17,7 +17,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-KERNEL_SOURCES = ("flash_attention", "w8_matmul")
+KERNEL_SOURCES = ("flash_attention", "w8_matmul", "sparse_flash",
+                  "w4_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -30,6 +31,19 @@ ENTRY_POINTS = {
     "w8_matmul": {
         # x, w_q, scale, y, M, N, K, stream
         "wg_w8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P]},
+    "sparse_flash": {
+        # q, k, v, o, kv_idx, counts, B, L, S, N, D, nQb, maxA, block_q,
+        # block_kv, strides[12], scale, stream
+        "wg_sparse_flash_bf16": [_P] * 6 + [_I] * 9
+                                + [_P, ctypes.c_float, _P],
+        # q, k, v, o, lse, kv_idx, counts, B, L, S, N, D, nQb, W, block_q,
+        # block_kv, strides[12], scale, stream
+        "wg_sol_flash_bf16": [_P] * 7 + [_I] * 9 + [_P, ctypes.c_float, _P]},
+    "w4_matmul": {
+        # x, w_p, scale, y, M, N, K, KP/2, stream
+        "wg_w4_matmul_bf16": [_P] * 4 + [_I] * 4 + [_P],
+        # x_q, sx, w_p, scale, y, M, N, K, KP/2, stream
+        "wg_w4a8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
 }
 
 _libs = {}

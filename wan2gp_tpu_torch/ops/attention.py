@@ -4,13 +4,19 @@ Counterpart of wan2gp_tpu/ops/attention.py.  Semantics: scaled dot-product
 attention over [B, L, N, D] tensors, default scale 1/sqrt(D), softmax in
 fp32.  On a CUDA tensor the dense backends ("auto", "pallas", "xla")
 launch the hand-written kernel of csrc/flash_attention.cu; on a CPU tensor
-they run its plain PyTorch version, `flash_attention_ref`.
+they run its plain PyTorch version, `flash_attention_ref`.  The structured
+sparse backends ("radial:<frames>:<tokens_per_frame>[:<decay>]",
+"swa:<window>[:<sink>]") go to ops/sparse_attention.py and Sol-Attn
+("sol[:tau[:budget[:thresh_type]]]") to ops/sol_attention.py, for
+self-attention; cross-attention and masked calls take the dense kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -18,9 +24,6 @@ from . import _cuda
 _NEG_INF = -1e30
 _DENSE_BACKENDS = ("auto", "pallas", "pallas_interpret", "xla")
 _LATER = {
-    "radial": "ROADMAP Queue 2: ops/sparse_attention.py::_sparse_flash_kernel",
-    "swa": "ROADMAP Queue 2: ops/sparse_attention.py::_sparse_flash_kernel",
-    "sol": "ROADMAP Queue 2: ops/sol_attention.py::_sol_flash_kernel",
     "ring": "ROADMAP Queue 1: parallel/ (ring attention)",
     "ulysses": "ROADMAP Queue 1: parallel/ (Ulysses attention)",
 }
@@ -114,10 +117,97 @@ def flash_attention(q, k, v, scale: float):
     return o
 
 
+@functools.lru_cache(maxsize=32)
+def _structured_block_mask(spec: str, l: int, s: int, block_q: int,
+                           block_kv: int):
+    """Host-static [nQb, nKb] block mask for a parameterized sparse
+    backend string, or None when the spec does not apply to the (l, s)
+    shape (the caller then takes dense attention):
+      "radial:<frames>:<tokens_per_frame>[:<decay_base>]"
+      "swa:<window_blocks>[:<sink_blocks>]" """
+    from .sparse_attention import (radial_band_block_mask,
+                                   local_window_block_mask)
+    parts = spec.split(":")
+    kind, args = parts[0], parts[1:]
+    if l != s:
+        return None
+    if kind == "radial":
+        if len(args) < 2:
+            return None
+        frames, tpf = int(args[0]), int(args[1])
+        decay = int(args[2]) if len(args) > 2 else 1
+        if frames * tpf != l or frames < 2:
+            return None
+        return radial_band_block_mask(frames, tpf, block=block_q,
+                                      decay_base=decay, block_kv=block_kv)
+    if kind == "swa":
+        window = int(args[0]) if args else 4
+        sink = int(args[1]) if len(args) > 1 else 1
+        nkb = -(-l // block_kv)
+        m = local_window_block_mask(nkb * block_kv, block_kv, window, sink)
+        rq = block_q // block_kv
+        if rq > 1:                      # group kv-granularity rows (any)
+            pad = -len(m) % rq
+            if pad:
+                m = np.concatenate([m, np.zeros((pad, m.shape[1]), bool)])
+            m = m.reshape(-1, rq, m.shape[1]).any(axis=1)
+        return m
+    return None
+
+
+@functools.lru_cache(maxsize=32)
+def _structured_tables(spec: str, l: int, s: int, block_q: int,
+                       block_kv: int, device: str):
+    """(kv_idx, counts, block_kv) on `device` for a structured spec, or
+    None.  The JAX package promotes the kv block while its table would
+    exceed 400 KB (a TPU scalar-memory limit); the same rule is kept so
+    that both packages pick the same mask (it does not trigger at 720p)."""
+    from .sparse_attention import compress_block_mask
+    while True:
+        mask = _structured_block_mask(spec, l, s, block_q, block_kv)
+        if mask is None:
+            return None
+        kv_idx, counts = compress_block_mask(np.asarray(mask))
+        if block_kv >= 1024 or kv_idx.size * 4 <= 400 * 1024:
+            break
+        block_kv *= 2
+    return (torch.from_numpy(kv_idx).to(device),
+            torch.from_numpy(counts).to(device), block_kv)
+
+
+def _structured_sparse(q, k, v, backend: str, scale: float,
+                       block_q: int = 512, block_kv: int = 256):
+    """Dispatch a "radial:..."/"swa:..." backend; None when not applicable.
+    The tables are built once per shape and device and kept there."""
+    from .sparse_attention import sparse_flash
+    tables = _structured_tables(backend, q.shape[1], k.shape[1], block_q,
+                                block_kv, str(q.device))
+    if tables is None:
+        return None
+    kv_idx, counts, block_kv = tables
+    return sparse_flash(q, k, v, kv_idx, counts, scale, block_q, block_kv)
+
+
 def attention(q, k, v, scale: float | None = None, backend: str = "auto",
               kv_mask=None):
     """Scaled dot-product attention, q: [B, L, N, D]; k, v: [B, S, N, D].
     Returns [B, L, N, D] in q.dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if backend.startswith(("radial", "swa")):
+        if kv_mask is None:
+            out = _structured_sparse(q, k, v, backend, scale)
+            if out is not None:
+                return out
+        backend = "auto"
+    if backend.startswith("sol"):
+        # self-attention from 1,024 tokens on, as in the JAX package
+        if kv_mask is None and q.shape[1] == k.shape[1] \
+                and q.shape[1] >= 1024:
+            from .sol_attention import sol_attention, parse_sol_backend
+            return sol_attention(q, k, v, scale=scale,
+                                 **parse_sol_backend(backend))
+        backend = "auto"
     kind = backend.split(":", 1)[0]
     if kind in _LATER:
         raise NotImplementedError(
@@ -129,6 +219,4 @@ def attention(q, k, v, scale: float | None = None, backend: str = "auto",
         raise NotImplementedError(
             "attention with kv_mask is not ported yet (ROADMAP Queue 2: "
             "ops/attention.py::_flash_kernel_kvmask)")
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
     return flash_attention(q, k, v, scale)

@@ -1,18 +1,33 @@
-"""int8 weight-only quantization and the dequant-fused matmul kernel.
+"""Weight-quantized linears and their dequant-fused matmul kernels.
 
-Counterpart of wan2gp_tpu/ops/quant.py.  Layout: w_q int8 [K, N] with a
-per-output-channel fp32 scale [N], so y = (x @ w_q) * scale.  On a CUDA
-tensor `matmul_w8` launches the hand-written kernel of csrc/w8_matmul.cu;
-on a CPU tensor it runs its plain version, `matmul_w8_ref`.
+Counterpart of wan2gp_tpu/ops/quant.py.  Layouts: int8 w_q [K, N] with a
+per-output-channel fp32 scale [N], so y = (x @ w_q) * scale; int4 w_q4
+packed split-K as int8 [KP/2, N] (quantize_int4).  Activations run in the
+compute dtype, or, with act_quant="int8", as per-row dynamic int8
+(quantize_act_int8).  On a CUDA tensor `matmul_w8` launches the kernel of
+csrc/w8_matmul.cu and `matmul_w4` / `matmul_w4a8` those of
+csrc/w4_matmul.cu; on a CPU tensor each runs its plain version
+(`matmul_w8_ref`, `matmul_w4_ref`, `matmul_w4a8_ref`).
+
+The activation mode is an argument, threaded from the DiT config, not a
+process-wide setting: a service created after another keeps its own.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
 
-# plain integer count of kernel launches (read and reset by callers)
-launches = 0
+# plain integer counts of kernel launches (read and reset by callers)
+launches = 0            # matmul_w8
+w4_launches = 0         # matmul_w4
+w4a8_launches = 0       # matmul_w4a8
+
+# packed-row block of the int4 layout: K is padded to a multiple of 2x this
+W4_BLOCK_K = 512
+# rows per pass of quantize_act_int8, so its fp32 temporaries stay ~256 MB
+_ACT_BYTES = 1 << 28
 
 
 def quantize_int8(w):
@@ -76,17 +91,167 @@ def matmul_w8(x, w_q, scale):
     return y
 
 
-def dense_quant(x, p, dtype=None):
-    """Dense layer over int8 params {w_q, scale[, b]}; x: [..., K] ->
-    [..., N] in `dtype` (default x.dtype).  The bias is added in fp32."""
-    if "w_q4" in p:
-        raise NotImplementedError(
-            "int4 weights are not ported yet (ROADMAP Queue 2: "
-            "ops/quant.py::_w4_kernel)")
+# ---------------------------------------------------------------- int4
+
+def quantize_int4(w, block_k: int = W4_BLOCK_K):
+    """Per-output-channel symmetric int4 quantization of [K, N] ->
+    (packed int8 [KP/2, N], scale fp32 [N]), KP = K padded up to a
+    multiple of 2*block_k.  Packed row r holds row r in its low nibble and
+    row KP/2 + r in its high nibble."""
+    w = w.float()
+    k = w.shape[0]
+    absmax = w.abs().amax(dim=0)
+    scale = torch.where(absmax > 0, absmax / 7.0, torch.ones_like(absmax))
+    w_q = torch.clamp(torch.round(w / scale[None, :]), -7, 7).to(torch.int16)
+    kp = -(-k // (2 * block_k)) * (2 * block_k)
+    if kp != k:
+        w_q = F.pad(w_q, (0, 0, 0, kp - k))
+    packed = (w_q[:kp // 2] & 0xF) | ((w_q[kp // 2:] & 0xF) << 4)
+    return packed.to(torch.uint8).view(torch.int8), scale
+
+
+def unpack_int4(w_p, scale, k_orig: int):
+    """Dequantize packed int4 back to fp32 [K, N]."""
+    return _unpack_nibbles(w_p, k_orig).float() * scale.float()[None, :]
+
+
+def _unpack_nibbles(w_p, k: int):
+    """Packed int8 [KP/2, N] -> sign-extended int8 [K, N]."""
+    p = w_p.to(torch.int16)
+    lo = (p << 12) >> 12                 # low nibble, sign-extended
+    hi = p >> 4                          # arithmetic shift: signed
+    return torch.cat([lo, hi], dim=0)[:k].to(torch.int8)
+
+
+def matmul_w4_ref(x, w_p, scale):
+    """Plain version: x [M, K] float, w_p packed [KP/2, N], scale [N] ->
+    [M, N] in x.dtype; fp32 products, scale at the end."""
+    w = _unpack_nibbles(w_p, x.shape[1]).float()
+    return (torch.matmul(x.float(), w) * scale.float()).to(x.dtype)
+
+
+def quantize_act_int8(x):
+    """x: [M, K] float -> (x_q int8 [M, K], sx fp32 [M, 1]), per-row
+    symmetric: absmax over a bf16 view of x, sx = max(absmax, 1e-8) / 127,
+    x_q = round-half-even(x_bf16 / sx) clipped to +-127, as in the JAX
+    package.  Runs in row blocks so no fp32 copy of a whole [151,200,
+    13,824] activation is made."""
+    m, k = x.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    rows = max(1, _ACT_BYTES // (4 * max(k, 1)))
+    for i in range(0, m, rows):
+        xb = x[i:i + rows].to(torch.bfloat16)
+        absmax = xb.abs().amax(dim=-1, keepdim=True).float()
+        s = torch.clamp(absmax, min=1e-8) / 127.0
+        sx[i:i + rows] = s
+        xq[i:i + rows] = torch.clamp(torch.round(xb.float() / s),
+                                     -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def matmul_w4a8_ref(x, w_p, scale):
+    """Plain version: x [M, K] float -> int8 activations, an exact integer
+    product (fp32 holds every partial sum: |sum| <= 127*7*K < 2^24 for K
+    up to 18,000), then (acc * scale) * sx -> [M, N] in x.dtype."""
+    xq, sx = quantize_act_int8(x)
+    acc = torch.matmul(xq.float(), _unpack_nibbles(w_p, x.shape[1]).float())
+    return (acc * scale.float() * sx).to(x.dtype)
+
+
+def _check_w4_inputs(name, x, w_p, scale, x_dtype):
+    if not (x.is_cuda and w_p.is_cuda and scale.is_cuda):
+        raise ValueError(f"{name}: x, w_p and scale must all be CUDA "
+                         f"tensors")
+    if len({x.device, w_p.device, scale.device}) != 1:
+        raise ValueError(f"{name}: inputs on different devices")
+    if x.dtype != x_dtype or w_p.dtype != torch.int8 \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes {x_dtype} x, int8 w_p, fp32 "
+                        f"scale; got {x.dtype}, {w_p.dtype}, {scale.dtype}")
+    if x.ndim != 2 or w_p.ndim != 2 or scale.ndim != 1 \
+            or scale.shape[0] != w_p.shape[1]:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)} w_p "
+                         f"{tuple(w_p.shape)} scale {tuple(scale.shape)}")
+    m, k = x.shape
+    kh = w_p.shape[0]
+    if not k <= 2 * kh or kh % 64:
+        raise ValueError(f"{name}: w_p has {kh} packed rows for K={k}; "
+                         f"want K <= 2*rows and rows a multiple of 64 "
+                         f"(quantize_int4's layout)")
+    if not (x.is_contiguous() and w_p.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError(f"{name}: x, w_p and scale must be contiguous")
+    if m == 0 or k == 0 or w_p.shape[1] == 0:
+        raise ValueError(f"{name}: empty operand")
+    if -(-m // 128) > 65535:
+        raise ValueError(f"{name}: M={m} exceeds the kernel's grid")
+
+
+def matmul_w4(x, w_p, scale):
+    """x: [M, K]; w_p: packed int4 [KP/2, N]; scale: [N] -> [M, N] in
+    x.dtype.  CPU tensors run `matmul_w4_ref`; CUDA tensors launch the
+    kernel (bf16 x, any M, N, K <= KP) or raise."""
+    global w4_launches
+    if x.device.type == "cpu":
+        return matmul_w4_ref(x, w_p, scale)
+    _check_w4_inputs("matmul_w4", x, w_p, scale, torch.bfloat16)
+    m, k = x.shape
+    kh, n = w_p.shape
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _cuda.library("w4_matmul")
+    _cuda.check(lib.wg_w4_matmul_bf16(
+        x.data_ptr(), w_p.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n,
+        k, kh, _cuda.stream_handle(x)), "matmul_w4 launch")
+    w4_launches += 1
+    return y
+
+
+def matmul_w4a8(x, w_p, scale):
+    """x: [M, K] float; w_p: packed int4 [KP/2, N]; scale: [N] -> [M, N] in
+    x.dtype, through int8 activations (quantize_act_int8) and an int32
+    product.  CPU tensors run `matmul_w4a8_ref`; CUDA tensors launch the
+    kernel (bf16 out, any M, N, K <= KP) or raise."""
+    global w4a8_launches
+    if x.device.type == "cpu":
+        return matmul_w4a8_ref(x, w_p, scale)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"matmul_w4a8 kernel writes bf16; got x {x.dtype}")
+    xq, sx = quantize_act_int8(x)
+    _check_w4_inputs("matmul_w4a8", xq, w_p, scale, torch.int8)
+    m, k = x.shape
+    kh, n = w_p.shape
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _cuda.library("w4_matmul")
+    _cuda.check(lib.wg_w4a8_matmul(
+        xq.data_ptr(), sx.data_ptr(), w_p.data_ptr(), scale.data_ptr(),
+        y.data_ptr(), m, n, k, kh, _cuda.stream_handle(x)),
+        "matmul_w4a8 launch")
+    w4a8_launches += 1
+    return y
+
+
+# ----------------------------------------------------------- dense layer
+
+def dense_quant(x, p, dtype=None, act_quant: str = "bf16"):
+    """Dense layer over quantized params {w_q|w_q4, scale[, b]}; x: [..., K]
+    -> [..., N] in `dtype` (default x.dtype).  act_quant "int8" runs int4
+    weights through the W4A8 kernel (int8 activations); "bf16" keeps the
+    activations in `dtype`.  The bias is added in fp32."""
     dtype = dtype or x.dtype
     lead = x.shape[:-1]
     xk = x.reshape(-1, x.shape[-1]).to(dtype).contiguous()
-    y = matmul_w8(xk, p["w_q"], p["scale"]).float()
+    if act_quant not in ("bf16", "int8"):
+        raise ValueError(f"unknown activation mode {act_quant!r}")
+    if "w_q4" in p:
+        mm = matmul_w4a8 if act_quant == "int8" else matmul_w4
+        y = mm(xk, p["w_q4"], p["scale"]).float()
+    elif act_quant == "int8":
+        raise NotImplementedError(
+            "int8 activations with int8 weights are not ported yet "
+            "(ROADMAP Queue 2: ops/quant.py::_w8a8_kernel)")
+    else:
+        y = matmul_w8(xk, p["w_q"], p["scale"]).float()
     if "b" in p:
         y = y + p["b"].float()
     return y.reshape(*lead, -1).to(dtype)
@@ -94,13 +259,26 @@ def dense_quant(x, p, dtype=None):
 
 def quantize_params_tree(params, predicate=None, bits: int = 8,
                          min_dim: int = 0):
-    """Convert {"w": [.., K, N], ...} leaves to {"w_q", "scale", ...}
-    across a param tree.  predicate(path) selects which linears; min_dim
-    skips linears whose K or N is below it."""
-    if bits != 8:
-        raise NotImplementedError(
-            "int4 quantization is not ported yet (ROADMAP Queue 2: "
-            "ops/quant.py::_w4_kernel)")
+    """Convert {"w": [.., K, N], ...} leaves to {"w_q"|"w_q4", "scale",
+    ...} across a param tree.  predicate(path) selects which linears;
+    min_dim skips linears whose K or N is below it; bits: 8 or 4.  A
+    stacked [L, K, N] weight is quantized one layer at a time on its
+    device, so the fp32 temporaries stay one layer's size.
+
+    Unlike the JAX function this updates `params` in place: each float
+    weight it quantizes is removed from its node, so that the float and
+    the quantized copies of a 14B tree never coexist in full."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    qfn = quantize_int8 if bits == 8 else quantize_int4
+    key = "w_q" if bits == 8 else "w_q4"
+
+    def quantize(w):
+        if w.ndim == 2:
+            return qfn(w)
+        qs = [qfn(w[i]) for i in range(w.shape[0])]
+        return (torch.stack([q for q, _ in qs]),
+                torch.stack([s for _, s in qs]))
 
     def walk(node, path=""):
         if isinstance(node, dict):
@@ -109,7 +287,8 @@ def quantize_params_tree(params, predicate=None, bits: int = 8,
                     and min(w.shape[-2:]) >= min_dim \
                     and (predicate is None or predicate(path)):
                 out = {k: v for k, v in node.items() if k != "w"}
-                out["w_q"], out["scale"] = quantize_int8(w)
+                out[key], out["scale"] = quantize(w)
+                del node["w"], w
                 return out
             return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
         if isinstance(node, list):

@@ -37,9 +37,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=-1)
     p.add_argument("--output-dir", default="outputs")
     p.add_argument("--attention", default="auto",
-                   help="attention backend: auto | pallas | xla (all dense)")
-    p.add_argument("--quantize", default="", choices=["", "int8"],
-                   help="quantize transformer linears to int8 on load")
+                   help="attention mode: auto | pallas | xla (dense) | "
+                        "sol[:tau[:budget[:thresh_type]]] (Sol-Attn) | "
+                        "radial (radial block mask from the latent grid) | "
+                        "swa:<window_blocks>[:<sink_blocks>]")
+    p.add_argument("--quantize", default="",
+                   choices=["", "int8", "int4", "int4a8"],
+                   help="quantize transformer linears on load: int8 or int4 "
+                        "weights; int4a8 also runs int8 activations")
     p.add_argument("--random-weights", action="store_true",
                    help="run with randomly initialized weights")
     p.add_argument("--device", default="cuda",

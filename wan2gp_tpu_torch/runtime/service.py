@@ -12,6 +12,7 @@ profiles, config groups, multi-chip meshes and post-processing.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import random
 import time
@@ -29,16 +30,28 @@ from ..utils import media
 def quantize_dit_params(params, mode: str):
     """Quantize transformer-block linears on load: every stacked
     {"w": [L, K, N]} under a *blocks* subtree with K, N >= 256 becomes
-    {"w_q", "scale"}; embeddings, norms and modulation stay float."""
+    {"w_q"|"w_q4", "scale"}; embeddings, norms and modulation stay float.
+    Modes: "int8" (or "quanto_int8"), "int4", and "int4a8", which stores
+    the weights as "int4" does; its int8 activations are the DiT config's
+    `act_quant` (see `activation_mode`), never a process-wide setting.
+    Each float weight it quantizes is removed from `params`."""
     from ..ops.quant import quantize_params_tree
-    if mode in ("int4", "int8a8", "int4a8"):
+    if mode == "int8a8":
         raise NotImplementedError(
-            f"quantize={mode!r} is not ported yet (ROADMAP Queue 2: the "
-            "int4 / int8-activation kernels)")
-    if mode not in ("int8", "quanto_int8"):
-        raise ValueError(f"unknown quantization mode {mode!r} (use 'int8')")
+            "quantize='int8a8' is not ported yet (ROADMAP Queue 2: "
+            "ops/quant.py::_w8a8_kernel)")
+    bits = {"int8": 8, "quanto_int8": 8, "int4": 4, "int4a8": 4}.get(mode)
+    if bits is None:
+        raise ValueError(f"unknown quantization mode {mode!r} (use 'int8', "
+                         "'int4' or 'int4a8')")
     return quantize_params_tree(params, predicate=lambda path: "blocks" in path,
-                                bits=8, min_dim=256)
+                                bits=bits, min_dim=256)
+
+
+def activation_mode(mode: str) -> str:
+    """The DiT's `act_quant` for a quantize mode: "int8" for the "a8"
+    modes, else "bf16"."""
+    return "int8" if mode.endswith("a8") else "bf16"
 
 
 class GenerationService:
@@ -71,6 +84,8 @@ class GenerationService:
             if self.quantize:
                 pipe.dit_params = quantize_dit_params(pipe.dit_params,
                                                       self.quantize)
+                pipe.dit_cfg = dataclasses.replace(
+                    pipe.dit_cfg, act_quant=activation_mode(self.quantize))
             self._pipelines[model_type] = pipe
         return pipe
 
