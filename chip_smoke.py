@@ -11,31 +11,40 @@ the repository).  Phases, each printing one JSON line:
             source, in parallel).
 2. check    each kernel against its plain PyTorch version on the card, from
             the same bf16 inputs (plain version in fp32), at small and
-            ragged shapes.  Dense, block-sparse and Sol flash attention:
-            mean abs err <= 2e-2 * mean|ref| and max abs err <= 2e-1 *
-            max|ref| (bf16 rounding of P and the summation order; relative,
-            since attention outputs shrink like 1/sqrt(S)); Sol's
-            logsumexp: max abs err <= 1e-2; int8, int4 and W4A8 matmuls:
-            relative Frobenius error <= 1e-2.
+            ragged shapes.  Dense, kv-masked, block-sparse and Sol flash
+            attention: mean abs err <= 2e-2 * mean|ref| and max abs err <=
+            2e-1 * max|ref| (bf16 rounding of P and the summation order;
+            relative, since attention outputs shrink like 1/sqrt(S)); a
+            fully masked batch item must come out as exact zeros; Sol's
+            logsumexp: max abs err <= 1e-2; int8, int4, W8A8 and W4A8
+            matmuls: relative Frobenius error <= 1e-2.
 3. dit      a small DiT forward on the card, through the kernels, against
-            the same forward on the CPU through the plain versions: bf16
-            and int8 weights with dense attention (48 tokens), int4 weights
-            with the radial mask and W4A8 with Sol (1,024 tokens, so both
-            engage): max abs err <= 3e-2 * max|ref|.
+            the same forward on the CPU through the plain versions: Wan
+            with bf16, int8 and int8a8 weights and dense attention (48
+            tokens), int4 weights with the radial mask and W4A8 with Sol
+            (1,024 tokens, so both engage); Krea 2 at head_dim 128 (its
+            masked self-attention and text refiner): max abs err <= 3e-2 *
+            max|ref|.
 4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
             the kernel's output there is held to the plain version in fp32
             with the limits of phase 2.  The 14B 720p shapes for the four
             kernels of the 14B path, with the radial mask's density and
-            Sol's mean count over its table width.
+            Sol's mean count over its table width; Krea 2's masked
+            self-attention at 1024x1024 beside the dense kernel, and its
+            layer-wise text blocks through the dense kernel; W8A8 at the
+            1.3B and 14B linears.  W4 and W4A8 at K=N=5120 run once more
+            first, before any other timing.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
-            guidance 5.0, UniPC, 2 steps) in bf16 and 1 with
-            quantize="int8"; then 14B (t2v) requests at 1280x720x81f:
-            (A) quantize="int4a8", attention_mode="sol", all 40 layers;
-            (B) quantize="int4", attention_mode="radial", its depth cut to
-            B_LAYERS.  Every launch counter is reset just before each
-            model's requests and read just after; the launches per DiT
-            forward are asserted.
+            guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
+            and 1 with quantize="int8a8"; then 14B (t2v) requests at
+            1280x720x81f: (A) quantize="int4a8", attention_mode="sol", all
+            40 layers; (B) quantize="int4", attention_mode="radial", its
+            depth cut to B_LAYERS; then 2 krea2_raw requests at 1024x1024,
+            all 28 layers (12.8 B parameters, bf16), guidance 3.5, 2 steps,
+            each writing a PNG.  Every launch counter is reset just before
+            each model's requests and read just after; the launches per
+            DiT forward (Krea 2: and per request) are asserted.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -64,9 +73,10 @@ STEPS = 2                       # denoise steps per service request
 B_LAYERS = 10                   # depth of the 14B request (B), of 40
 FLASH_MEAN_REL, FLASH_MAX_REL = 2e-2, 2e-1     # of mean|ref|, max|ref|
 LSE_MAX_ABS = 1e-2
-MM_REL_FRO = 1e-2               # int8 / int4 / W4A8 matmuls
+MM_REL_FRO = 1e-2               # int8 / int4 / W8A8 / W4A8 matmuls
+KREA2_TEXT = 64                 # tokens of the random Krea 2 text encoder
 REPO = os.path.dirname(os.path.abspath(__file__))
-# logs and the (deleted after checking) videos, beside the built kernels
+# logs and the (deleted after checking) outputs, beside the built kernels
 OUT = os.path.join(REPO, "wan2gp_tpu_torch", "_build", "chip_smoke")
 
 
@@ -120,8 +130,17 @@ def phase_env():
     with open(os.path.join(OUT, "nvcc.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = []              # "<mangled kernel>: spills; registers, smem"
+    for log in logs.values():
+        entry = spill = ""
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif "spill" in ln:
+                spill = ln.strip()
+            elif "registers" in ln:
+                ptxas.append(f"{entry}: {spill}; "
+                             f"{ln.split(':', 1)[1].strip()}")
     emit("env", card=nvidia_smi_line(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -131,9 +150,12 @@ def phase_env():
 
 _ATTN_TOL = (f"mean_abs<={FLASH_MEAN_REL}*mean|ref|, "
              f"max_abs<={FLASH_MAX_REL}*max|ref|")
-TOLERANCE = {"flash_attention": _ATTN_TOL, "sparse_flash": _ATTN_TOL,
+TOLERANCE = {"flash_attention": _ATTN_TOL,
+             "flash_attention_kvmask": _ATTN_TOL + ", fully masked item == 0",
+             "sparse_flash": _ATTN_TOL,
              "sol_flash": _ATTN_TOL + f", lse max_abs<={LSE_MAX_ABS}",
              "matmul_w8": f"rel_fro<={MM_REL_FRO}",
+             "matmul_w8a8": f"rel_fro<={MM_REL_FRO}",
              "matmul_w4": f"rel_fro<={MM_REL_FRO}",
              "matmul_w4a8": f"rel_fro<={MM_REL_FRO}"}
 
@@ -144,7 +166,9 @@ def counters():
     from wan2gp_tpu_torch.ops import sparse_attention as SP
     from wan2gp_tpu_torch.ops import sol_attention as SOL
     return {"flash_attention": (A, "launches"),
+            "flash_attention_kvmask": (A, "kvmask_launches"),
             "matmul_w8": (Q, "launches"),
+            "matmul_w8a8": (Q, "w8a8_launches"),
             "sparse_flash": (SP, "launches"),
             "sol_flash": (SOL, "launches"),
             "matmul_w4": (Q, "w4_launches"),
@@ -171,6 +195,8 @@ def phase_check():
         "cross_s512": (2, 4096, 512, 12, 128),
         # one query row over 70 keys: mostly kv tail, fails unless masked
         "tail_l1_s70": (1, 1, 70, 3, 128),
+        # Krea 2's layer-wise text blocks: B*L_txt items of the 12 layers
+        "krea2_layerwise": (64, 12, 12, 20, 128),
     }
     flash = {}
     for name, (b, l, s, n, d) in flash_cases.items():
@@ -239,11 +265,37 @@ def phase_check():
                             Q.matmul_w4_ref(x.float(), wp, sc))
         w4a8[name] = mm_check("matmul_w4a8", name, Q.matmul_w4a8(x, wp, sc),
                               Q.matmul_w4a8_ref(x.float(), wp, sc))
-    emit("check", flash_attention=flash, matmul_w8=w8, sparse_flash=sparse,
-         sol_flash=sol, matmul_w4=w4, matmul_w4a8=w4a8, tolerance=TOLERANCE)
-    return {"flash_attention": flash, "matmul_w8": w8,
-            "sparse_flash": sparse, "sol_flash": sol, "matmul_w4": w4,
-            "matmul_w4a8": w4a8}
+    kvmask = {}
+    # (B, L, S, N, D, valid keys, fully masked batch item)
+    for name, (b, l, s, n, d, valid, dead) in {
+            "ragged_random_d128": (2, 300, 333, 4, 128, None, None),
+            "dead_item_d64": (3, 70, 130, 2, 64, None, 1),
+            "refiner_1x64x20": (1, 64, 64, 20, 128, 64, None),
+            "packed_txt64_img1024": (2, 1280, 1280, 4, 128,
+                                     KREA2_TEXT + 1024, None)}.items():
+        q, k, v = (randn(sh, gen) for sh in
+                   ((b, l, n, d), (b, s, n, d), (b, s, n, d)))
+        if valid is None:
+            mask = torch.rand((b, s), generator=gen, device="cuda") < 0.6
+        else:
+            mask = torch.arange(s, device="cuda")[None].expand(b, s) < valid
+        if dead is not None:
+            mask[dead] = False
+        got = A.flash_attention(q, k, v, _scale(q), mask)
+        kvmask[name] = kvmask_check(name, q, k, v, mask, got, dead)
+    w8a8 = {}
+    for name, (m, k, n) in w8_cases.items():
+        x = randn((m, k), gen)
+        wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
+                                             device="cuda"))
+        w8a8[name] = mm_check("matmul_w8a8", name, Q.matmul_w8a8(x, wq, sc),
+                              Q.matmul_w8a8_ref(x.float(), wq, sc))
+    emit("check", flash_attention=flash, flash_attention_kvmask=kvmask,
+         matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
+         matmul_w4=w4, matmul_w4a8=w4a8, tolerance=TOLERANCE)
+    return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
+            "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
+            "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8}
 
 
 def _scale(q):
@@ -270,6 +322,20 @@ def attn_check(kernel, name, q, k, got, ref):
     if not (e["mean_abs"] <= FLASH_MEAN_REL * e["mean_ref"]
             and e["max_abs"] <= FLASH_MAX_REL * e["max_ref"]):
         raise AssertionError(f"{kernel} {name}: {e}")
+    return e
+
+
+def kvmask_check(name, q, k, v, mask, got, dead=None):
+    """The masked kernel's output against its plain version in fp32;
+    batch item `dead` (all keys masked) must be exact zeros."""
+    from wan2gp_tpu_torch.ops import attention as A
+    ref = A.flash_attention_ref(q.float(), k.float(), v.float(), _scale(q),
+                                mask)
+    if dead is not None and got[dead].any():
+        raise AssertionError(f"flash_attention_kvmask {name}: fully masked "
+                             f"item {dead} is not zero")
+    e = attn_check("flash_attention_kvmask", name, q, k, got, ref)
+    e["valid_keys"] = int((mask > 0).sum().item())
     return e
 
 
@@ -312,6 +378,7 @@ def phase_dit():
     # backends (Sol engages from 1,024; radial needs frames x tokens)
     for mode, backend, grid in (("bf16", "auto", (3, 4, 4)),
                                 ("int8", "auto", (3, 4, 4)),
+                                ("int8a8", "auto", (3, 4, 4)),
                                 ("int4", "radial:4:256", (4, 16, 16)),
                                 ("int4a8", "sol", (4, 16, 16))):
         lat = torch.from_numpy(rng.standard_normal(
@@ -334,7 +401,50 @@ def phase_dit():
                      "finite": bool(torch.isfinite(res["cuda"]).all())}
         if not (out[mode]["finite"] and err <= 3e-2 * ref_max):
             raise AssertionError(f"small DiT forward ({mode}): {out[mode]}")
+    out["krea2"] = dit_krea2()
     emit("dit", tolerance="max_abs<=3e-2*max|ref|", **out)
+
+
+def dit_krea2():
+    """A small Krea 2 (head_dim 128, as the full model) fused context and
+    forward, card against CPU, with text masks that pad each prompt."""
+    from wan2gp_tpu_torch.models.krea2 import dit as kd
+    from wan2gp_tpu_torch.ops import attention as A
+    cfg = kd.Krea2Config(features=512, heads=4, kvheads=2, txtdim=256,
+                         txtheads=2, txtkvheads=2, multiplier=2, layers=2,
+                         txtlayers=3)
+    rng = np.random.default_rng(1)
+    h_tok = w_tok = 16
+    l_txt = 20
+    img = torch.from_numpy(rng.standard_normal(
+        (2, h_tok * w_tok, cfg.channels * cfg.patch ** 2), dtype=np.float32))
+    ctx = torch.from_numpy(rng.standard_normal(
+        (2, l_txt, cfg.txtlayers, cfg.txtdim), dtype=np.float32))
+    mask = (torch.arange(l_txt)[None] < torch.tensor([[13], [20]])).int()
+    t = torch.tensor([0.8, 0.3])
+    pad_to = 512                      # 20 + 256 tokens, to a multiple of 256
+    p = kd.init_krea2(torch.Generator().manual_seed(0), cfg)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        pd = _tree_to(p, dev)
+        cos, sin = kd.build_krea2_rope(l_txt, h_tok, w_tok, cfg, pad_to,
+                                       device=dev)
+        before = A.kvmask_launches
+        fused = kd.prepare_context(pd, cfg, ctx.to(dev), mask.to(dev))
+        res[dev] = kd.krea2_forward(pd, cfg, img.to(dev), fused, t.to(dev),
+                                    cos, sin, mask.to(dev)).float().cpu()
+        launched = A.kvmask_launches - before
+    ref_max = res["cpu"].abs().max().item()
+    err = (res["cuda"] - res["cpu"]).abs().max().item()
+    out = {"config": "features 512, 4/2 heads of 128, txtdim 256, 2 layers",
+           "tokens": pad_to, "max_abs": err, "ref_max": ref_max,
+           "kvmask_launches": launched,
+           "finite": bool(torch.isfinite(res["cuda"]).all())}
+    want = cfg.layers + cfg.n_fusion_blocks
+    if not (out["finite"] and err <= 3e-2 * ref_max and launched == want):
+        raise AssertionError(f"small Krea 2 forward: {out}, want {want} "
+                             f"masked launches")
+    return out
 
 
 def _tree_to(tree, dev):
@@ -366,6 +476,65 @@ def time_flash(name, b, l, s, n, d):
     return {"shape": [b, l, s, n, d], "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by,
             "err": err}
+
+
+def time_kvmask(name, b, l, n, d, valid):
+    """The masked kernel at a Krea 2 shape (L = S, the first `valid` keys
+    valid, the rest padding), beside the dense kernel at the same shape."""
+    from wan2gp_tpu_torch.ops import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (randn((b, l, n, d), gen) for _ in range(3))
+    mask = torch.arange(l, device="cuda")[None].expand(b, l) < valid
+    scale = _scale(q)
+    err = kvmask_check(name, q, k, v, mask,
+                       A.flash_attention(q, k, v, scale, mask))
+    ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale, mask), 20)
+    dense_ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale), 20)
+    plain_ms = cuda_ms(lambda: A.flash_attention_ref(q, k, v, scale, mask),
+                       1)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None, None, :], scale=scale), 20)
+    # the work this mask needs: the valid keys only
+    bound_ms, by = bound(4.0 * b * n * l * valid * d,
+                         2.0 * 4 * b * l * n * d + b * l)
+    return {"shape": [b, l, l, n, d], "valid_keys": valid, "ms": ms,
+            "dense_kernel_ms": dense_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention (memory-"
+                            "efficient backend) with the [B, 1, 1, S] bool "
+                            "mask",
+            "bound_ms": bound_ms, "bound_by": by, "err": err}
+
+
+def time_w8a8(m, k, n):
+    from wan2gp_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = randn((m, k), gen)
+    wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
+                                         device="cuda"))
+    name = f"{m}x{k}x{n}"
+    reps = 5 if m * k * n > 1e12 else 20
+    err = mm_check("matmul_w8a8", name, Q.matmul_w8a8(x, wq, sc),
+                   Q.matmul_w8a8_ref(x.float(), wq, sc))
+    xq, _ = Q.quantize_act_int8(x)
+    out = {"shape": [m, k, n],
+           "ms": cuda_ms(lambda: Q.matmul_w8a8(x, wq, sc), reps),
+           "act_quant_ms": cuda_ms(lambda: Q.quantize_act_int8(x), reps),
+           "plain_ms": cuda_ms(lambda: Q.matmul_w8a8_ref(x, wq, sc), 1),
+           "library_ms": (cuda_ms(lambda: torch._int_mm(xq, wq), reps)
+                          if m > 16 else None),
+           "library_call": "torch._int_mm on the int8 activations (int32 "
+                           "out, no scales)",
+           "err": err}
+    out["bound_ms"], out["bound_by"] = bound(
+        2.0 * m * k * n, 2 * m * k + k * n + 4 * n + 2 * m * n,
+        peak=PEAK_INT8_OPS)
+    del xq
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_w8(name, m, k, n):
@@ -531,44 +700,70 @@ def time_w4(m, k, n):
 
 
 def phase_time(tokens: int):
+    # W4 and W4A8 at K=N=5120 first, before any other timing, and again in
+    # their place below: does the order of the phase move their times?
+    first = time_w4(151200, 5120, 5120)
     flash = {name: time_flash(name, *shape) for name, shape in (
         ("self_1.3B", (2, tokens, tokens, 12, 128)),
         ("cross_1.3B", (2, tokens, 512, 12, 128)),
         ("self_14B_720p", (1, 75600, 75600, 40, 128)),
-        ("cross_14B_720p", (2, 75600, 512, 40, 128)))}
+        ("cross_14B_720p", (2, 75600, 512, 40, 128)),
+        # Krea 2's layer-wise text blocks at 1024x1024: 64 text tokens, so
+        # 64 items of L = S = 12 layers, 20 heads (txtdim 2560)
+        ("layerwise_krea2", (KREA2_TEXT, 12, 12, 20, 128)))}
     w8 = {f"{k}x{n}": time_w8(f"{k}x{n}", 2 * tokens, k, n)
           for k, n in ((1536, 1536), (1536, 8960), (8960, 1536))}
     sparse = {"radial_720p": time_sparse(2, 75600, 40, 128, 21, 3600)}
     sol = {"sol_720p": time_sol(2, 75600, 40, 128)}
-    w4, w4a8 = {}, {}
-    for m, k, n in ((151200, 5120, 5120), (151200, 5120, 13824),
-                    (151200, 13824, 5120), (1024, 5120, 5120)):
+    w4 = {"151200x5120x5120_first": first["matmul_w4"]}
+    w4a8 = {"151200x5120x5120_first": first["matmul_w4a8"]}
+    shapes_14b = ((151200, 5120, 5120), (151200, 5120, 13824),
+                  (151200, 13824, 5120), (1024, 5120, 5120))
+    for m, k, n in shapes_14b:
         t = time_w4(m, k, n)
         w4[f"{m}x{k}x{n}"] = t["matmul_w4"]
         w4a8[f"{m}x{k}x{n}"] = t["matmul_w4a8"]
-    emit("time", flash_attention=flash, matmul_w8=w8, sparse_flash=sparse,
-         sol_flash=sol, matmul_w4=w4, matmul_w4a8=w4a8, tolerance=TOLERANCE)
-    return {"flash_attention": flash, "matmul_w8": w8,
-            "sparse_flash": sparse, "sol_flash": sol, "matmul_w4": w4,
-            "matmul_w4a8": w4a8}
+    # Krea 2 at 1024x1024: 64 text + 4,096 image tokens padded to 4,352;
+    # CFG as batch 2 (self-attention) and one prompt (text refiner)
+    krea_l = 4352
+    kvmask = {"self_krea2": time_kvmask("self_krea2", 2, krea_l, 48, 128,
+                                        KREA2_TEXT + 4096),
+              "refiner_krea2": time_kvmask("refiner_krea2", 1, KREA2_TEXT,
+                                           20, 128, KREA2_TEXT)}
+    w8a8 = {f"{k}x{n}": time_w8a8(2 * tokens, k, n)
+            for k, n in ((1536, 1536), (1536, 8960), (8960, 1536))}
+    w8a8.update({f"{m}x{k}x{n}": time_w8a8(m, k, n)
+                 for m, k, n in shapes_14b})
+    emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
+         matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
+         matmul_w4=w4, matmul_w4a8=w4a8, tolerance=TOLERANCE)
+    return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
+            "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
+            "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8}
 
 
 def phase_service(frames: int):
     """The main paths through GenerationService on cuda, each with the
     launch counters reset just before its requests and read just after."""
     from wan2gp_tpu_torch.families import wan as fam
+    from wan2gp_tpu_torch.models.krea2 import pipeline as krea2_pipe
     from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
     from wan2gp_tpu_torch.runtime import service as svc_mod
     from wan2gp_tpu_torch.utils import media
 
-    # the service writes uint8 frames; check the float video before that
+    # the service writes uint8 frames / pixels; check the floats before that
     seen = []
-    real_save = media.save_video
+    real_save, real_save_image = media.save_video, media.save_image
 
     def save_checked(frames_, path, **kw):
         seen.append({"shape": list(frames_.shape),
                      "finite": bool(np.isfinite(frames_).all())})
         return real_save(frames_, path, **kw)
+
+    def save_image_checked(img, path, **kw):
+        seen.append({"shape": list(img.shape),
+                     "finite": bool(np.isfinite(img).all())})
+        return real_save_image(img, path, **kw)
 
     # wall-clock split and peak device memory of each request
     split = {}
@@ -586,11 +781,13 @@ def phase_service(frames: int):
             return r
         return wrapper
 
-    media.save_video = save_checked
+    media.save_video, media.save_image = save_checked, save_image_checked
     real_denoise, real_decode = WanPipeline.denoise, WanPipeline.decode
+    real_krea2_denoise = krea2_pipe.krea2_denoise
     WanPipeline.denoise = timed("denoise", real_denoise)
     WanPipeline.decode = timed("decode", real_decode)
-    out_dir = os.path.join(OUT, "videos")
+    krea2_pipe.krea2_denoise = timed("denoise", real_krea2_denoise)
+    out_dir = os.path.join(OUT, "outputs")
 
     def run(label, model_type, quantize, attention, n_req, w, h, layers,
             per_forward):
@@ -646,6 +843,65 @@ def phase_service(frames: int):
                 "load_peak_gb": load_peak, "launches": counts,
                 "launches_per_forward": per_forward}
 
+    def run_krea2(n_req, size):
+        """n_req krea2_raw requests (guidance 3.5: CFG as batch 2) at all
+        28 layers.  Per request of STEPS steps: 28 masked self-attentions
+        per forward, plus per prompt (the prompt and the negative one) 2
+        masked text-refiner calls and 2 dense layer-wise text calls."""
+        svc = svc_mod.GenerationService(init_random_weights=True,
+                                        output_dir=out_dir)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = svc.get_pipeline("krea2_raw")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
+        cfg = pipe.dit_cfg
+        n_params = sum(t.numel() for t in _leaves(pipe.dit_params))
+        reset_counts()
+        reqs = []
+        for i in range(n_req):
+            seen.clear()
+            split.clear()
+            t0 = time.perf_counter()
+            paths = svc.generate({
+                "model_type": "krea2_raw", "prompt": f"a red fox {i}",
+                "resolution": f"{size}x{size}", "num_inference_steps": STEPS,
+                "guidance_scale": 3.5, "seed": i})
+            req_s = time.perf_counter() - t0
+            ok = (len(paths) == 1 and paths[0].endswith(".png")
+                  and media.read_image(paths[0]).shape == (size, size, 3)
+                  and seen and seen[0]["finite"]
+                  and seen[0]["shape"] == [size, size, 3]
+                  and media.read_image_metadata(paths[0])["seed"] == i)
+            if not ok:
+                raise AssertionError(f"krea2_raw request {i}: {paths} {seen}")
+            reqs.append({"request_s": req_s, **split,
+                         "step_s": split["denoise_s"] / STEPS,
+                         "bytes": os.path.getsize(paths[0])})
+            os.remove(paths[0])
+        counts = read_counts()
+        per_forward = {"flash_attention_kvmask": cfg.layers}
+        per_request = {"flash_attention_kvmask": 2 * cfg.n_fusion_blocks,
+                       "flash_attention": 2 * cfg.n_fusion_blocks}
+        want = {name: n_req * (per_forward.get(name, 0) * STEPS
+                               + per_request.get(name, 0))
+                for name in counts}
+        if counts != want:
+            raise AssertionError(f"krea2_raw: launches {counts}, want {want}")
+        svc.release_model()
+        del svc, pipe
+        torch.cuda.empty_cache()
+        return {"model": "krea2_raw", "resolution": f"{size}x{size}",
+                "quantize": "bf16", "attention": "auto",
+                "layers": cfg.layers, "parameters": n_params,
+                "tokens": KREA2_TEXT + (size // 16) ** 2,
+                "guidance_scale": 3.5, "requests": reqs, "load_s": load_s,
+                "load_peak_gb": load_peak, "launches": counts,
+                "launches_per_forward": per_forward,
+                "launches_per_request_besides": per_request}
+
     results = {}
     try:
         h, w = 480, 832
@@ -654,6 +910,9 @@ def phase_service(frames: int):
         results["int8"] = run("1.3B int8", "t2v_1.3B", "int8", "auto", 1, w,
                               h, 30, {"flash_attention": 60,
                                       "matmul_w8": 300})
+        results["int8a8"] = run("1.3B int8a8", "t2v_1.3B", "int8a8", "auto",
+                                1, w, h, 30, {"flash_attention": 60,
+                                              "matmul_w8a8": 300})
         # 14B at 1280x720: (A) every layer; (B) depth cut to B_LAYERS
         results["14B_int4a8_sol"] = run(
             "14B int4a8 sol", "t2v", "int4a8", "sol", 1, 1280, 720, 40,
@@ -662,9 +921,11 @@ def phase_service(frames: int):
             "14B int4 radial", "t2v", "int4", "radial", 1, 1280, 720,
             B_LAYERS, {"sparse_flash": B_LAYERS, "flash_attention": B_LAYERS,
                        "matmul_w4": 10 * B_LAYERS})
+        results["krea2_raw"] = run_krea2(2, 1024)
     finally:
-        media.save_video = real_save
+        media.save_video, media.save_image = real_save, real_save_image
         WanPipeline.denoise, WanPipeline.decode = real_denoise, real_decode
+        krea2_pipe.krea2_denoise = real_krea2_denoise
     emit("service", frames=frames, latent_frames=(frames - 1) // 4 + 1,
          steps=STEPS, guidance_scale=5.0, solver="unipc",
          depth_cut=f"14B (B) runs {B_LAYERS} of 40 layers", **results)
@@ -730,8 +991,12 @@ def main(argv=None):
     table = (
         ("flash_attention", "flash_attention.cu",
          "wan2gp_tpu/ops/attention.py:33", "bf16", "self_1.3B"),
+        ("flash_attention_kvmask", "flash_attention.cu",
+         "wan2gp_tpu/ops/attention.py:79", "krea2_raw", "self_krea2"),
         ("matmul_w8", "w8_matmul.cu", "wan2gp_tpu/ops/quant.py:32", "int8",
          "1536x8960"),
+        ("matmul_w8a8", "w8_matmul.cu", "wan2gp_tpu/ops/quant.py:239",
+         "int8a8", "1536x8960"),
         ("sparse_flash", "sparse_flash.cu",
          "wan2gp_tpu/ops/sparse_attention.py:179", "14B_int4_radial",
          "radial_720p"),

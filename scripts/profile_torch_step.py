@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of a t2v request goes on the GPU (PyTorch port).
+"""Where the time of a t2v or Krea 2 request goes on the GPU (PyTorch port).
 
     python3 scripts/profile_torch_step.py [--frames 81] [--out DIR]
         [--model t2v_1.3B] [--resolution 832x480] [--quantize MODE]
@@ -7,10 +7,11 @@
 
 Builds the port's random-weight pipeline on cuda through GenerationService
 (t2v_1.3B at 832x480 by default; `--model t2v --resolution 1280x720
---quantize int4a8 --attention sol` is the 14B path), optionally cut to
-`--layers` transformer blocks, then traces with torch.profiler one denoise
-step (one DiT forward with joint CFG, batch 2) and one VAE decode of the
-result.  For each window it prints one JSON line: wall seconds, device busy
+--quantize int4a8 --attention sol` is the 14B path; `--model krea2_raw`
+is Krea 2 text-to-image, at 1024x1024 unless --resolution says otherwise),
+optionally cut to `--layers` transformer blocks, then traces with
+torch.profiler one denoise step (one DiT forward with joint CFG, batch 2;
+Krea 2: guidance 3.5) and one VAE decode of the result.  For each window it prints one JSON line: wall seconds, device busy
 seconds (sum of kernel times) and the idle share, and device time grouped
 by kernel family, largest first.  The full per-kernel tables go to --out
 (default wan2gp_tpu_torch/_build/profile/).  Needs one CUDA card.
@@ -31,8 +32,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
+    ("flash_fwd_kernel<128, true>", "flash_attention_kvmask (port kernel)"),
+    ("flash_fwd_kernel<64, true>", "flash_attention_kvmask (port kernel)"),
     ("flash_fwd_kernel", "flash_attention (port kernel)"),
     ("sparse_flash_kernel", "sparse/sol flash (port kernel)"),
+    ("w8a8_matmul_kernel", "matmul_w8a8 (port kernel)"),
     ("w8_matmul_kernel", "matmul_w8 (port kernel)"),
     ("w4a8_matmul_kernel", "matmul_w4a8 (port kernel)"),
     ("w4_matmul_kernel", "matmul_w4 (port kernel)"),
@@ -93,7 +97,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=81)
     ap.add_argument("--model", default="t2v_1.3B")
-    ap.add_argument("--resolution", default="832x480")
+    ap.add_argument("--resolution", default=None,
+                    help="WxH (default 832x480; Krea 2: 1024x1024)")
     ap.add_argument("--quantize", default="")
     ap.add_argument("--attention", default="auto")
     ap.add_argument("--layers", type=int, default=0,
@@ -105,14 +110,17 @@ def main(argv=None):
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from wan2gp_tpu_torch.families import wan as fam
-    from wan2gp_tpu_torch.models.wan.pipeline import SamplingConfig
-    from wan2gp_tpu_torch.runtime.service import GenerationService
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
+    if args.model.startswith("krea2"):
+        return profile_krea2(args)
+    from wan2gp_tpu_torch.families import wan as fam
+    from wan2gp_tpu_torch.models.wan.pipeline import SamplingConfig
+    from wan2gp_tpu_torch.runtime.service import GenerationService
+    args.resolution = args.resolution or "832x480"
     arch = fam._ARCH[args.model]
     if args.layers:
         fam._ARCH[args.model] = {**arch, "num_layers": args.layers}
@@ -138,6 +146,54 @@ def main(argv=None):
         "x", pipe.denoise(lat, ctx, ctx_null, sampling)), args.out)
     pipe.decode(out["x"])                               # warm-up
     trace("vae_decode", lambda: pipe.decode(out["x"]), args.out)
+    return 0
+
+
+def profile_krea2(args):
+    """One Krea 2 denoise step (CFG as batch 2) and one image decode."""
+    from wan2gp_tpu_torch.families import krea2 as fam
+    from wan2gp_tpu_torch.models.krea2 import dit
+    from wan2gp_tpu_torch.models.krea2.pipeline import (krea2_denoise,
+                                                        krea2_timesteps)
+    from wan2gp_tpu_torch.runtime.service import GenerationService
+    arch = fam._ARCH
+    if args.layers:
+        fam._ARCH = {**arch, "layers": args.layers}
+    pipe = GenerationService(init_random_weights=True).get_pipeline(
+        args.model)
+    fam._ARCH = arch
+    pipe.attn_backend = args.attention
+    cfg = pipe.dit_cfg
+    w, h = (int(v) for v in (args.resolution or "1024x1024").split("x"))
+    h_tok, w_tok = h // 16, w // 16
+    print(json.dumps({"model": args.model, "resolution": f"{w}x{h}",
+                      "attention": args.attention, "layers": cfg.layers,
+                      "guidance": 3.5}), flush=True)
+    ctx, mask = pipe.text_encode_fn(["a red fox"])
+    ctx_neg, mask_neg = pipe.text_encode_fn([""])
+    fused, fused_neg = (dit.prepare_context(pipe.dit_params, cfg, c, m)
+                        for c, m in ((ctx, mask), (ctx_neg, mask_neg)))
+    l_txt, l_img = ctx.shape[1], h_tok * w_tok
+    pad_to = l_txt + l_img + (-(l_txt + l_img)) % cfg.seq_multiple
+    cos, sin = dit.build_krea2_rope(l_txt, h_tok, w_tok, cfg, pad_to,
+                                    device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img = torch.randn((1, l_img, cfg.channels * cfg.patch ** 2),
+                      generator=gen, device="cuda")
+    ts = krea2_timesteps(l_img, 28)[:2]
+
+    def step():
+        return krea2_denoise(pipe.dit_params, cfg, img, fused, mask, ts, 3.5,
+                             cos, sin, context_neg=fused_neg,
+                             txt_mask_neg=mask_neg,
+                             attn_backend=pipe.attn_backend)
+    step()                                              # warm-up
+    out = {}
+    trace("krea2_denoise_step", lambda: out.setdefault("x", step()),
+          args.out)
+    z = dit.unpack_image(out["x"], h // 8, w // 8, cfg.patch, cfg.channels)
+    pipe.vae_decode_fn(z)                               # warm-up
+    trace("krea2_vae_decode", lambda: pipe.vae_decode_fn(z), args.out)
     return 0
 
 

@@ -101,8 +101,15 @@ def test_quantize_dit_params_matches_jax_tree():
     np.testing.assert_array_equal(
         q4["blocks"]["ffn"]["fc1"]["w_q4"].numpy(),
         np.asarray(jq4["blocks"]["ffn"]["fc1"]["w_q4"]))
-    with pytest.raises(NotImplementedError):      # _w8a8_kernel: Queue 2
-        quantize_dit_params(q, "int8a8")
+    # int8a8 stores the weights as int8 does (its int8 activations are the
+    # DiT config's act_quant)
+    q8a8 = quantize_dit_params(params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu"), "int8a8")
+    np.testing.assert_array_equal(
+        q8a8["blocks"]["ffn"]["fc1"]["w_q"].numpy(),
+        np.asarray(jq["blocks"]["ffn"]["fc1"]["w_q"]))
+    with pytest.raises(ValueError):
+        quantize_dit_params(q, "int2")
 
 
 def test_init_matches_jax_tree_layout():

@@ -26,6 +26,11 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.runtime.cli",
     "wan2gp_tpu_torch.runtime.queue",
     "wan2gp_tpu_torch.families.wan",
+    "wan2gp_tpu_torch.families.krea2",
+    "wan2gp_tpu_torch.families._image_vae",
+    "wan2gp_tpu_torch.models.krea2.dit",
+    "wan2gp_tpu_torch.models.krea2.pipeline",
+    "wan2gp_tpu_torch.models.flux.dit",
     "wan2gp_tpu_torch.models.wan.pipeline",
     "wan2gp_tpu_torch.models.wan.t5",
     "wan2gp_tpu_torch.models.wan.vae_scan",
@@ -98,7 +103,10 @@ def no_card():
 def test_default_device_entry_points_raise_without_a_card(no_card,
                                                           tmp_path):
     from wan2gp_tpu_torch import resolve_device
+    from wan2gp_tpu_torch.families.krea2 import Krea2FamilyHandler
     from wan2gp_tpu_torch.families.wan import WanFamilyHandler
+    from wan2gp_tpu_torch.models.krea2.dit import Krea2Config
+    from wan2gp_tpu_torch.models.krea2.pipeline import Krea2Pipeline
     from wan2gp_tpu_torch.models.wan.dit import WanDiTConfig
     from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
     from wan2gp_tpu_torch.runtime import api, cli
@@ -113,6 +121,9 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
         "WanPipeline": lambda: WanPipeline({}, WanDiTConfig()),
         "load_model": lambda: WanFamilyHandler.load_model(
             "t2v_1.3B", {}, init_random=True),
+        "Krea2Pipeline": lambda: Krea2Pipeline({}, Krea2Config()),
+        "krea2 load_model": lambda: Krea2FamilyHandler.load_model(
+            "krea2_raw", {}, init_random=True),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -129,7 +140,8 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
     def plain(*args, **kwargs):
         raise AssertionError("plain version called for a non-CPU tensor")
     monkeypatch.setattr(attention, "flash_attention_ref", plain)
-    for mod, name in ((quant, "matmul_w8_ref"), (quant, "matmul_w4_ref"),
+    for mod, name in ((quant, "matmul_w8_ref"), (quant, "matmul_w8a8_ref"),
+                      (quant, "matmul_w4_ref"),
                       (quant, "matmul_w4a8_ref"),
                       (sparse, "table_attention_ref"),
                       (sol, "table_attention_ref")):
@@ -137,13 +149,17 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
     q = torch.empty((1, 8, 2, 64), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         attention.attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.attention(q, q, q, kv_mask=torch.ones(
+            (1, 8), dtype=torch.uint8, device="meta"))
     x = torch.empty((4, 32), dtype=torch.bfloat16, device="meta")
     w = torch.empty((32, 16), dtype=torch.int8, device="meta")
     s = torch.empty((16,), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         quant.matmul_w8(x, w, s)
-    with pytest.raises(ValueError, match="CUDA"):
-        quant.dense_quant(x, {"w_q": w, "scale": s})
+    for act in ("bf16", "int8"):
+        with pytest.raises(ValueError, match="CUDA"):
+            quant.dense_quant(x, {"w_q": w, "scale": s}, act_quant=act)
     w4 = torch.empty((64, 16), dtype=torch.int8, device="meta")
     for act in ("bf16", "int8"):
         with pytest.raises(ValueError, match="CUDA"):
@@ -155,6 +171,7 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         sol.sol_flash(q, q, q, tables[0][None], tables[1][None], 0.125, 64,
                       64)
-    assert attention.launches == 0 and quant.launches == 0
+    assert attention.launches == attention.kvmask_launches == 0
+    assert quant.launches == quant.w8a8_launches == 0
     assert quant.w4_launches == quant.w4a8_launches == 0
     assert sparse.launches == sol.launches == 0

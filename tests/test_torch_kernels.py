@@ -7,10 +7,10 @@ which has no JAX, it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 Tolerances, from the same bf16 inputs with the plain version in fp32:
-flash attention, block-sparse and Sol flash max abs err <= 2e-2 and mean
-abs err <= 2e-3 (bf16 rounding of q*scale and of P, and the summation
-order), Sol's logsumexp max abs err <= 1e-2; int8 and int4 matmuls
-relative Frobenius error <= 1e-2.
+flash attention (dense and kv-masked), block-sparse and Sol flash max abs
+err <= 2e-2 and mean abs err <= 2e-3 (bf16 rounding of q*scale and of P,
+and the summation order), Sol's logsumexp max abs err <= 1e-2; int8, int4,
+W8A8 and W4A8 matmuls relative Frobenius error <= 1e-2.
 """
 import math
 
@@ -71,6 +71,52 @@ def test_flash_kernel_rejects_what_it_does_not_take(gen):
         attention.flash_attention(q[..., :96], q[..., :96], q[..., :96], 0.1)
     with pytest.raises(ValueError):
         attention.flash_attention(q, q.cpu(), q, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,s,n,d,dead", [
+    (2, 300, 333, 4, 128, None),         # ragged S, per-batch masks
+    (3, 70, 130, 2, 64, 1),              # batch item 1 fully masked
+    (1, 64, 64, 20, 128, None),          # Krea 2 text refiner
+    (2, 1000, 1024, 3, 128, None)])      # [txt, img, pad] packing
+def test_kvmask_flash_kernel_matches_plain(gen, b, l, s, n, d, dead):
+    q, k, v = (_randn((b, x, n, d), gen) for x in (l, s, s))
+    mask = torch.rand((b, s), generator=gen, device="cuda") < 0.7
+    mask[:, -s // 8:] = False                     # padded tail
+    if dead is not None:
+        mask[dead] = False
+    scale = 1.0 / math.sqrt(d)
+    before = attention.kvmask_launches
+    got = attention.flash_attention(q, k, v, scale, mask).float()
+    torch.cuda.synchronize()
+    assert attention.kvmask_launches == before + 1
+    ref = attention.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        scale, mask)
+    _tables_close(got, ref)
+    if dead is not None:
+        assert not got[dead].any()
+    # all keys valid: the dense kernel's result, bit for bit
+    ones = torch.ones((b, s), dtype=torch.uint8, device="cuda")
+    torch.testing.assert_close(
+        attention.flash_attention(q, k, v, scale, ones),
+        attention.flash_attention(q, k, v, scale), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 1536, 1536), (77, 8960, 1536),
+                                   (129, 1536, 8960), (77, 100, 51)])
+def test_w8a8_kernel_matches_plain(gen, m, k, n):
+    x = _randn((m, k), gen)
+    wq, s = quant.quantize_int8(torch.randn((k, n), generator=gen,
+                                            device="cuda"))
+    before = quant.w8a8_launches
+    got = quant.matmul_w8a8(x, wq, s).float()
+    torch.cuda.synchronize()
+    assert quant.w8a8_launches == before + 1
+    ref = quant.matmul_w8a8_ref(x.float(), wq, s)
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
+    with pytest.raises(TypeError):
+        quant.matmul_w8a8(x.float(), wq, s)
 
 
 @pytest.mark.cuda

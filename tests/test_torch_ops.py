@@ -159,12 +159,19 @@ def test_structured_attention_backends_match_jax(backend):
 
 
 def test_kv_mask_and_non_cuda_devices_raise():
-    q = torch.zeros(1, 4, 1, 8)
-    with pytest.raises(NotImplementedError):
-        attention.attention(q, q, q, kv_mask=torch.ones(1, 4))
+    q = torch.randn(1, 4, 1, 8, generator=torch.Generator().manual_seed(0))
+    # a kv_mask on CPU tensors runs the masked kernel's plain version
+    mask = torch.tensor([[1, 1, 0, 1]])
+    torch.testing.assert_close(
+        attention.attention(q, q, q, kv_mask=mask),
+        attention.flash_attention_ref(q, q, q, 8 ** -0.5, mask),
+        rtol=0, atol=0)
     m = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         attention.flash_attention(m, m, m, 0.125)
+    with pytest.raises(ValueError):
+        attention.flash_attention(m, m, m, 0.125,
+                                  torch.ones(1, 4, device="meta"))
     with pytest.raises(ValueError):
         attention.attention(q, q, q, backend="bogus")
 
@@ -231,10 +238,19 @@ def test_quantize_params_tree_and_unported_modes():
     assert out4["head"]["w_q4"].shape == (512, 16)
     with pytest.raises(ValueError):
         quant.quantize_params_tree(tree(), bits=3)
-    # int8 activations with int8 weights: _w8a8_kernel is not ported yet
-    with pytest.raises(NotImplementedError):
-        quantize_dit_params(tree(), "int8a8")
-    with pytest.raises(NotImplementedError):
-        quant.dense_quant(torch.zeros(2, 32), {
-            "w_q": out["blocks"]["fc"]["w_q"][0],
-            "scale": out["blocks"]["fc"]["scale"][0]}, act_quant="int8")
+    # int8 activations with int8 weights: int8a8 stores int8 weights and
+    # dense_quant(act_quant="int8") runs them through W8A8
+    big = {"blocks": {"fc": {"w": torch.randn(
+        2, 256, 256, generator=torch.Generator().manual_seed(2))}}}
+    want = quant.quantize_params_tree({"blocks": {"fc": {
+        "w": big["blocks"]["fc"]["w"].clone()}}})
+    out8a8 = quantize_dit_params(big, "int8a8")
+    torch.testing.assert_close(out8a8["blocks"]["fc"]["w_q"],
+                               want["blocks"]["fc"]["w_q"], rtol=0, atol=0)
+    x = torch.randn(2, 32, generator=torch.Generator().manual_seed(1))
+    wq, sc = out["blocks"]["fc"]["w_q"][0], out["blocks"]["fc"]["scale"][0]
+    torch.testing.assert_close(
+        quant.dense_quant(x, {"w_q": wq, "scale": sc}, act_quant="int8"),
+        quant.matmul_w8a8_ref(x, wq, sc), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        quantize_dit_params(tree(), "int2")

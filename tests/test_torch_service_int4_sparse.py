@@ -1,12 +1,13 @@
 """The 14B slice's settings through the port's GenerationService on the CPU:
-quantize="int4a8" with attention_mode="sol", and quantize="int4" with
-attention_mode="radial", on a tiny random-weight arch.
+quantize="int4a8" with attention_mode="sol", quantize="int4" with
+attention_mode="radial", and quantize="int8a8" with dense attention, on a
+tiny random-weight arch.
 
-Each request must run through the int4 matmul and the sparse attention it
+Each request must run through the quantized matmul and the attention it
 names (spied on the port's module functions), and the service's denoise
 must match the JAX pipeline given the same tree, noise and context (bf16
 compute: 3e-2 * max|ref|, the bound of the other bf16 pipeline tests; the
-JAX side runs its W4/W4A8 Pallas kernels in interpret mode with its
+JAX side runs its W4/W4A8/W8A8 Pallas kernels in interpret mode with its
 activation mode set for the call).  An "int4" service created after an
 "int4a8" one must not inherit int8 activations: the JAX package's
 process-wide `set_act_quant` does exactly that.
@@ -49,7 +50,8 @@ def calls(monkeypatch):
     """Counts of the port's kernel wrappers called (CPU: plain versions)."""
     seen = {}
     for mod, name in ((quant, "matmul_w4"), (quant, "matmul_w4a8"),
-                      (quant, "matmul_w8"), (sparse, "sparse_flash"),
+                      (quant, "matmul_w8"), (quant, "matmul_w8a8"),
+                      (sparse, "sparse_flash"),
                       (sol, "sol_flash")):
         def spy(*a, _fn=getattr(mod, name), _name=name, **kw):
             seen[_name] = seen.get(_name, 0) + 1
@@ -76,6 +78,7 @@ def _interpret(fn):
 @pytest.mark.parametrize("quantize,mode,want", [
     ("int4a8", "sol", {"matmul_w4a8": 40, "sol_flash": 4}),
     ("int4", "radial", {"matmul_w4": 40, "sparse_flash": 4}),
+    ("int8a8", "auto", {"matmul_w8a8": 40}),
 ])
 def test_service_request_matches_jax(tiny_arch, calls, monkeypatch,
                                      tmp_path, quantize, mode, want):
@@ -106,6 +109,8 @@ def test_service_request_matches_jax(tiny_arch, calls, monkeypatch,
     monkeypatch.setattr(jquant, "matmul_w4", _interpret(jquant.matmul_w4))
     monkeypatch.setattr(jquant, "matmul_w4a8",
                         _interpret(jquant.matmul_w4a8))
+    monkeypatch.setattr(jquant, "matmul_w8a8",
+                        _interpret(jquant.matmul_w8a8))
     monkeypatch.setattr(jquant, "_ACT_QUANT", c.act_quant)
     jp = jpipe.WanPipeline(_jax_tree(pipe.dit_params), jcfg,
                            attn_backend=mode)

@@ -7,7 +7,8 @@ the JAX package's channels-last `[kt, kh, kw, Cin, Cout]` /
 `[K, N]` (`x @ W`), block weights stay stacked `[L, ...]`, and quantized
 linears keep their integer leaves as they are (int8 `w_q` `[.., K, N]`,
 packed int4 `w_q4` `[.., KP/2, N]`, each with its fp32 `scale`).  The Wan
-DiT and T5 trees hold no 4-D or 5-D `w` leaf, so the rule is by rank.
+DiT, T5 and Krea 2 trees hold no 4-D or 5-D `w` leaf, so the rule is by
+rank.
 """
 from __future__ import annotations
 

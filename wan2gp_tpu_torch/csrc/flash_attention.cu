@@ -1,11 +1,21 @@
-// Dense flash attention forward for Hopper (sm_90a), bf16 in / bf16 out.
+// Flash attention forward for Hopper (sm_90a), bf16 in / bf16 out, dense
+// or with a per-key validity mask.
 //
-// Replaces the Pallas kernel wan2gp_tpu/ops/attention.py::_flash_kernel
-// (launched by _flash_attention).  Same numerics: q is scaled in bf16
-// before QK^T (the wrapper passes the scale already rounded to bf16),
-// scores and the online-softmax state (running max m, denominator l,
-// accumulator) stay fp32, P is rounded to bf16 before P.V, keys past S are
-// masked, and a zero denominator becomes 1.
+// Replaces two Pallas kernels of wan2gp_tpu/ops/attention.py (launched by
+// _flash_attention):
+//   _flash_kernel: dense.  Same numerics: q is scaled in bf16 before QK^T
+//     (the wrapper passes the scale already rounded to bf16), scores and
+//     the online-softmax state (running max m, denominator l, accumulator)
+//     stay fp32, P is rounded to bf16 before P.V, keys past S are masked,
+//     and a zero denominator becomes 1.
+//   _flash_kernel_kvmask: the same with a [B, S] key-validity mask (uint8
+//     here, one row per batch item; the TPU kernel's 8-row fp32 broadcast
+//     is dropped).  Masked scores become the finite -1e30, P is forced to
+//     0 while the running max is still <= -1e30/2 (so a key of a fully
+//     masked tile never counts as exp(0) = 1), and a fully masked row
+//     keeps l = 0, so it writes exact zeros.  No -inf is ever formed.
+//   Both are one CTA, instantiated twice (template flag Masked); the dense
+//   instantiation compiles none of the mask code.
 //
 // What bounds it: at the self-attention shapes of the Wan DiT (L = S in
 // the tens of thousands, D = 128) the work is 4*B*N*L*S*D operations on
@@ -22,9 +32,10 @@
 // S accumulators are re-packed in registers as the A operand of P V, and
 // the V operand is read with ldmatrix.trans.  Rows are padded by 8
 // elements in shared memory so the fragment loads are free of bank
-// conflicts.  Ragged L and S are masked inside the kernel.  This is the
-// simple first version: no TMA, no wgmma, no warp specialisation and no
-// double buffering yet.
+// conflicts.  Ragged L and S are masked inside the kernel; the masked
+// variant stages each tile's 64 mask bytes in shared memory beside K and V
+// (the tail past S reads as masked).  This is the simple first version:
+// no TMA, no wgmma, no warp specialisation and no double buffering yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,11 +76,12 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int D>
+template <int D, bool Masked>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
+                 const uint8_t* __restrict__ kvm, long long msb,
                  __nv_bfloat16* __restrict__ o, int L, int S,
                  long long qsb, long long qsl, long long qsn,
                  long long ksb, long long ksl, long long ksn,
@@ -81,6 +93,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* k_s = q_s + kBlockQ * kStride;
   __nv_bfloat16* v_s = k_s + kBlockKV * kStride;
+  uint8_t* mk_s = reinterpret_cast<uint8_t*>(v_s + kBlockKV * kStride);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -141,6 +154,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint4*>(k_s + r * kStride + c) = kv;
       *reinterpret_cast<uint4*>(v_s + r * kStride + c) = vv;
     }
+    if constexpr (Masked) {
+      if (tid < kBlockKV)
+        mk_s[tid] = j0 + tid < S ? kvm[b * msb + j0 + tid] : 0;
+    }
     __syncthreads();
 
     // ---- S = (q*scale) K^T for this warp's 16 rows x 64 keys ----
@@ -153,7 +170,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int kk = 0; kk < D / 16; ++kk)
         mma_bf16(s[nt], qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
     }
-    if (j0 + kBlockKV > S) {          // ragged tail: mask keys >= S
+    if constexpr (Masked) {           // invalid keys (and the tail) -> -1e30
+#pragma unroll
+      for (int nt = 0; nt < kBlockKV / 8; ++nt) {
+        const int col = nt * 8 + 2 * t4;
+        if (!mk_s[col]) { s[nt][0] = kNegInf; s[nt][2] = kNegInf; }
+        if (!mk_s[col + 1]) { s[nt][1] = kNegInf; s[nt][3] = kNegInf; }
+      }
+    } else if (j0 + kBlockKV > S) {   // ragged tail: mask keys >= S
 #pragma unroll
       for (int nt = 0; nt < kBlockKV / 8; ++nt) {
         const int col = j0 + nt * 8 + 2 * t4;
@@ -181,10 +205,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     uint32_t pf[kBlockKV / 16][4];
 #pragma unroll
     for (int nt = 0; nt < kBlockKV / 8; ++nt) {
-      const float p0 = expf(s[nt][0] - m_run[0]);
-      const float p1 = expf(s[nt][1] - m_run[0]);
-      const float p2 = expf(s[nt][2] - m_run[1]);
-      const float p3 = expf(s[nt][3] - m_run[1]);
+      float p0 = expf(s[nt][0] - m_run[0]);
+      float p1 = expf(s[nt][1] - m_run[0]);
+      float p2 = expf(s[nt][2] - m_run[1]);
+      float p3 = expf(s[nt][3] - m_run[1]);
+      if constexpr (Masked) {         // no valid key yet in this row
+        if (m_run[0] <= 0.5f * kNegInf) p0 = p1 = 0.f;
+        if (m_run[1] <= 0.5f * kNegInf) p2 = p3 = 0.f;
+      }
       l_cur[0] += p0 + p1;
       l_cur[1] += p2 + p3;
       // C fragment of n-tile nt -> half of the A fragment of k-step nt/2
@@ -237,19 +265,22 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int L, int S, int N, const long long* st, float scale,
-           cudaStream_t stream) {
-  constexpr int smem = (kBlockQ + 2 * kBlockKV) * (D + 8) * 2;
+template <int D, bool Masked>
+int launch(const void* q, const void* k, const void* v, const void* kvm,
+           long long msb, void* o, int B, int L, int S, int N,
+           const long long* st, float scale, cudaStream_t stream) {
+  constexpr int smem =
+      (kBlockQ + 2 * kBlockKV) * (D + 8) * 2 + (Masked ? kBlockKV : 0);
   // above 48 KB of dynamic shared memory needs the opt-in (per device)
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D, Masked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + kBlockQ - 1) / kBlockQ, N, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<D, Masked><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, S,
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kvm),
+      msb, static_cast<__nv_bfloat16*>(o), L, S,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], scale);
   return cudaGetLastError();
@@ -265,7 +296,27 @@ extern "C" int wg_flash_attention_bf16(const void* q, const void* k,
                                        const long long* strides, float scale,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(q, k, v, o, B, L, S, N, strides, scale, s);
-  if (D == 64) return launch<64>(q, k, v, o, B, L, S, N, strides, scale, s);
+  if (D == 128)
+    return launch<128, false>(q, k, v, nullptr, 0, o, B, L, S, N, strides,
+                              scale, s);
+  if (D == 64)
+    return launch<64, false>(q, k, v, nullptr, 0, o, B, L, S, N, strides,
+                             scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// As above, with kv_mask: [B, S] uint8 (non-zero = valid key), unit stride
+// on S and `mask_bstride` elements between batch rows.
+extern "C" int wg_flash_attention_kvmask_bf16(
+    const void* q, const void* k, const void* v, const void* kv_mask,
+    void* o, int B, int L, int S, int N, int D, const long long* strides,
+    long long mask_bstride, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch<128, true>(q, k, v, kv_mask, mask_bstride, o, B, L, S, N,
+                             strides, scale, s);
+  if (D == 64)
+    return launch<64, true>(q, k, v, kv_mask, mask_bstride, o, B, L, S, N,
+                            strides, scale, s);
   return cudaErrorInvalidValue;
 }

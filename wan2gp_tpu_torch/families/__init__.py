@@ -1,7 +1,8 @@
-"""Family handlers of the port (only Wan t2v so far)."""
+"""Family handlers of the port: Wan t2v and Krea 2 text-to-image."""
+from .krea2 import Krea2FamilyHandler
 from .wan import WanFamilyHandler
 
-_HANDLER_CLASSES = (WanFamilyHandler,)
+_HANDLER_CLASSES = (WanFamilyHandler, Krea2FamilyHandler)
 
 
 def build_handler_map():

@@ -27,10 +27,17 @@ ENTRY_POINTS = {
     "flash_attention": {
         # q, k, v, o, B, L, S, N, D, strides[12], scale, stream
         "wg_flash_attention_bf16": [_P] * 4 + [_I] * 5
-                                   + [_P, ctypes.c_float, _P]},
+                                   + [_P, ctypes.c_float, _P],
+        # q, k, v, kv_mask, o, B, L, S, N, D, strides[12], mask batch
+        # stride, scale, stream
+        "wg_flash_attention_kvmask_bf16": [_P] * 5 + [_I] * 5
+                                          + [_P, ctypes.c_longlong,
+                                             ctypes.c_float, _P]},
     "w8_matmul": {
         # x, w_q, scale, y, M, N, K, stream
-        "wg_w8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P]},
+        "wg_w8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
+        # x_q, sx, w_q, sw, y, M, N, K, stream
+        "wg_w8a8_matmul": [_P] * 5 + [_I] * 3 + [_P]},
     "sparse_flash": {
         # q, k, v, o, kv_idx, counts, B, L, S, N, D, nQb, maxA, block_q,
         # block_kv, strides[12], scale, stream

@@ -1,14 +1,18 @@
-"""Attention: the `attention()` dispatcher and the dense flash kernel.
+"""Attention: the `attention()` dispatcher and the flash kernels.
 
 Counterpart of wan2gp_tpu/ops/attention.py.  Semantics: scaled dot-product
 attention over [B, L, N, D] tensors, default scale 1/sqrt(D), softmax in
 fp32.  On a CUDA tensor the dense backends ("auto", "pallas", "xla")
-launch the hand-written kernel of csrc/flash_attention.cu; on a CPU tensor
-they run its plain PyTorch version, `flash_attention_ref`.  The structured
-sparse backends ("radial:<frames>:<tokens_per_frame>[:<decay>]",
-"swa:<window>[:<sink>]") go to ops/sparse_attention.py and Sol-Attn
+launch the hand-written kernels of csrc/flash_attention.cu (with a
+`kv_mask`, its masked variant); on a CPU tensor they run their plain
+PyTorch version, `flash_attention_ref` (with the same `kv_mask`).
+A masked call follows the Pallas kernel, not the JAX package's XLA path:
+a query row whose keys are all masked gets zeros (XLA gives the mean of
+v).  The structured sparse backends
+("radial:<frames>:<tokens_per_frame>[:<decay>]", "swa:<window>[:<sink>]")
+go to ops/sparse_attention.py and Sol-Attn
 ("sol[:tau[:budget[:thresh_type]]]") to ops/sol_attention.py, for
-self-attention; cross-attention and masked calls take the dense kernel.
+self-attention; cross-attention and masked calls take the dense kernels.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ _LATER = {
     "ulysses": "ROADMAP Queue 1: parallel/ (Ulysses attention)",
 }
 
-# plain integer count of kernel launches (read and reset by callers)
-launches = 0
+# plain integer counts of kernel launches (read and reset by callers)
+launches = 0            # flash_attention
+kvmask_launches = 0     # flash_attention with a kv_mask
 
 # working-set cap of the plain version's fp32 score block
 _REF_SCORE_BYTES = 1 << 30
@@ -40,22 +45,30 @@ def _scaled_q(q, scale):
     return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
 
 
-def flash_attention_ref(q, k, v, scale: float):
+def flash_attention_ref(q, k, v, scale: float, kv_mask=None):
     """Plain PyTorch version of the kernel, same roundings: q scaled in its
     dtype, fp32 scores and softmax statistics, P rounded to v's dtype
-    before P.V, a zero denominator becomes 1.  Processes query rows in
-    blocks so the fp32 score block stays under ~1 GiB."""
+    before P.V, a zero denominator becomes 1.  With a [B, S] kv_mask (the
+    masked kernel's plain version), scores of keys with kv_mask[b, s] <= 0
+    are set to -1e30 and P to 0 in rows whose max is still <= -1e30/2 (all
+    keys masked), so those rows come out as zeros.  Processes query rows
+    in blocks so the fp32 score block stays under ~1 GiB."""
     b, l, n, _ = q.shape
     s_len = k.shape[1]
     qs = _scaled_q(q, scale)
     kf = k.float()
     vf = v.float()
+    valid = None if kv_mask is None else (kv_mask > 0)[:, None, None, :]
     rows = max(1, _REF_SCORE_BYTES // (4 * b * n * s_len))
     out = torch.empty_like(q)
     for i in range(0, l, rows):
         s = torch.einsum("blnd,bsnd->bnls", qs[:, i:i + rows].float(), kf)
+        if valid is not None:
+            s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
         m = torch.amax(s, dim=-1, keepdim=True)
         p = torch.exp(s - m)
+        if valid is not None:
+            p = torch.where(m > _NEG_INF / 2, p, torch.zeros_like(p))
         denom = torch.sum(p, dim=-1, keepdim=True)
         denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
         o = torch.einsum("bnls,bsnd->blnd", p.to(v.dtype).float(), vf)
@@ -93,27 +106,42 @@ def _check_flash_inputs(q, k, v):
                              f"are multiples of 8, got {t.stride()}")
 
 
-def flash_attention(q, k, v, scale: float):
-    """Dense attention over [B, L, N, D] q and [B, S, N, D] k/v.
+def flash_attention(q, k, v, scale: float, kv_mask=None):
+    """Dense attention over [B, L, N, D] q and [B, S, N, D] k/v, with an
+    optional [B, S] key-validity mask (> 0 = valid; bool, int or float).
 
     CPU tensors run `flash_attention_ref`; CUDA tensors launch the kernel
-    (bf16, D in {64, 128}, any L and S) or raise."""
-    global launches
+    (bf16, D in {64, 128}, any L and S; with a mask, its masked variant)
+    or raise."""
+    global launches, kvmask_launches
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, scale)
+        return flash_attention_ref(q, k, v, scale, kv_mask)
     _check_flash_inputs(q, k, v)
     b, l, n, d = q.shape
     s_len = k.shape[1]
+    if kv_mask is not None and (tuple(kv_mask.shape) != (b, s_len)
+                                or kv_mask.device != q.device):
+        raise ValueError(f"flash_attention: kv_mask must be [B, S] = "
+                         f"{(b, s_len)} on {q.device}, got "
+                         f"{tuple(kv_mask.shape)} on {kv_mask.device}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
     scale_q = float(torch.tensor(scale, dtype=q.dtype))
     lib = _cuda.library("flash_attention")
-    _cuda.check(lib.wg_flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, s_len,
-        n, d, strides, scale_q, _cuda.stream_handle(q)),
-        "flash_attention launch")
-    launches += 1
+    if kv_mask is None:
+        _cuda.check(lib.wg_flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
+            s_len, n, d, strides, scale_q, _cuda.stream_handle(q)),
+            "flash_attention launch")
+        launches += 1
+        return o
+    mask = (kv_mask > 0).to(torch.uint8).contiguous()
+    _cuda.check(lib.wg_flash_attention_kvmask_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        o.data_ptr(), b, l, s_len, n, d, strides, mask.stride(0), scale_q,
+        _cuda.stream_handle(q)), "flash_attention (kv-masked) launch")
+    kvmask_launches += 1
     return o
 
 
@@ -190,7 +218,8 @@ def _structured_sparse(q, k, v, backend: str, scale: float,
 
 def attention(q, k, v, scale: float | None = None, backend: str = "auto",
               kv_mask=None):
-    """Scaled dot-product attention, q: [B, L, N, D]; k, v: [B, S, N, D].
+    """Scaled dot-product attention, q: [B, L, N, D]; k, v: [B, S, N, D];
+    kv_mask: optional [B, S] key-validity mask (> 0 = valid key).
     Returns [B, L, N, D] in q.dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -215,8 +244,4 @@ def attention(q, k, v, scale: float | None = None, backend: str = "auto",
             f"({_LATER[kind]})")
     if backend not in _DENSE_BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}")
-    if kv_mask is not None:
-        raise NotImplementedError(
-            "attention with kv_mask is not ported yet (ROADMAP Queue 2: "
-            "ops/attention.py::_flash_kernel_kvmask)")
-    return flash_attention(q, k, v, scale)
+    return flash_attention(q, k, v, scale, kv_mask)

@@ -4,10 +4,10 @@ Counterpart of wan2gp_tpu/ops/quant.py.  Layouts: int8 w_q [K, N] with a
 per-output-channel fp32 scale [N], so y = (x @ w_q) * scale; int4 w_q4
 packed split-K as int8 [KP/2, N] (quantize_int4).  Activations run in the
 compute dtype, or, with act_quant="int8", as per-row dynamic int8
-(quantize_act_int8).  On a CUDA tensor `matmul_w8` launches the kernel of
-csrc/w8_matmul.cu and `matmul_w4` / `matmul_w4a8` those of
-csrc/w4_matmul.cu; on a CPU tensor each runs its plain version
-(`matmul_w8_ref`, `matmul_w4_ref`, `matmul_w4a8_ref`).
+(quantize_act_int8).  On a CUDA tensor `matmul_w8` / `matmul_w8a8`
+launch the kernels of csrc/w8_matmul.cu and `matmul_w4` / `matmul_w4a8`
+those of csrc/w4_matmul.cu; on a CPU tensor each runs its plain version
+(`matmul_w8_ref`, `matmul_w8a8_ref`, `matmul_w4_ref`, `matmul_w4a8_ref`).
 
 The activation mode is an argument, threaded from the DiT config, not a
 process-wide setting: a service created after another keeps its own.
@@ -21,6 +21,7 @@ from . import _cuda
 
 # plain integer counts of kernel launches (read and reset by callers)
 launches = 0            # matmul_w8
+w8a8_launches = 0       # matmul_w8a8
 w4_launches = 0         # matmul_w4
 w4a8_launches = 0       # matmul_w4a8
 
@@ -28,6 +29,8 @@ w4a8_launches = 0       # matmul_w4a8
 W4_BLOCK_K = 512
 # rows per pass of quantize_act_int8, so its fp32 temporaries stay ~256 MB
 _ACT_BYTES = 1 << 28
+# rows per pass of matmul_w8a8_ref, so its fp64 operand stays ~1 GB
+_W8A8_REF_BYTES = 1 << 30
 
 
 def quantize_int8(w):
@@ -48,28 +51,28 @@ def matmul_w8_ref(x, w_q, scale):
     return y.to(x.dtype)
 
 
-def _check_w8_inputs(x, w_q, scale):
+def _check_w8_inputs(name, x, w_q, scale, x_dtype):
     if not (x.is_cuda and w_q.is_cuda and scale.is_cuda):
-        raise ValueError("matmul_w8: x, w_q and scale must all be CUDA "
-                         "tensors")
+        raise ValueError(f"{name}: x, w_q and scale must all be CUDA "
+                         f"tensors")
     if len({x.device, w_q.device, scale.device}) != 1:
-        raise ValueError("matmul_w8: inputs on different devices")
-    if x.dtype != torch.bfloat16 or w_q.dtype != torch.int8 \
+        raise ValueError(f"{name}: inputs on different devices")
+    if x.dtype != x_dtype or w_q.dtype != torch.int8 \
             or scale.dtype != torch.float32:
-        raise TypeError(f"matmul_w8 kernel takes bf16 x, int8 w_q, fp32 "
+        raise TypeError(f"{name} kernel takes {x_dtype} x, int8 w_q, fp32 "
                         f"scale; got {x.dtype}, {w_q.dtype}, {scale.dtype}")
     if x.ndim != 2 or w_q.ndim != 2 or scale.ndim != 1 \
             or x.shape[1] != w_q.shape[0] or scale.shape[0] != w_q.shape[1]:
-        raise ValueError(f"matmul_w8: shapes x {tuple(x.shape)} w_q "
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)} w_q "
                          f"{tuple(w_q.shape)} scale {tuple(scale.shape)}")
     if not (x.is_contiguous() and w_q.is_contiguous()
             and scale.is_contiguous()):
-        raise ValueError("matmul_w8: x, w_q and scale must be contiguous")
+        raise ValueError(f"{name}: x, w_q and scale must be contiguous")
     m, k = x.shape
     if m == 0 or k == 0 or w_q.shape[1] == 0:
-        raise ValueError("matmul_w8: empty operand")
+        raise ValueError(f"{name}: empty operand")
     if -(-m // 128) > 65535:
-        raise ValueError(f"matmul_w8: M={m} exceeds the kernel's grid")
+        raise ValueError(f"{name}: M={m} exceeds the kernel's grid")
 
 
 def matmul_w8(x, w_q, scale):
@@ -79,7 +82,7 @@ def matmul_w8(x, w_q, scale):
     global launches
     if x.device.type == "cpu":
         return matmul_w8_ref(x, w_q, scale)
-    _check_w8_inputs(x, w_q, scale)
+    _check_w8_inputs("matmul_w8", x, w_q, scale, torch.bfloat16)
     m, k = x.shape
     n = w_q.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -132,10 +135,12 @@ def matmul_w4_ref(x, w_p, scale):
 
 def quantize_act_int8(x):
     """x: [M, K] float -> (x_q int8 [M, K], sx fp32 [M, 1]), per-row
-    symmetric: absmax over a bf16 view of x, sx = max(absmax, 1e-8) / 127,
-    x_q = round-half-even(x_bf16 / sx) clipped to +-127, as in the JAX
-    package.  Runs in row blocks so no fp32 copy of a whole [151,200,
-    13,824] activation is made."""
+    symmetric: absmax over a bf16 view of x, sx = max(absmax, 1e-8) *
+    fp32(1/127), x_q = round-half-even(x_bf16 / sx) clipped to +-127, as
+    the JAX package computes it once compiled (XLA turns its division by
+    the constant 127 into that multiplication; an ulp of sx can move an
+    int8 rounding).  Runs in row blocks so no fp32 copy of a whole
+    [151,200, 13,824] activation is made."""
     m, k = x.shape
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
@@ -143,7 +148,7 @@ def quantize_act_int8(x):
     for i in range(0, m, rows):
         xb = x[i:i + rows].to(torch.bfloat16)
         absmax = xb.abs().amax(dim=-1, keepdim=True).float()
-        s = torch.clamp(absmax, min=1e-8) / 127.0
+        s = torch.clamp(absmax, min=1e-8) * (1.0 / 127.0)
         sx[i:i + rows] = s
         xq[i:i + rows] = torch.clamp(torch.round(xb.float() / s),
                                      -127, 127).to(torch.int8)
@@ -231,13 +236,56 @@ def matmul_w4a8(x, w_p, scale):
     return y
 
 
+# ------------------------------------------------------------------ W8A8
+
+def matmul_w8a8_ref(x, w_q, scale):
+    """Plain version: x [M, K] float -> int8 activations
+    (quantize_act_int8), an exact integer product (in fp64, which holds
+    every partial sum: |sum| <= 127*127*K < 2^53), then (acc * scale) * sx
+    in fp32 -> [M, N] in x.dtype.  Row blocks keep the fp64 copy of x
+    near 1 GB."""
+    xq, sx = quantize_act_int8(x)
+    m, k = x.shape
+    w = w_q.double()
+    sw = scale.float()
+    out = torch.empty((m, w_q.shape[1]), dtype=x.dtype, device=x.device)
+    rows = max(1, _W8A8_REF_BYTES // (8 * max(k, 1)))
+    for i in range(0, m, rows):
+        acc = torch.matmul(xq[i:i + rows].double(), w).float()
+        out[i:i + rows] = (acc * sw * sx[i:i + rows]).to(x.dtype)
+    return out
+
+
+def matmul_w8a8(x, w_q, scale):
+    """x: [M, K] float; w_q: [K, N] int8; scale: [N] -> [M, N] in x.dtype,
+    through int8 activations (quantize_act_int8) and an int32 product.
+    CPU tensors run `matmul_w8a8_ref`; CUDA tensors launch the kernel
+    (bf16 out, any M, N, K) or raise."""
+    global w8a8_launches
+    if x.device.type == "cpu":
+        return matmul_w8a8_ref(x, w_q, scale)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"matmul_w8a8 kernel writes bf16; got x {x.dtype}")
+    xq, sx = quantize_act_int8(x)
+    _check_w8_inputs("matmul_w8a8", xq, w_q, scale, torch.int8)
+    m, k = x.shape
+    n = w_q.shape[1]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _cuda.library("w8_matmul")
+    _cuda.check(lib.wg_w8a8_matmul(
+        xq.data_ptr(), sx.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+        y.data_ptr(), m, n, k, _cuda.stream_handle(x)), "matmul_w8a8 launch")
+    w8a8_launches += 1
+    return y
+
+
 # ----------------------------------------------------------- dense layer
 
 def dense_quant(x, p, dtype=None, act_quant: str = "bf16"):
     """Dense layer over quantized params {w_q|w_q4, scale[, b]}; x: [..., K]
-    -> [..., N] in `dtype` (default x.dtype).  act_quant "int8" runs int4
-    weights through the W4A8 kernel (int8 activations); "bf16" keeps the
-    activations in `dtype`.  The bias is added in fp32."""
+    -> [..., N] in `dtype` (default x.dtype).  act_quant "int8" runs the
+    W8A8 / W4A8 kernels (int8 activations); "bf16" keeps the activations
+    in `dtype`.  The bias is added in fp32."""
     dtype = dtype or x.dtype
     lead = x.shape[:-1]
     xk = x.reshape(-1, x.shape[-1]).to(dtype).contiguous()
@@ -246,12 +294,9 @@ def dense_quant(x, p, dtype=None, act_quant: str = "bf16"):
     if "w_q4" in p:
         mm = matmul_w4a8 if act_quant == "int8" else matmul_w4
         y = mm(xk, p["w_q4"], p["scale"]).float()
-    elif act_quant == "int8":
-        raise NotImplementedError(
-            "int8 activations with int8 weights are not ported yet "
-            "(ROADMAP Queue 2: ops/quant.py::_w8a8_kernel)")
     else:
-        y = matmul_w8(xk, p["w_q"], p["scale"]).float()
+        mm = matmul_w8a8 if act_quant == "int8" else matmul_w8
+        y = mm(xk, p["w_q"], p["scale"]).float()
     if "b" in p:
         y = y + p["b"].float()
     return y.reshape(*lead, -1).to(dtype)

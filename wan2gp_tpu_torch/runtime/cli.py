@@ -2,6 +2,8 @@
 
 Usage:
   python -m wan2gp_tpu_torch --model t2v_1.3B --prompt "a cat" --random-weights
+  python -m wan2gp_tpu_torch --model krea2_raw --prompt "a cat" \
+      --random-weights --resolution 1024x1024 --steps 28
   python -m wan2gp_tpu_torch --process queue.json
   python -m wan2gp_tpu_torch --list-models
 
@@ -19,16 +21,20 @@ from .service import GenerationService
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("wan2gp_tpu_torch",
-                                description="Wan generation on PyTorch/CUDA")
+                                description="Wan video and Krea 2 image "
+                                            "generation on PyTorch/CUDA")
     p.add_argument("--process", metavar="QUEUE",
                    help="headless: process a queue .json and exit")
     p.add_argument("--dry-run", action="store_true",
                    help="validate the queue without generating")
     p.add_argument("--list-models", action="store_true")
-    p.add_argument("--model", default=None, help="model type for one-shot")
+    p.add_argument("--model", default=None,
+                   help="model type for one-shot (t2v_1.3B, t2v, krea2_raw, "
+                        "krea2_turbo; see --list-models)")
     p.add_argument("--prompt", default=None)
     p.add_argument("--negative-prompt", default="")
-    p.add_argument("--resolution", default=None, help="e.g. 832x480")
+    p.add_argument("--resolution", default=None,
+                   help="e.g. 832x480 (Wan) or 1024x1024 (Krea 2)")
     p.add_argument("--frames", type=int, default=None)
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--guidance-scale", type=float, default=None)
@@ -42,9 +48,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "radial (radial block mask from the latent grid) | "
                         "swa:<window_blocks>[:<sink_blocks>]")
     p.add_argument("--quantize", default="",
-                   choices=["", "int8", "int4", "int4a8"],
-                   help="quantize transformer linears on load: int8 or int4 "
-                        "weights; int4a8 also runs int8 activations")
+                   choices=["", "int8", "int4", "int8a8", "int4a8"],
+                   help="quantize the Wan transformer's linears on load: "
+                        "int8 or int4 weights; int8a8 / int4a8 also run "
+                        "int8 activations (Krea 2 takes none of them)")
     p.add_argument("--random-weights", action="store_true",
                    help="run with randomly initialized weights")
     p.add_argument("--device", default="cuda",

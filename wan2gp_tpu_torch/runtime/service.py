@@ -1,8 +1,10 @@
-"""GenerationService: settings dict -> video files.
+"""GenerationService: settings dict -> video or image files.
 
-Counterpart of wan2gp_tpu/runtime/service.py for the t2v path: model
-resolution and a pipeline cache, settings merge, resolution alignment,
-family dispatch and saving with embedded settings.  Settings keys follow
+Counterpart of wan2gp_tpu/runtime/service.py for the Wan t2v and Krea 2
+text-to-image paths: model resolution and a pipeline cache, settings
+merge, resolution alignment, family dispatch (models whose definition has
+`image_outputs` go through the handler's `generate_image` and are saved as
+PNG) and saving with embedded settings.  Settings keys follow
 the reference task format (prompt, negative_prompt, resolution "WxH",
 video_length, num_inference_steps, guidance_scale, flow_shift,
 sample_solver, seed, model_type, ...).
@@ -31,19 +33,17 @@ def quantize_dit_params(params, mode: str):
     """Quantize transformer-block linears on load: every stacked
     {"w": [L, K, N]} under a *blocks* subtree with K, N >= 256 becomes
     {"w_q"|"w_q4", "scale"}; embeddings, norms and modulation stay float.
-    Modes: "int8" (or "quanto_int8"), "int4", and "int4a8", which stores
-    the weights as "int4" does; its int8 activations are the DiT config's
-    `act_quant` (see `activation_mode`), never a process-wide setting.
-    Each float weight it quantizes is removed from `params`."""
+    Modes: "int8" (or "quanto_int8"), "int4", and "int8a8" / "int4a8",
+    which store the weights as "int8" / "int4" do; their int8 activations
+    are the DiT config's `act_quant` (see `activation_mode`), never a
+    process-wide setting.  Each float weight it quantizes is removed from
+    `params`."""
     from ..ops.quant import quantize_params_tree
-    if mode == "int8a8":
-        raise NotImplementedError(
-            "quantize='int8a8' is not ported yet (ROADMAP Queue 2: "
-            "ops/quant.py::_w8a8_kernel)")
-    bits = {"int8": 8, "quanto_int8": 8, "int4": 4, "int4a8": 4}.get(mode)
+    bits = {"int8": 8, "quanto_int8": 8, "int8a8": 8, "int4": 4,
+            "int4a8": 4}.get(mode)
     if bits is None:
         raise ValueError(f"unknown quantization mode {mode!r} (use 'int8', "
-                         "'int4' or 'int4a8')")
+                         "'int4', 'int8a8' or 'int4a8')")
     return quantize_params_tree(params, predicate=lambda path: "blocks" in path,
                                 bits=bits, min_dim=256)
 
@@ -76,6 +76,10 @@ class GenerationService:
                 model_def = self.registry.get(model_type)
             handler = self.registry.handler_for(model_type)
             base = self.registry.base_model_type(model_type)
+            if self.quantize and not getattr(handler, "quantizable", True):
+                raise ValueError(
+                    f"quantize={self.quantize!r} is not supported for "
+                    f"{model_type}: its linears read float weights only")
             # without random weights the handler raises: checkpoint
             # loading is not ported yet
             pipe = handler.load_model(
@@ -120,11 +124,18 @@ class GenerationService:
         os.makedirs(self.output_dir, exist_ok=True)
         if on_progress:
             on_progress("status", f"generating with {model_type}")
-        frame_num = int(merged.get("video_length", 81))
         handler = self.registry.handler_for(model_type)
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        if model_def.get("image_outputs"):
+            img = handler.generate_image(pipe, merged, width, height, seed)
+            path = os.path.join(self.output_dir,
+                                f"{model_type}_{stamp}_{seed}.png")
+            media.save_image(np.asarray(img), path,
+                             metadata=_clean_settings(merged))
+            return [path]
+        frame_num = int(merged.get("video_length", 81))
         result = handler.generate_video(pipe, merged, width, height,
                                         frame_num, seed)
-        stamp = time.strftime("%Y%m%d_%H%M%S")
         path = os.path.join(self.output_dir,
                             f"{model_type}_{stamp}_{seed}.avi")
         path = media.save_video(np.asarray(result["video"]), path,

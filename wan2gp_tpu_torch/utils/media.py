@@ -1,10 +1,12 @@
-"""Video output: [-1, 1] frames -> uint8 -> AVI with settings metadata.
+"""Media output: [-1, 1] frames -> uint8 -> AVI or PNG with settings.
 
-Counterpart of `to_uint8` and the AVI path of `save_video` in
-wan2gp_tpu/utils/media.py.  The container is the same pure-Python RIFF
-AVI with the settings JSON in an INFO/ICMT chunk.  Frames are MJPEG when
-PIL imports (as in the JAX package) and uncompressed 24-bit `DIB `
-frames when it does not, so saving needs nothing beyond numpy.
+Counterpart of `to_uint8`, the AVI path of `save_video` and `save_image` /
+`read_image_metadata` in wan2gp_tpu/utils/media.py.  Videos are the same
+pure-Python RIFF AVI with the settings JSON in an INFO/ICMT chunk; frames
+are MJPEG when PIL imports (as in the JAX package) and uncompressed 24-bit
+`DIB ` frames when it does not.  Images are PNG written with zlib and
+struct (the JAX package needs PIL), with the settings JSON in a tEXt chunk
+under the same `wan2gp` key, so saving needs nothing beyond numpy.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import io
 import json
 import os
 import struct
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -158,3 +161,82 @@ def read_video_metadata(path: str) -> Optional[Dict[str, Any]]:
     size = struct.unpack("<I", data[marker + 4:marker + 8])[0]
     txt = data[marker + 8:marker + 8 + size].rstrip(b"\x00")
     return json.loads(txt.decode())[METADATA_KEY]
+
+
+# ----------------------------------------------------------------- images
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def save_image(arr: np.ndarray, path: str,
+               metadata: Optional[Dict[str, Any]] = None) -> str:
+    """arr: [H, W, 3] uint8 or [-1, 1] float -> 8-bit RGB PNG (rows
+    unfiltered, zlib level 6) with the settings JSON in a tEXt chunk.
+    Returns the path."""
+    if not path.lower().endswith(".png"):
+        raise NotImplementedError(
+            f"only .png image output is ported so far, got {path!r}")
+    img = to_uint8(np.asarray(arr))
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"save_image expects [H, W, 3], got {img.shape}")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)],
+                          axis=1)                 # filter byte 0 per row
+    chunks = [_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                              0))]
+    if metadata is not None:
+        chunks.append(_png_chunk(b"tEXt", METADATA_KEY.encode("latin-1")
+                                 + b"\x00" + json.dumps(metadata).encode(
+                                     "latin-1")))
+    chunks.append(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+    chunks.append(_png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE + b"".join(chunks))
+    return path
+
+
+def _png_chunks(path: str):
+    """Yield (kind, data) of each chunk of a PNG file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path} is not a PNG file")
+    pos = 8
+    while pos + 8 <= len(data):
+        size = struct.unpack(">I", data[pos:pos + 4])[0]
+        yield data[pos + 4:pos + 8], data[pos + 8:pos + 8 + size]
+        pos += 12 + size
+
+
+def read_image(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 of an 8-bit RGB PNG written by `save_image`."""
+    header, idat = None, []
+    for kind, data in _png_chunks(path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat.append(data)
+    w, h, depth, color, _, _, interlace = header
+    if (depth, color, interlace) != (8, 2, 0):
+        raise NotImplementedError("read_image reads 8-bit RGB PNGs only")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)),
+                         np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise NotImplementedError("read_image reads unfiltered rows only")
+    return rows[:, 1:].reshape(h, w, 3).copy()
+
+
+def read_image_metadata(path: str) -> Optional[Dict[str, Any]]:
+    """The settings JSON of the PNG's `wan2gp` tEXt chunk, if any."""
+    if not os.path.exists(path):
+        return None
+    key = METADATA_KEY.encode("latin-1") + b"\x00"
+    for kind, data in _png_chunks(path):
+        if kind == b"tEXt" and data.startswith(key):
+            return json.loads(data[len(key):].decode("latin-1"))
+    return None
