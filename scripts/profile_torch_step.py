@@ -32,8 +32,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
-    ("flash_fwd_kernel<128, true>", "flash_attention_kvmask (port kernel)"),
-    ("flash_fwd_kernel<64, true>", "flash_attention_kvmask (port kernel)"),
+    # flash_fwd_kernel<D, Masked, consumer warpgroups>
+    ("flash_fwd_kernel<128, true,", "flash_attention_kvmask (port kernel)"),
+    ("flash_fwd_kernel<64, true,", "flash_attention_kvmask (port kernel)"),
     ("flash_fwd_kernel", "flash_attention (port kernel)"),
     ("sparse_flash_kernel", "sparse/sol flash (port kernel)"),
     ("w8a8_matmul_kernel", "matmul_w8a8 (port kernel)"),

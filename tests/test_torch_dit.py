@@ -24,6 +24,8 @@ from wan2gp_tpu_torch.runtime.service import quantize_dit_params
 
 from tests.test_goldens import _load
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 JCFG = jdit.WanDiTConfig(dim=64, ffn_dim=128, num_heads=2, num_layers=2,
                          freq_dim=32, text_dim=48, text_len=16,
                          compute_dtype=jnp.float32)

@@ -31,6 +31,8 @@ from wan2gp_tpu_torch.models.wan import dit
 from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
 from wan2gp_tpu_torch.ops.rope import build_rope_3d
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 jquant = importlib.import_module("wan2gp_tpu.ops.quant")
 
 JCFG = jdit.WanDiTConfig(dim=256, ffn_dim=256, num_heads=2, num_layers=2,

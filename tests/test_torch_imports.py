@@ -15,6 +15,8 @@ import sys
 import pytest
 import torch
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "wan2gp_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "wan2gp_tpu")

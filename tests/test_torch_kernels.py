@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips without a CUDA card (the kernels have no CPU
-mode).  The file imports only torch and the port, so on the card's machine,
-which has no JAX, it runs on its own:
+mode).  The flash wrapper's input rules (what its TMA maps take) are a pure
+function of shapes, strides and pointer offsets, tested on CPU tensors.
+The file imports only torch and the port, so on the card's machine, which
+has no JAX, it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
@@ -47,19 +49,32 @@ def _flash_matches_plain(q, k, v):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,s,n,d", [(1, 1000, 1000, 2, 128),
-                                       (1, 1000, 1000, 2, 64),
-                                       (2, 4096, 512, 12, 128),
-                                       (1, 1, 70, 3, 64)])
+@pytest.mark.parametrize("b,l,s,n,d", [
+    (1, 1000, 1000, 2, 128),    # ragged L and S, 8 kv tiles (the ring wraps)
+    (1, 1000, 1000, 2, 64),
+    (2, 4096, 512, 12, 128),    # cross-attention
+    (1, 1, 70, 3, 64),          # one query row, S < one kv tile
+    (2, 333, 77, 3, 128),       # S < 128, L not a multiple of 128
+    (1, 129, 513, 2, 128),      # one row past a q tile, one key past 4 tiles
+    (3, 64, 700, 2, 64),        # 64-row instantiation over 6 kv tiles
+    (64, 12, 12, 20, 128)])     # Krea 2's layer-wise text blocks
 def test_flash_kernel_matches_plain(gen, b, l, s, n, d):
     _flash_matches_plain(_randn((b, l, n, d), gen), _randn((b, s, n, d), gen),
                          _randn((b, s, n, d), gen))
 
 
 @pytest.mark.cuda
-def test_flash_kernel_reads_strided_views(gen):
-    qkv = _randn((2, 777, 3, 4, 128), gen)
-    _flash_matches_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+@pytest.mark.parametrize("layout", ["packed_qkv_d128", "packed_qkv_d64",
+                                    "heads_first"])
+def test_flash_kernel_reads_strided_views(gen, layout):
+    if layout == "heads_first":          # [B, N, L, D] storage, transposed
+        q, k, v = (_randn((2, 3, 600, 128), gen).transpose(1, 2)
+                   for _ in range(3))
+    else:
+        qkv = _randn((2, 777, 3, 4, 128 if layout.endswith("128") else 64),
+                     gen)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    _flash_matches_plain(q, k, v)
 
 
 @pytest.mark.cuda
@@ -71,18 +86,95 @@ def test_flash_kernel_rejects_what_it_does_not_take(gen):
         attention.flash_attention(q[..., :96], q[..., :96], q[..., :96], 0.1)
     with pytest.raises(ValueError):
         attention.flash_attention(q, q.cpu(), q, 0.1)
+    # a view 4 elements (8 bytes) into its storage: no TMA map takes it,
+    # and the wrapper raises instead of falling back
+    shifted = _randn((q.numel() + 4,), gen)[4:].view(q.shape)
+    before = attention.launches
+    with pytest.raises(ValueError):
+        attention.flash_attention(shifted, q, q, 0.1)
+    # rows 132 elements apart: a byte stride that is not a multiple of 16
+    wide = _randn((1, 16, 2, 132), gen)[..., :128]
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, wide, wide, 0.1)
+    assert attention.launches == before
+
+
+def _cpu_layout(t):
+    return t.shape, t.stride(), t.data_ptr() % 16
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("contiguous", True), ("packed_qkv", True), ("heads_first", True),
+    ("size1_dims_any_stride", True), ("offset_4_elements", False),
+    ("stride_not_multiple_of_8", False), ("d_strided", False),
+    ("d96", False), ("shape_mismatch", False), ("empty", False)])
+def test_flash_layout_rules_on_cpu_tensors(case, ok):
+    """The wrapper's checks as a pure function of shapes, strides and byte
+    offsets: what the kernel's TMA maps can and cannot take."""
+    q = torch.empty((2, 40, 3, 128), dtype=torch.bfloat16)
+    k = v = torch.empty((2, 50, 3, 128), dtype=torch.bfloat16)
+    if case == "packed_qkv":
+        qkv = torch.empty((2, 40, 3, 3, 128), dtype=torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    elif case == "heads_first":
+        q = torch.empty((2, 3, 40, 128), dtype=torch.bfloat16).transpose(1, 2)
+    elif case == "size1_dims_any_stride":
+        q = torch.empty((1, 40, 1, 128), dtype=torch.bfloat16)
+        q = q.as_strided(q.shape, (3, 128, 5, 1))
+        k = v = torch.empty((1, 50, 1, 128), dtype=torch.bfloat16)
+    elif case == "offset_4_elements":
+        q = torch.empty((q.numel() + 4,), dtype=torch.bfloat16)[4:].view(
+            q.shape)
+    elif case == "stride_not_multiple_of_8":
+        k = v = torch.empty((2, 50, 3, 132), dtype=torch.bfloat16)[..., :128]
+    elif case == "d_strided":
+        q = torch.empty((2, 40, 3, 256), dtype=torch.bfloat16)[..., ::2]
+    elif case == "d96":
+        q, k, v = (t[..., :96] for t in (q, k, v))
+    elif case == "shape_mismatch":
+        v = torch.empty((2, 51, 3, 128), dtype=torch.bfloat16)
+    elif case == "empty":
+        k = v = torch.empty((2, 0, 3, 128), dtype=torch.bfloat16)
+    shapes, strides, offsets = zip(*(_cpu_layout(t) for t in (q, k, v)))
+    err = attention.flash_layout_error(shapes, strides, offsets)
+    assert (err is None) == ok, err
+
+
+@pytest.mark.parametrize("dtype,s_len,copied", [
+    (torch.uint8, 256, False), (torch.bool, 64, False),
+    (torch.int32, 64, True), (torch.uint8, 203, True)])
+def test_kernel_kv_mask_layout(dtype, s_len, copied):
+    """What the masked kernel reads: bytes, non-zero = valid, rows 16-byte
+    aligned holding S rounded up to 16; Krea 2's contiguous uint8 mask
+    (S a multiple of 16) is passed through without a copy."""
+    rng = np.random.default_rng(s_len)
+    mask = torch.from_numpy(rng.integers(-1, 3, (2, s_len))).to(dtype)
+    got = attention.kernel_kv_mask(mask, s_len)
+    assert (got.data_ptr() == mask.data_ptr()) != copied
+    assert got.element_size() == 1 and got.stride(1) == 1
+    assert got.stride(0) % 16 == 0 and got.shape[1] >= s_len
+    assert got.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(got[:, :s_len].numpy() != 0,
+                                  (mask > 0).numpy())
+    assert not got[:, s_len:].any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,s,n,d,dead", [
-    (2, 300, 333, 4, 128, None),         # ragged S, per-batch masks
-    (3, 70, 130, 2, 64, 1),              # batch item 1 fully masked
-    (1, 64, 64, 20, 128, None),          # Krea 2 text refiner
-    (2, 1000, 1024, 3, 128, None)])      # [txt, img, pad] packing
-def test_kvmask_flash_kernel_matches_plain(gen, b, l, s, n, d, dead):
+@pytest.mark.parametrize("b,l,s,n,d,dead,dead_tiles", [
+    (2, 300, 333, 4, 128, None, ()),     # ragged S, per-batch masks
+    (3, 70, 130, 2, 64, 1, ()),          # batch item 1 fully masked
+    (1, 64, 64, 20, 128, None, ()),      # Krea 2 text refiner
+    (2, 1000, 1024, 3, 128, None, ()),   # [txt, img, pad] packing
+    # fully masked 128-key tiles in the middle and at the end
+    (2, 200, 700, 2, 128, None, ((128, 384), (640, 700))),
+    (2, 40, 300, 2, 64, 0, ((0, 128),))])
+def test_kvmask_flash_kernel_matches_plain(gen, b, l, s, n, d, dead,
+                                           dead_tiles):
     q, k, v = (_randn((b, x, n, d), gen) for x in (l, s, s))
     mask = torch.rand((b, s), generator=gen, device="cuda") < 0.7
     mask[:, -s // 8:] = False                     # padded tail
+    for lo, hi in dead_tiles:
+        mask[:, lo:hi] = False
     if dead is not None:
         mask[dead] = False
     scale = 1.0 / math.sqrt(d)

@@ -36,6 +36,8 @@ from wan2gp_tpu_torch.ops import attention
 from wan2gp_tpu_torch.runtime.service import GenerationService
 from wan2gp_tpu_torch.utils import media
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = 1e-4
 BF16_TOL = 3e-2         # of max|ref|, as the port's other bf16 parity tests
 JTINY = jdit.Krea2Config(features=64, tdim=16, txtdim=32, heads=4, kvheads=2,

@@ -32,6 +32,8 @@ from wan2gp_tpu_torch.ops import attention, quant
 from wan2gp_tpu_torch.ops.rope import build_rope_3d
 from wan2gp_tpu_torch.runtime.service import quantize_dit_params
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 jattn = importlib.import_module("wan2gp_tpu.ops.attention")
 jquant = importlib.import_module("wan2gp_tpu.ops.quant")
 

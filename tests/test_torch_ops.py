@@ -23,6 +23,8 @@ from wan2gp_tpu_torch.ops import norms, rope, attention, quant
 
 from tests.test_goldens import _load
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = 1e-5
 
 

@@ -20,6 +20,8 @@ import importlib
 jquant = importlib.import_module("wan2gp_tpu.ops.quant")
 from wan2gp_tpu_torch.ops import quant
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)

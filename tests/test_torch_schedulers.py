@@ -16,6 +16,8 @@ from wan2gp_tpu_torch.schedulers import (make_schedule, init_solver_state,
 
 from tests.test_goldens import _load
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.mark.parametrize("order,steps,shift", [(1, 4, 3.0), (2, 10, 5.0),
                                                (3, 7, 8.0)])

@@ -31,6 +31,8 @@ from wan2gp_tpu_torch.ops import sparse_attention as sparse
 from wan2gp_tpu_torch.ops import sol_attention as sol
 from wan2gp_tpu_torch.runtime.service import GenerationService
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 jquant = importlib.import_module("wan2gp_tpu.ops.quant")
 
 

@@ -22,6 +22,8 @@ jsol = importlib.import_module("wan2gp_tpu.ops.sol_attention")
 from wan2gp_tpu_torch.ops import sparse_attention as sparse
 from wan2gp_tpu_torch.ops import sol_attention as sol
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _qkv(b, l, h, d, seed):
     rng = np.random.default_rng(seed)

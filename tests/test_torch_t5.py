@@ -21,6 +21,8 @@ from wan2gp_tpu_torch.utils.tokenizer import HashTokenizer, load_tokenizer
 
 from tests.test_goldens import _load
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vocab_size=100, dim=32, dim_attn=32, dim_ffn=64, num_heads=4,
             num_layers=2)

@@ -18,14 +18,22 @@ from wan2gp_tpu_torch.models.wan import vae, vae_scan
 
 from tests.test_goldens import _load
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 JCFG = jvae.WanVAEConfig(dim=8, num_res_blocks=1)
 CFG = vae.WanVAEConfig(dim=8, num_res_blocks=1)
 
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jvae.init_wan_vae(jax.random.key(0), JCFG)
+    # jitted: the eager init dispatches thousands of small ops
+    jp = jax.jit(lambda key: jvae.init_wan_vae(key, JCFG))(jax.random.key(0))
     return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _jax(fn):
+    """fn(params, JCFG, x), jitted on (params, x): the JAX reference."""
+    return jax.jit(lambda p, x: fn(p, JCFG, x))
 
 
 def _lat(t=3, seed=0):
@@ -47,7 +55,7 @@ def test_params_from_numpy_conv_layout(params):
 def test_vae_decode_matches_jax(params, t):
     jp, p = params
     lat = _lat(t)
-    ref = np.asarray(jvae.vae_decode(jp, JCFG, jnp.asarray(lat)))
+    ref = np.asarray(_jax(jvae.vae_decode)(jp, jnp.asarray(lat)))
     got = vae.vae_decode(p, CFG, torch.from_numpy(lat)).numpy()
     assert got.shape == (1, 1 + 4 * (t - 1), 32, 48, 3)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
@@ -56,7 +64,7 @@ def test_vae_decode_matches_jax(params, t):
 def test_vae_decode_chunked_matches_jax_and_full(params):
     jp, p = params
     lat = _lat(3, seed=1)
-    ref = np.asarray(jscan.vae_decode_chunked(jp, JCFG, jnp.asarray(lat)))
+    ref = np.asarray(_jax(jscan.vae_decode_chunked)(jp, jnp.asarray(lat)))
     got = vae_scan.vae_decode_chunked(p, CFG, torch.from_numpy(lat)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
     full = vae.vae_decode(p, CFG, torch.from_numpy(lat)).numpy()
@@ -67,7 +75,7 @@ def test_vae_encode_matches_jax(params):
     jp, p = params
     video = np.random.default_rng(2).uniform(
         -1, 1, (1, 5, 32, 32, 3)).astype(np.float32)
-    ref = np.asarray(jvae.vae_encode(jp, JCFG, jnp.asarray(video)))
+    ref = np.asarray(_jax(jvae.vae_encode)(jp, jnp.asarray(video)))
     got = vae.vae_encode(p, CFG, torch.from_numpy(video)).numpy()
     assert got.shape == (1, 2, 4, 4, 16)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)

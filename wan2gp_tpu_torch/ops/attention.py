@@ -76,6 +76,51 @@ def flash_attention_ref(q, k, v, scale: float, kv_mask=None):
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _bf16_scale(scale: float) -> float:
+    """scale rounded to bf16, as the kernel takes it (cached: it runs on
+    every launch, and the short calls are host-bound)."""
+    return float(torch.tensor(scale, dtype=torch.bfloat16))
+
+
+def flash_layout_error(shapes, strides, byte_offsets) -> str | None:
+    """Why the kernel's TMA maps cannot take q, k and v, or None.
+
+    shapes and strides: the three [B, L|S, N, D] shapes and element
+    strides of q, k and v; byte_offsets: each base pointer modulo 16.  The
+    kernel reads D with unit stride, and a TMA map needs a 16-byte aligned
+    base and byte strides that are multiples of 16 (element strides that
+    are multiples of 8) on every dimension of more than one element."""
+    qs, ks, vs = (tuple(x) for x in shapes)
+    if len(qs) != 4 or len(ks) != 4 or len(vs) != 4:
+        return "expected [B, L, N, D] tensors"
+    b, l, n, d = qs
+    if ks != vs or ks[0] != b or ks[2:] != (n, d):
+        return f"shape mismatch q {qs} k {ks} v {vs}"
+    if d not in (64, 128):
+        return f"the kernel takes D in (64, 128), got {d}"
+    if l == 0 or ks[1] == 0:
+        return "empty sequence"
+    if n > 65535 or b > 65535:
+        return "B and N must be <= 65535"
+    for name, shape, stride, off in zip("qkv", (qs, ks, vs), strides,
+                                        byte_offsets):
+        bad = [i for i in range(3) if shape[i] > 1
+               and (stride[i] <= 0 or stride[i] % 8)]
+        if stride[3] != 1 or bad or off % 16:
+            return (f"{name} needs unit stride on D, a 16-byte aligned base "
+                    f"and positive strides that are multiples of 8, got "
+                    f"strides {tuple(stride)} at byte offset {off} mod 16")
+    return None
+
+
+def _tma_strides(t) -> list:
+    """t's (b, l, n) element strides, with the stride of a dimension of
+    size 1 (never stepped over) replaced by one a TMA map takes."""
+    return [st if size > 1 else 8 for size, st in zip(t.shape[:3],
+                                                      t.stride()[:3])]
+
+
 def _check_flash_inputs(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention: q, k and v must all be CUDA "
@@ -85,25 +130,28 @@ def _check_flash_inputs(q, k, v):
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("flash_attention: expected [B, L, N, D] tensors")
-    b, l, n, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (n, d):
-        raise ValueError(f"flash_attention: shape mismatch q {tuple(q.shape)}"
-                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention kernel takes D in (64, 128), "
-                         f"got {d}")
-    if l == 0 or k.shape[1] == 0:
-        raise ValueError("flash_attention: empty sequence")
-    if n > 65535 or b > 65535:
-        raise ValueError("flash_attention: B and N must be <= 65535")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} needs unit stride on"
-                             f" D, 16-byte aligned rows and strides that "
-                             f"are multiples of 8, got {t.stride()}")
+    err = flash_layout_error([t.shape for t in (q, k, v)],
+                             [t.stride() for t in (q, k, v)],
+                             [t.data_ptr() % 16 for t in (q, k, v)])
+    if err:
+        raise ValueError(f"flash_attention: {err}")
+
+
+def kernel_kv_mask(kv_mask, s_len: int):
+    """[B, S] key-validity mask (> 0 = valid) as the masked kernel reads
+    it: one byte per key, non-zero = valid, rows 16-byte aligned and
+    holding S rounded up to 16 bytes (each kv tile's mask is one bulk
+    copy).  A contiguous uint8 or bool mask with S % 16 == 0, as Krea 2's,
+    goes through as it is."""
+    mask = kv_mask
+    if mask.dtype not in (torch.uint8, torch.bool):
+        mask = mask > 0
+    if s_len % 16 or not mask.is_contiguous() or mask.data_ptr() % 16:
+        padded = torch.zeros((mask.shape[0], -(-s_len // 16) * 16),
+                             dtype=torch.uint8, device=mask.device)
+        padded[:, :s_len] = mask != 0
+        mask = padded
+    return mask
 
 
 def flash_attention(q, k, v, scale: float, kv_mask=None):
@@ -126,8 +174,9 @@ def flash_attention(q, k, v, scale: float, kv_mask=None):
                          f"{tuple(kv_mask.shape)} on {kv_mask.device}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+        *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+        *o.stride()[:3])
+    scale_q = _bf16_scale(float(scale))
     lib = _cuda.library("flash_attention")
     if kv_mask is None:
         _cuda.check(lib.wg_flash_attention_bf16(
@@ -136,7 +185,7 @@ def flash_attention(q, k, v, scale: float, kv_mask=None):
             "flash_attention launch")
         launches += 1
         return o
-    mask = (kv_mask > 0).to(torch.uint8).contiguous()
+    mask = kernel_kv_mask(kv_mask, s_len)
     _cuda.check(lib.wg_flash_attention_kvmask_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         o.data_ptr(), b, l, s_len, n, d, strides, mask.stride(0), scale_q,
