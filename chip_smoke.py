@@ -17,7 +17,10 @@ the repository).  Phases, each printing one JSON line:
             relative, since attention outputs shrink like 1/sqrt(S)); a
             fully masked batch item must come out as exact zeros; Sol's
             logsumexp: max abs err <= 1e-2; int8, int4, W8A8 and W4A8
-            matmuls: relative Frobenius error <= 1e-2.
+            matmuls: relative Frobenius error <= 1e-2.  W8 and W4 also on
+            structured weights with integer x, where every sum is exact:
+            bit-equal to the plain version; and at shapes their TMA maps do
+            not take, which the wrappers pad (the padding counters move).
 3. dit      a small DiT forward on the card, through the kernels, against
             the same forward on the CPU through the plain versions: Wan
             with bf16, int8 and int8a8 weights and dense attention (48
@@ -32,8 +35,10 @@ the repository).  Phases, each printing one JSON line:
             kernels of the 14B path, with the radial mask's density and
             Sol's mean count over its table width; Krea 2's masked
             self-attention at 1024x1024 beside the dense kernel, and its
-            layer-wise text blocks through the dense kernel; W8A8 at the
-            1.3B and 14B linears.  W4 and W4A8 at K=N=5120 run once more
+            layer-wise text blocks through the dense kernel; W8 and W8A8
+            at the 1.3B linears and cross k/v (M = 1,024), W8A8 at the 14B
+            ones.  W8 and W4 rows add their share of the bound and their
+            time over cuBLAS's.  W4 and W4A8 at K=N=5120 run once more
             first, before any other timing.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
@@ -44,7 +49,8 @@ the repository).  Phases, each printing one JSON line:
             all 28 layers (12.8 B parameters, bf16), guidance 3.5, 2 steps,
             each writing a PNG.  Every launch counter is reset just before
             each model's requests and read just after; the launches per
-            DiT forward (Krea 2: and per request) are asserted.
+            DiT forward (Krea 2: and per request) are asserted, and that no
+            W8 or W4 launch of a Wan request padded its operands.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -258,8 +264,11 @@ def phase_check():
         x = randn((m, k), gen)
         wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
                                              device="cuda"))
+        pads = Q.w8_pad_launches
         w8[name] = mm_check("matmul_w8", name, Q.matmul_w8(x, wq, sc),
                             Q.matmul_w8_ref(x.float(), wq, sc))
+        w8[name]["padded"] = Q.w8_pad_launches - pads
+    w8["structured_exact"] = structured_check("w8", 600, 1536, 1536)
 
     from wan2gp_tpu_torch.ops import sparse_attention as SP
     from wan2gp_tpu_torch.ops import sol_attention as SOL
@@ -299,10 +308,17 @@ def phase_check():
         x = randn((m, k), gen)
         wp, sc = Q.quantize_int4(torch.randn((k, n), generator=gen,
                                              device="cuda"))
+        pads = Q.w4_pad_launches
         w4[name] = mm_check("matmul_w4", name, Q.matmul_w4(x, wp, sc),
                             Q.matmul_w4_ref(x.float(), wp, sc))
+        w4[name]["padded"] = Q.w4_pad_launches - pads
         w4a8[name] = mm_check("matmul_w4a8", name, Q.matmul_w4a8(x, wp, sc),
                               Q.matmul_w4a8_ref(x.float(), wp, sc))
+    w4["structured_exact"] = structured_check("w4", 600, 5120, 1536)
+    for kernel, cases in (("matmul_w8", w8), ("matmul_w4", w4)):
+        # only the (77, 100, 51) case has a K and an N the TMA maps refuse
+        if {n for n, e in cases.items() if e.get("padded")} != {"ragged_mnk"}:
+            raise AssertionError(f"{kernel}: padded launches {cases}")
     kvmask = {}
     # (B, L, S, N, D, valid keys, fully masked batch item)
     for name, (b, l, s, n, d, valid, dead) in {
@@ -396,6 +412,43 @@ def mm_check(kernel, name, got, ref):
     if not e["rel_fro"] <= MM_REL_FRO:
         raise AssertionError(f"{kernel} {name}: {e}")
     return e
+
+
+def structured_check(kernel, m, k, n):
+    """W8 or W4 on a weight whose value at (k, n) is a fixed pattern, with
+    x one-hot in its first m/2 rows (row i picks weight row 7i mod K) and
+    small integers after: every sum is exact in fp32, so the kernel must
+    return the plain version's bits, and a misplaced weight element (a
+    wrong swizzle, nibble or k order) shows as a wrong output element."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    kk = torch.arange(k, device="cuda")[:, None]
+    nn = torch.arange(n, device="cuda")[None]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    xi = torch.randint(-3, 4, (m, k), generator=gen, device="cuda")
+    hot = min(m // 2, k)
+    xi[:hot] = 0
+    rows = torch.arange(hot, device="cuda")
+    xi[rows, (7 * rows) % k] = 1
+    x = xi.to(torch.bfloat16)
+    scale = 1.0 + torch.rand(n, generator=gen, device="cuda")
+    if kernel == "w8":
+        wq = ((kk * 31 + nn * 17) % 255 - 127).to(torch.int8)
+        got = Q.matmul_w8(x, wq, scale)
+        ref = Q.matmul_w8_ref(x.float(), wq, scale)
+    else:
+        wi = (kk * 5 + nn * 3) % 15 - 7
+        kh = k // 2
+        wq = ((wi[:kh] & 0xF) | ((wi[kh:] & 0xF) << 4)).to(
+            torch.uint8).view(torch.int8)
+        got = Q.matmul_w4(x, wq, scale)
+        ref = Q.matmul_w4_ref(x.float(), wq, scale)
+    wrong = int((got != ref.to(torch.bfloat16)).sum().item())
+    if wrong:
+        raise AssertionError(f"matmul_{kernel} structured {m}x{k}x{n}: "
+                             f"{wrong} elements differ from the plain "
+                             f"version")
+    return {"shape": [m, k, n], "wrong_elements": wrong, "rel_fro": 0.0,
+            "max_abs": 0.0}
 
 
 def phase_dit():
@@ -581,7 +634,8 @@ def time_w8(name, m, k, n):
                    Q.matmul_w8_ref(x.float(), wq, sc))
     w_bf16 = (wq.float() * sc).to(torch.bfloat16)
     ms = cuda_ms(lambda: Q.matmul_w8(x, wq, sc), 20)
-    plain_ms = cuda_ms(lambda: Q.matmul_w8_ref(x, wq, sc), 3)
+    plain_ms = cuda_ms(lambda: Q.matmul_w8_ref(x, wq, sc),
+                       3 if m > 4096 else 20)
     library_ms = cuda_ms(lambda: torch.matmul(x, w_bf16), 20)
     bound_ms, by = bound(2.0 * m * k * n, 2 * m * k + k * n + 4 * n
                          + 2 * m * n)
@@ -589,7 +643,9 @@ def time_w8(name, m, k, n):
             "library_ms": library_ms,
             "library_call": "torch.matmul on a bf16 weight dequantized "
                             "beforehand (reads 2 bytes per weight)",
-            "bound_ms": bound_ms, "bound_by": by, "err": err}
+            "bound_ms": bound_ms, "bound_by": by,
+            **rates(2.0 * m * k * n, ms, bound_ms),
+            "over_library": ms / library_ms, "err": err}
 
 
 def _pairs(kv_idx, counts, l, s_len, block_q, block_kv):
@@ -701,14 +757,17 @@ def time_w4(m, k, n):
     w_bf16 = (w_int.float() * sc).to(torch.bfloat16)
     b_ms, b_by = bound(2.0 * m * k * n, 2 * m * k + k * n / 2 + 4 * n
                        + 2 * m * n)
+    ms = cuda_ms(lambda: Q.matmul_w4(x, wp, sc), reps)
+    library_ms = cuda_ms(lambda: torch.matmul(x, w_bf16), reps)
     out["matmul_w4"] = {
-        "shape": [m, k, n], "ms": cuda_ms(lambda: Q.matmul_w4(x, wp, sc),
-                                          reps),
+        "shape": [m, k, n], "ms": ms,
         "plain_ms": cuda_ms(lambda: Q.matmul_w4_ref(x, wp, sc), 1),
-        "library_ms": cuda_ms(lambda: torch.matmul(x, w_bf16), reps),
+        "library_ms": library_ms,
         "library_call": "torch.matmul on a bf16 weight dequantized "
                         "beforehand (reads 2 bytes per weight)",
-        "bound_ms": b_ms, "bound_by": b_by, "err": err}
+        "bound_ms": b_ms, "bound_by": b_by,
+        **rates(2.0 * m * k * n, ms, b_ms),
+        "over_library": ms / library_ms, "err": err}
     del w_bf16
     # W4A8: int8 activations (the wrapper quantizes them), int32 product
     err = mm_check("matmul_w4a8", name, Q.matmul_w4a8(x, wp, sc),
@@ -747,6 +806,8 @@ def phase_time(tokens: int):
         ("layerwise_krea2", (KREA2_TEXT, 12, 12, 20, 128)))}
     w8 = {f"{k}x{n}": time_w8(f"{k}x{n}", 2 * tokens, k, n)
           for k, n in ((1536, 1536), (1536, 8960), (8960, 1536))}
+    # cross-attention k/v: 2 x 512 text tokens
+    w8["1024x1536x1536"] = time_w8("1024x1536x1536", 1024, 1536, 1536)
     sparse = {"radial_720p": time_sparse(2, 75600, 40, 128, 21, 3600)}
     sol = {"sol_720p": time_sol(2, 75600, 40, 128)}
     w4 = {"151200x5120x5120_first": first["matmul_w4"]}
@@ -766,6 +827,7 @@ def phase_time(tokens: int):
                                            20, 128, KREA2_TEXT)}
     w8a8 = {f"{k}x{n}": time_w8a8(2 * tokens, k, n)
             for k, n in ((1536, 1536), (1536, 8960), (8960, 1536))}
+    w8a8["1024x1536x1536"] = time_w8a8(1024, 1536, 1536)
     w8a8.update({f"{m}x{k}x{n}": time_w8a8(m, k, n)
                  for m, k, n in shapes_14b})
     emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
@@ -782,6 +844,7 @@ def phase_service(frames: int):
     from wan2gp_tpu_torch.families import wan as fam
     from wan2gp_tpu_torch.models.krea2 import pipeline as krea2_pipe
     from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
+    from wan2gp_tpu_torch.ops import quant as Q
     from wan2gp_tpu_torch.runtime import service as svc_mod
     from wan2gp_tpu_torch.utils import media
 
@@ -842,6 +905,7 @@ def phase_service(frames: int):
         finally:
             fam._ARCH[model_type] = arch
         reset_counts()
+        Q.w8_pad_launches = Q.w4_pad_launches = 0
         reqs = []
         for i in range(n_req):
             seen.clear()
@@ -868,6 +932,10 @@ def phase_service(frames: int):
                 for name in counts}
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, want {want}")
+        padded = Q.w8_pad_launches + Q.w4_pad_launches
+        if padded:
+            raise AssertionError(f"{label}: {padded} W8/W4 launches padded "
+                                 f"their operands")
         svc.release_model()
         del svc
         torch.cuda.empty_cache()
@@ -875,7 +943,7 @@ def phase_service(frames: int):
                 "quantize": quantize or "bf16", "attention": attention,
                 "layers": layers, "requests": reqs, "load_s": load_s,
                 "load_peak_gb": load_peak, "launches": counts,
-                "launches_per_forward": per_forward}
+                "launches_per_forward": per_forward, "padded_launches": 0}
 
     def run_krea2(n_req, size):
         """n_req krea2_raw requests (guidance 3.5: CFG as batch 2) at all

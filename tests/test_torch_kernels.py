@@ -298,3 +298,175 @@ def test_w4_and_w4a8_kernels_match_plain(gen, m, k, n):
         assert getattr(quant, counter) == before + 1
         ref = ref_fn(x.float(), wp, s).float()
         assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,k,n", [
+    ("w8", 1000, 1536, 8960),       # 1.3B fc1 width, M not a tile multiple
+    ("w4", 1000, 5120, 13824),      # 14B fc1 width
+    ("w8", 1024, 1536, 1536),       # 1.3B cross k/v: the narrow variant
+    ("w4", 1024, 5120, 5120)])      # 14B cross k/v
+def test_weight_only_kernels_at_main_path_widths(gen, kernel, m, k, n):
+    x = _randn((m, k), gen)
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    if kernel == "w8":
+        wq, s = quant.quantize_int8(w)
+        fn, ref_fn, counter = quant.matmul_w8, quant.matmul_w8_ref, "launches"
+    else:
+        wq, s = quant.quantize_int4(w)
+        fn, ref_fn, counter = quant.matmul_w4, quant.matmul_w4_ref, \
+            "w4_launches"
+    pads = quant.w8_pad_launches + quant.w4_pad_launches
+    before = getattr(quant, counter)
+    got = fn(x, wq, s).float()
+    torch.cuda.synchronize()
+    assert getattr(quant, counter) == before + 1
+    assert quant.w8_pad_launches + quant.w4_pad_launches == pads
+    ref = ref_fn(x.float(), wq, s).float()
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+def _structured_int4(k, n, kh):
+    """A packed int4 weight [kh, n] whose value at (k, n) is a fixed
+    pattern in [-7, 7] (zero past K)."""
+    kk = torch.arange(2 * kh)[:, None]
+    nn = torch.arange(n)[None]
+    w = (kk * 5 + nn * 3) % 15 - 7
+    w[k:] = 0
+    packed = (w[:kh] & 0xF) | ((w[kh:] & 0xF) << 4)
+    return packed.to(torch.uint8).view(torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,k,n,kh", [
+    ("w8", 300, 1536, 1536, None), ("w8", 600, 256, 384, None),
+    ("w4", 300, 1024, 1536, 512), ("w4", 600, 256, 384, 128)])
+def test_weight_only_kernels_exact_on_structured_weights(gen, kernel, m, k,
+                                                         n, kh):
+    """x: one-hot rows (row i of the first m/2 picks weight row 7i mod K,
+    each a different one), then rows of small integers over every k; every
+    product and sum is exact in fp32, so the kernel must return the plain
+    version's bits.  A wrong swizzle, nibble or k order moves some weight
+    element to another output element, which then differs."""
+    rng = np.random.default_rng(m + k)
+    xi = rng.integers(-3, 4, (m, k))
+    hot = min(m // 2, k)
+    xi[:hot] = 0
+    xi[np.arange(hot), (7 * np.arange(hot)) % k] = 1
+    x = torch.from_numpy(xi).to(torch.bfloat16).cuda()
+    scale = torch.from_numpy(1.0 + rng.random(n)).float().cuda()
+    if kernel == "w8":
+        wq = torch.from_numpy(((np.arange(k)[:, None] * 31
+                                + np.arange(n)[None] * 17) % 255 - 127)
+                              .astype(np.int8)).cuda()
+        got = quant.matmul_w8(x, wq, scale)
+        ref = quant.matmul_w8_ref(x.float(), wq, scale).to(torch.bfloat16)
+    else:
+        wp = _structured_int4(k, n, kh).cuda()
+        got = quant.matmul_w4(x, wp, scale)
+        ref = quant.matmul_w4_ref(x.float(), wp, scale).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    bad = (got != ref).nonzero()
+    assert bad.shape[0] == 0, \
+        f"{bad.shape[0]} elements differ, first {bad[:4]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,k,n,kh", [
+    ("w8", 77, 100, 51, None),      # K and N padded
+    ("w4", 33, 100, 51, 64),        # K and N padded
+    ("w4", 50, 70, 32, 40)])        # packed rows 40 -> 64, x's high half moved
+def test_weight_only_kernels_pad_what_tma_does_not_take(gen, kernel, m, k, n,
+                                                        kh):
+    x = _randn((m, k), gen)
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    if kernel == "w8":
+        wq, s = quant.quantize_int8(w)
+        fn, ref_fn, pads = quant.matmul_w8, quant.matmul_w8_ref, \
+            "w8_pad_launches"
+    else:
+        wq, s = quant.quantize_int4(w, block_k=kh // 2)
+        fn, ref_fn, pads = quant.matmul_w4, quant.matmul_w4_ref, \
+            "w4_pad_launches"
+        assert wq.shape[0] == kh
+    before = getattr(quant, pads)
+    got = fn(x, wq, s)
+    torch.cuda.synchronize()
+    assert getattr(quant, pads) == before + 1
+    assert got.shape == (m, n) and got.is_contiguous()
+    ref = ref_fn(x.float(), wq, s).float()
+    assert ((got.float() - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+# (kernel, K, N, packed rows) -> the sizes the kernels take
+@pytest.mark.parametrize("kernel,k,n,kh,want", [
+    ("w8", 1536, 8960, None, (1536, 8960, None)),    # Wan: nothing pads
+    ("w8", 8960, 1536, None, (8960, 1536, None)),
+    ("w8", 100, 64, None, (104, 64, None)),          # K % 8
+    ("w8", 64, 51, None, (64, 64, None)),            # N % 16
+    ("w8", 77, 100, None, (80, 112, None)),
+    ("w4", 5120, 13824, 2560, (5120, 13824, 2560)),  # Wan: nothing pads
+    ("w4", 13824, 5120, 7168, (13824, 5120, 7168)),
+    ("w4", 100, 51, 512, (104, 64, 512)),            # K and N
+    ("w4", 70, 32, 40, (96, 32, 64)),                # rows: high half moves
+    ("w4", 30, 32, 40, (32, 32, 64))])               # rows, K <= KH
+def test_weight_only_layout_and_padding_on_cpu(kernel, k, n, kh, want):
+    """The W8/W4 kernels' layout rule (a pure function of sizes) and the
+    wrappers' padding, on CPU tensors: Wan shapes pass untouched; for the
+    others the CPU wrapper is the plain version, and the plain version on
+    the padded operands, sliced, gives the unpadded one's bits
+    (integer-valued x, so every sum is exact)."""
+    assert quant.wo_layout(k, n, kh) == want
+    m = 5
+    pad = quant.pad_w8_operands if kernel == "w8" else quant.pad_w4_operands
+    if want == (k, n, kh):              # Wan shapes: operands pass untouched
+        ops = (torch.empty((m, k)),
+               torch.empty((kh or k, n), dtype=torch.int8), torch.empty(n))
+        *got, padded = pad(*ops)
+        assert not padded and all(a is b for a, b in zip(got, ops))
+        return
+    rng = np.random.default_rng(k * n)
+    x = torch.from_numpy(rng.integers(-4, 5, (m, k))).float()
+    scale = torch.from_numpy(rng.random(n) + 0.5).float()
+    if kernel == "w8":
+        w = torch.from_numpy(rng.integers(-127, 128, (k, n))).to(torch.int8)
+        ref_fn, fn = quant.matmul_w8_ref, quant.matmul_w8
+    else:
+        wi = torch.from_numpy(rng.integers(-7, 8, (2 * kh, n)))
+        wi[k:] = 0
+        w = ((wi[:kh] & 0xF) | ((wi[kh:] & 0xF) << 4)).to(
+            torch.uint8).view(torch.int8)
+        ref_fn, fn = quant.matmul_w4_ref, quant.matmul_w4
+    ref = ref_fn(x, w, scale)
+    assert torch.equal(fn(x, w, scale), ref)
+    xp, wp, sp, padded = pad(x, w, scale)
+    assert padded
+    assert xp.shape == (m, want[0]) and sp.shape == (want[1],)
+    assert wp.shape == ((want[2] if kh else want[0]), want[1])
+    assert torch.equal(ref_fn(xp, wp, sp)[:, :n], ref)
+
+
+def test_kernel_build_follows_included_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or any csrc/ header that the
+    source includes, directly or through another header, is newer."""
+    import os
+    from wan2gp_tpu_torch.ops import _cuda
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    (csrc / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\n')
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    monkeypatch.setattr(_cuda, "BUILD", build)
+    assert [p.name for p in _cuda._sources("k")] == ["k.cu", "a.cuh",
+                                                      "b.cuh"]
+    assert _cuda._stale("k")                      # never built
+    lib = build / "libk.so"
+    lib.write_bytes(b"")
+    for p in (csrc / "k.cu", csrc / "a.cuh", csrc / "b.cuh"):
+        os.utime(p, (1000, 1000))
+    os.utime(lib, (2000, 2000))
+    assert not _cuda._stale("k")
+    os.utime(csrc / "b.cuh", (3000, 3000))        # a header of a header
+    assert _cuda._stale("k")

@@ -88,10 +88,7 @@
 // down to 8); setmaxnreg then gives the consumers 240 and the producer 24.
 // Occupancy: one CTA per SM at every instantiation of two consumers (by
 // registers), so 8 consumer warps and 4 producer warps per SM at L > 64.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"   // mbarrier, TMA, descriptor and tensor-map helpers
 
 namespace {
 
@@ -99,7 +96,6 @@ constexpr int kBlockN = 128;      // keys per kv tile
 constexpr int kStages = 2;        // depth of the K/V ring
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr uint32_t kMaxSpins = 1u << 28;
 
 template <int D, bool Masked, int kConsumers>
 struct Layout {
@@ -113,84 +109,6 @@ struct Layout {
   static constexpr int kBytes = kBarOff + (1 + 2 * kStages) * 8 + 1024;
   static constexpr int kThreads = 128 * (kConsumers + 1);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == kMaxSpins) __trap();
-  }
-}
-
-// box of the 4-D map at (c0, c1, c2, c3) = (d, n, row, b) -> shared dst
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; lbo/sbo in bytes
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accumulator registers across an
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
 
 #define F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
               "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -242,11 +160,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int D, bool Masked, int kConsumers>
@@ -341,7 +254,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         rows[i] = val;
       }
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     asm volatile("bar.sync %0, 128;\n" :: "r"(wg + 1) : "memory");
 
     const uint32_t q_addr = sbase + wg * 64 * 128;
@@ -376,7 +289,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
               kk > 0);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs<64>(s);
 
         // ---- mask: thread holds rows g, g+8 of its warp's 16, columns
@@ -462,7 +375,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
             wgmma_rs_n64(acc, pf[kk], dv);
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs<D / 2>(acc);
       }
       mbar_arrive(kv_empty + 8 * st);
@@ -495,31 +408,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------- host side
-
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // 4-D map over a [B, rows, N, D] bf16 tensor with element strides
 // (sb, sl, sn) and unit stride on D; box: 64 columns x box_rows rows of
@@ -554,18 +442,9 @@ int launch(const void* q, const void* k, const void* v, const void* kvm,
   if (!err) err = make_map(&tv, v, B, S, N, D, st[6], st[7], st[8], kBlockN);
   if (err) return err;
   auto kernel = flash_fwd_kernel<D, Masked, kConsumers>;
-  // above 48 KB of dynamic shared memory needs the opt-in, once per device
   static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= 64 || !opted_in[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Lay::kBytes);
-    if (e != cudaSuccess) return e;
-    if (dev < 64) opted_in[dev] = true;
-  }
+  err = opt_in_smem(kernel, Lay::kBytes, opted_in);
+  if (err) return err;
   dim3 grid((L + Lay::kBlockM - 1) / Lay::kBlockM, N, B);
   kernel<<<grid, Lay::kThreads, Lay::kBytes, stream>>>(
       tq, tk, tv, static_cast<const uint8_t*>(kvm), msb,

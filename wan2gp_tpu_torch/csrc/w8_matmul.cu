@@ -2,27 +2,26 @@
 //
 // W8: y = (x @ dequant(w_q)) * scale.  Replaces the Pallas kernel
 // wan2gp_tpu/ops/quant.py::_w8_kernel (launched by matmul_w8).  Same
-// numerics: x is bf16, the int8 weight is converted
-// to bf16 (exact for |w| <= 127) after it reaches shared memory, the
-// product accumulates in fp32, the per-output-column fp32 scale is applied
-// at writeback and the result is stored as bf16.
+// numerics: x is bf16, the int8 weight is converted exactly to bf16 inside
+// the CTA (|w| <= 127), the product accumulates in fp32, the
+// per-output-column fp32 scale is applied at writeback and the result is
+// rounded once to bf16.
 //
 // What bounds it: at the Wan DiT token counts (M = B*L in the tens of
 // thousands, K and N in the thousands) the 2*M*K*N operations on the bf16
-// tensor cores bound it; the weight is read once at 1 byte per element,
+// tensor cores (989 TFLOP/s); the weight is read at 1 byte per element,
 // half of what a bf16 weight would cost, which matters when M is small.
 //
-// Design: one CTA of 8 warps per 128x128 output tile, k-loop in steps of
-// 64.  Each step stages the x tile (bf16) and the int8 weight tile in
-// shared memory; the weight is dequantized to bf16 on the way in and
-// stored row-major ([k][n], 16-byte stores), and its mma.sync B fragments
-// are read with ldmatrix.trans.  Each warp computes a 32x64 sub-tile with
-// m16n8k16 bf16 mma.sync into fp32 registers.  Rows are padded by 8
-// elements in shared memory so the fragment loads are free of bank
-// conflicts.  Ragged M, N and K are masked inside the kernel (zero fill
-// on load, guarded stores); 16-byte vector loads are used where the row
-// alignment allows them.  Simple first version: no cp.async/TMA pipeline
-// and no wgmma yet.
+// Design: the CTA of wo_matmul.cuh, instantiated with kInt4 = false: it
+// computes y^T = w^T x^T so that the weight is wgmma's A operand from
+// registers.  A producer warp keeps a 5-stage TMA ring of x (two 32-column
+// boxes) and raw int8 weight tiles (64 rows x 128 columns); each of two
+// consumer warpgroups reads its 64 columns' raw fragment with
+// ldmatrix.trans, converts it to bf16 in registers while the previous
+// stage's wgmma m64n256k16 (m64n128k16 in the narrow variant for small M)
+// runs, and writes y through a TMA store.  The wrapper pads K to a
+// multiple of 8 and N to one of 16 where a caller's shape needs it; ragged
+// M, N and K tiles are the TMA unit's zero fill.
 //
 // W8A8: y = (acc * sw) * sx with acc = x_q @ w_q in int32.  Replaces the
 // Pallas kernel wan2gp_tpu/ops/quant.py::_w8a8_kernel (launched by
@@ -38,159 +37,21 @@
 // The int32 product is exact; only the fp32 scaling and the bf16 rounding
 // of the output remain.  Ragged M, N and K are masked (zero fill on load,
 // guarded stores).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wo_matmul.cuh"
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
+constexpr int kBM = 128, kBN = 128;   // W8A8's output tile
 constexpr int kThreads = 256;
-constexpr int kXStride = kBK + 8;    // padded [m][k] rows of the x tile
-constexpr int kWStride = kBN + 8;    // padded [k][n] rows of the w tile
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed: lanes 8i..8i+7 give the row addresses
-// of matrix i, and register i receives that matrix as an mma B fragment.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(kThreads)
-w8_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                 const int8_t* __restrict__ w,
-                 const float* __restrict__ scale,
-                 __nv_bfloat16* __restrict__ y, int M, int N, int K,
-                 int x_vec, int w_vec) {
-  __shared__ __align__(16) __nv_bfloat16 x_s[kBM * kXStride];
-  __shared__ __align__(16) __nv_bfloat16 w_s[kBK * kWStride];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 1;          // 0..3: 32-row slab
-  const int wn = warp & 1;           // 0..1: 64-col slab
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();
-    // x tile: 128 rows x 64 k = 1024 chunks of 8 bf16
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gm < M) {
-        const __nv_bfloat16* src = x + (long long)gm * K + gk;
-        if (x_vec && gk + 8 <= K) {
-          val = *reinterpret_cast<const uint4*>(src);
-        } else {
-          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-          for (int j = 0; j < 8; ++j)
-            if (gk + j < K) e[j] = src[j];
-        }
-      }
-      *reinterpret_cast<uint4*>(x_s + r * kXStride + c) = val;
-    }
-    // w tile: 64 k-rows x 128 n = 512 chunks of 16 int8 -> 16 bf16
-    for (int i = tid; i < kBK * (kBN / 16); i += kThreads) {
-      const int r = i / (kBN / 16), c = (i % (kBN / 16)) * 16;
-      const int gk = k0 + r, gn = n0 + c;
-      __align__(16) int8_t e[16];
-      if (gk < K && w_vec && gn + 16 <= N) {
-        *reinterpret_cast<int4*>(e) =
-            *reinterpret_cast<const int4*>(w + (long long)gk * N + gn);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          e[j] = (gk < K && gn + j < N) ? w[(long long)gk * N + gn + j] : 0;
-      }
-      __align__(16) __nv_bfloat16 d[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) d[j] = __int2bfloat16_rn((int)e[j]);
-      uint4* dst = reinterpret_cast<uint4*>(w_s + r * kWStride + c);
-      dst[0] = reinterpret_cast<const uint4*>(d)[0];
-      dst[1] = reinterpret_cast<const uint4*>(d)[1];
-    }
-    __syncthreads();
-
-    // lane -> row address of the B fragments: k rows kk*16 + (lane & 15),
-    // n columns of n-tile nt + (lane >> 4); registers {0,1} feed n-tile
-    // nt, {2,3} n-tile nt+1
-    const __nv_bfloat16* wrow =
-        w_s + (lane & 15) * kWStride + wn * 64 + (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const __nv_bfloat16* xr =
-            x_s + (wm * 32 + mt * 16 + g) * kXStride + kk * 16 + 2 * t4;
-        af[mt][0] = ld32(xr);
-        af[mt][1] = ld32(xr + 8 * kXStride);
-        af[mt][2] = ld32(xr + 8);
-        af[mt][3] = ld32(xr + 8 * kXStride + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; nt += 2) {
-        uint32_t wb[4];
-        ldmatrix_x4_trans(wb, wrow + kk * 16 * kWStride + nt * 8);
-        mma_bf16(acc[0][nt], af[0], wb[0], wb[1]);
-        mma_bf16(acc[1][nt], af[1], wb[0], wb[1]);
-        mma_bf16(acc[0][nt + 1], af[0], wb[2], wb[3]);
-        mma_bf16(acc[1][nt + 1], af[1], wb[2], wb[3]);
-      }
-    }
-  }
-
-  // epilogue: per-column scale, bf16 store, guarded on M and N
-  const bool pairs = (N % 2) == 0;   // two columns in one 4-byte store
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = n0 + wn * 64 + nt * 8 + 2 * t4;
-    const float s0 = col < N ? scale[col] : 0.f;
-    const float s1 = col + 1 < N ? scale[col + 1] : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int row = m0 + wm * 32 + mt * 16 + g;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row + 8 * h;
-        if (r >= M || col >= N) continue;
-        __nv_bfloat16* dst = y + (long long)r * N + col;
-        const float v0 = acc[mt][nt][2 * h] * s0;
-        const float v1 = acc[mt][nt][2 * h + 1] * s1;
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          dst[0] = __float2bfloat16(v0);
-          if (col + 1 < N) dst[1] = __float2bfloat16(v1);
-        }
-      }
-    }
-  }
+template <int kBM>
+__global__ void __launch_bounds__(WoLayout<false, kBM>::kThreads, 1)
+w8_matmul_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tw,
+                 const __grid_constant__ CUtensorMap ty,
+                 const float* __restrict__ scale, int M, int N, int n_steps,
+                 int kh) {
+  wo_matmul_body<false, kBM>(tx, tw, ty, scale, M, N, n_steps, kh);
 }
 
 // ----------------------------------------------------------------- W8A8
@@ -342,19 +203,18 @@ w8a8_matmul_kernel(const int8_t* __restrict__ x,
 }  // namespace
 
 // x: [M, K] bf16 row-major; w_q: [K, N] int8 row-major; scale: [N] fp32;
-// y: [M, N] bf16 row-major.  All contiguous.
+// y: [M, N] bf16 row-major.  All contiguous, 16-byte aligned, K % 8 == 0
+// and N % 16 == 0 (what the TMA maps take; cudaErrorInvalidValue else).
 extern "C" int wg_w8_matmul_bf16(const void* x, const void* w_q,
                                  const void* scale, void* y, int M, int N,
                                  int K, void* stream) {
-  const int x_vec = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  const int w_vec =
-      (N % 16 == 0) && (reinterpret_cast<uintptr_t>(w_q) % 16 == 0);
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  w8_matmul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w_q),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), M, N,
-      K, x_vec, w_vec);
-  return cudaGetLastError();
+  if (!wo_layout_ok(x, w_q, scale, y, M, N, K)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wo_narrow(M, N))
+    return wo_launch<false, 128>(w8_matmul_kernel<128>, x, w_q, scale, y, M, N, K,
+                                K, 0, s);
+  return wo_launch<false, 256>(w8_matmul_kernel<256>, x, w_q, scale, y, M, N, K,
+                              K, 0, s);
 }
 
 // x_q: [M, K] int8; sx: [M] fp32; w_q: [K, N] int8; sw: [N] fp32; y: [M, N]

@@ -3,12 +3,14 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc into
 `_build/lib<name>.so`, then loaded with ctypes.  Nothing here includes
 PyTorch's headers, so a build takes seconds.  Builds happen on first use
-(or all at once through `build_all`), never at import time.
+(or all at once through `build_all`), never at import time, and again when
+the source or any `csrc/` header it includes is newer than the library.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -73,10 +75,27 @@ def _lib_path(name: str) -> Path:
     return BUILD / f"lib{name}.so"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """csrc/<name>.cu and every csrc/ header it includes, directly or
+    through another header."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(built < src.stat().st_mtime for src in _sources(name))
 
 
 def _nvcc_cmd(name: str, out: Path):

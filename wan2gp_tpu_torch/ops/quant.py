@@ -8,6 +8,9 @@ compute dtype, or, with act_quant="int8", as per-row dynamic int8
 launch the kernels of csrc/w8_matmul.cu and `matmul_w4` / `matmul_w4a8`
 those of csrc/w4_matmul.cu; on a CPU tensor each runs its plain version
 (`matmul_w8_ref`, `matmul_w8a8_ref`, `matmul_w4_ref`, `matmul_w4a8_ref`).
+The W8 and W4 kernels read through TMA maps, which take only some sizes
+(`wo_layout`); their wrappers zero-pad other operands to those sizes,
+which is exact, and count the launches that needed it.
 
 The activation mode is an argument, threaded from the DiT config, not a
 process-wide setting: a service created after another keeps its own.
@@ -24,6 +27,9 @@ launches = 0            # matmul_w8
 w8a8_launches = 0       # matmul_w8a8
 w4_launches = 0         # matmul_w4
 w4a8_launches = 0       # matmul_w4a8
+# launches of matmul_w8 / matmul_w4 whose operands had to be padded
+w8_pad_launches = 0
+w4_pad_launches = 0
 
 # packed-row block of the int4 layout: K is padded to a multiple of 2x this
 W4_BLOCK_K = 512
@@ -75,22 +81,69 @@ def _check_w8_inputs(name, x, w_q, scale, x_dtype):
         raise ValueError(f"{name}: M={m} exceeds the kernel's grid")
 
 
+def wo_layout(k: int, n: int, kh: int | None = None):
+    """The sizes the weight-only kernels (W8, W4) take, as (K, N, KH).
+
+    Their TMA maps need row strides that are multiples of 16 bytes: x rows
+    of K bf16 (K % 8), weight rows of N bytes (N % 16, which covers the y
+    rows of N bf16), and W4's split-K packed rows in steps of 32 (KH % 32;
+    kh is None for W8).  Returns (k, n, kh) itself when nothing pads, as at
+    every Wan shape; otherwise the sizes the wrapper zero-pads to.  A W4
+    operand whose KH grows has x's high half (columns KH..K) moved to start
+    at the new KH, so each packed row keeps its pair of x columns."""
+    n_to = -(-n // 16) * 16
+    if kh is None:
+        return -(-k // 8) * 8, n_to, None
+    kh_to = -(-kh // 32) * 32
+    k_to = k if k <= kh else kh_to + k - kh
+    return -(-k_to // 8) * 8, n_to, kh_to
+
+
+def _zero_pad(t, rows: int, cols: int):
+    """t [r, c] in a new zero [rows, cols] tensor (a fresh, aligned
+    allocation)."""
+    out = t.new_zeros((rows, cols))
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def pad_w8_operands(x, w_q, scale):
+    """(x, w_q, scale, padded) as the W8 kernel takes them: zero-padded to
+    `wo_layout`'s sizes (x along K, w_q along K and N, scale along N) and
+    copied where a base is not 16-byte aligned."""
+    k, n = w_q.shape
+    k_to, n_to, _ = wo_layout(k, n)
+    if (k_to, n_to) == (k, n) and _aligned(x, w_q, scale):
+        return x, w_q, scale, False
+    return (_zero_pad(x, x.shape[0], k_to), _zero_pad(w_q, k_to, n_to),
+            _zero_pad(scale[None], 1, n_to)[0], True)
+
+
 def matmul_w8(x, w_q, scale):
     """x: [M, K]; w_q: [K, N] int8; scale: [N] -> [M, N] in x.dtype.
     CPU tensors run `matmul_w8_ref`; CUDA tensors launch the kernel
-    (bf16 x, any M, N, K) or raise."""
-    global launches
+    (bf16 x, any M, N, K; padded per `wo_layout` where needed) or raise."""
+    global launches, w8_pad_launches
     if x.device.type == "cpu":
         return matmul_w8_ref(x, w_q, scale)
     _check_w8_inputs("matmul_w8", x, w_q, scale, torch.bfloat16)
-    m, k = x.shape
+    m = x.shape[0]
     n = w_q.shape[1]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    x, w_q, scale, padded = pad_w8_operands(x, w_q, scale)
+    k_to, n_to = w_q.shape
+    y = torch.empty((m, n_to), dtype=x.dtype, device=x.device)
     lib = _cuda.library("w8_matmul")
     _cuda.check(lib.wg_w8_matmul_bf16(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n, k,
-        _cuda.stream_handle(x)), "matmul_w8 launch")
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), m,
+        n_to, k_to, _cuda.stream_handle(x)), "matmul_w8 launch")
     launches += 1
+    if padded:
+        w8_pad_launches += 1
+        y = y[:, :n].contiguous()
     return y
 
 
@@ -164,7 +217,7 @@ def matmul_w4a8_ref(x, w_p, scale):
     return (acc * scale.float() * sx).to(x.dtype)
 
 
-def _check_w4_inputs(name, x, w_p, scale, x_dtype):
+def _check_w4_inputs(name, x, w_p, scale, x_dtype, row_multiple=64):
     if not (x.is_cuda and w_p.is_cuda and scale.is_cuda):
         raise ValueError(f"{name}: x, w_p and scale must all be CUDA "
                          f"tensors")
@@ -180,10 +233,10 @@ def _check_w4_inputs(name, x, w_p, scale, x_dtype):
                          f"{tuple(w_p.shape)} scale {tuple(scale.shape)}")
     m, k = x.shape
     kh = w_p.shape[0]
-    if not k <= 2 * kh or kh % 64:
+    if not k <= 2 * kh or kh % row_multiple:
         raise ValueError(f"{name}: w_p has {kh} packed rows for K={k}; "
-                         f"want K <= 2*rows and rows a multiple of 64 "
-                         f"(quantize_int4's layout)")
+                         f"want K <= 2*rows and rows a multiple of "
+                         f"{row_multiple}")
     if not (x.is_contiguous() and w_p.is_contiguous()
             and scale.is_contiguous()):
         raise ValueError(f"{name}: x, w_p and scale must be contiguous")
@@ -193,22 +246,46 @@ def _check_w4_inputs(name, x, w_p, scale, x_dtype):
         raise ValueError(f"{name}: M={m} exceeds the kernel's grid")
 
 
+def pad_w4_operands(x, w_p, scale):
+    """(x, w_p, scale, padded) as the W4 kernel takes them, per
+    `wo_layout`: w_p and scale zero-padded along N, w_p along its packed
+    rows, x along K with its high half (columns KH..K) moved to the new KH,
+    and anything copied whose base is not 16-byte aligned."""
+    kh, n = w_p.shape
+    m, k = x.shape
+    k_to, n_to, kh_to = wo_layout(k, n, kh)
+    if (k_to, n_to, kh_to) == (k, n, kh) and _aligned(x, w_p, scale):
+        return x, w_p, scale, False
+    xp = _zero_pad(x[:, :min(k, kh)], m, k_to)
+    if k > kh:
+        xp[:, kh_to:kh_to + k - kh] = x[:, kh:]
+    return (xp, _zero_pad(w_p, kh_to, n_to), _zero_pad(scale[None], 1,
+                                                         n_to)[0], True)
+
+
 def matmul_w4(x, w_p, scale):
     """x: [M, K]; w_p: packed int4 [KP/2, N]; scale: [N] -> [M, N] in
     x.dtype.  CPU tensors run `matmul_w4_ref`; CUDA tensors launch the
-    kernel (bf16 x, any M, N, K <= KP) or raise."""
-    global w4_launches
+    kernel (bf16 x, any M, N, K <= KP; padded per `wo_layout` where
+    needed) or raise."""
+    global w4_launches, w4_pad_launches
     if x.device.type == "cpu":
         return matmul_w4_ref(x, w_p, scale)
-    _check_w4_inputs("matmul_w4", x, w_p, scale, torch.bfloat16)
-    m, k = x.shape
-    kh, n = w_p.shape
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _check_w4_inputs("matmul_w4", x, w_p, scale, torch.bfloat16,
+                     row_multiple=1)
+    m = x.shape[0]
+    n = w_p.shape[1]
+    x, w_p, scale, padded = pad_w4_operands(x, w_p, scale)
+    kh_to, n_to = w_p.shape
+    y = torch.empty((m, n_to), dtype=x.dtype, device=x.device)
     lib = _cuda.library("w4_matmul")
     _cuda.check(lib.wg_w4_matmul_bf16(
-        x.data_ptr(), w_p.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n,
-        k, kh, _cuda.stream_handle(x)), "matmul_w4 launch")
+        x.data_ptr(), w_p.data_ptr(), scale.data_ptr(), y.data_ptr(), m,
+        n_to, x.shape[1], kh_to, _cuda.stream_handle(x)), "matmul_w4 launch")
     w4_launches += 1
+    if padded:
+        w4_pad_launches += 1
+        y = y[:, :n].contiguous()
     return y
 
 
