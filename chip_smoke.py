@@ -21,6 +21,11 @@ the repository).  Phases, each printing one JSON line:
             structured weights with integer x, where every sum is exact:
             bit-equal to the plain version; and at shapes their TMA maps do
             not take, which the wrappers pad (the padding counters move).
+            The table-driven kernels also where their 128-key tiles and the
+            kv blocks do not line up (block_kv 64 and 192, S ending in the
+            first tile of the last block), at block_q 64 and 192, D 64,
+            with a q block of count 0 that must write zeros (Sol: and lse
+            -1e30).
 3. dit      a small DiT forward on the card, through the kernels, against
             the same forward on the CPU through the plain versions: Wan
             with bf16, int8 and int8a8 weights and dense attention (48
@@ -33,7 +38,9 @@ the repository).  Phases, each printing one JSON line:
             the kernel's output there is held to the plain version in fp32
             with the limits of phase 2.  The 14B 720p shapes for the four
             kernels of the 14B path, with the radial mask's density and
-            Sol's mean count over its table width; Krea 2's masked
+            Sol's mean count over its table width, both with their share
+            of the bound and their time per attended (query, key, head)
+            against the dense kernel's at 14B; Krea 2's masked
             self-attention at 1024x1024 beside the dense kernel, and its
             layer-wise text blocks through the dense kernel; W8 and W8A8
             at the 1.3B linears and cross k/v (M = 1,024), W8A8 at the 14B
@@ -44,8 +51,8 @@ the repository).  Phases, each printing one JSON line:
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
             1280x720x81f: (A) quantize="int4a8", attention_mode="sol", all
-            40 layers; (B) quantize="int4", attention_mode="radial", its
-            depth cut to B_LAYERS; then 2 krea2_raw requests at 1024x1024,
+            40 layers; (B) quantize="int4", attention_mode="radial",
+            B_LAYERS = 40 layers; then 2 krea2_raw requests at 1024x1024,
             all 28 layers (12.8 B parameters, bf16), guidance 3.5, 2 steps,
             each writing a PNG.  Every launch counter is reset just before
             each model's requests and read just after; the launches per
@@ -76,7 +83,7 @@ PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 STEPS = 2                       # denoise steps per service request
-B_LAYERS = 10                   # depth of the 14B request (B), of 40
+B_LAYERS = 40                   # depth of the 14B request (B): all 40
 FLASH_MEAN_REL, FLASH_MAX_REL = 2e-2, 2e-1     # of mean|ref|, max|ref|
 LSE_MAX_ABS = 1e-2
 MM_REL_FRO = 1e-2               # int8 / int4 / W8A8 / W4A8 matmuls
@@ -182,7 +189,7 @@ def phase_env():
                 entry = ln.split("'")[1]
             elif "spill" in ln:
                 spill = ln.strip()
-            elif "registers" in ln:
+            elif "Used" in ln and "registers" in ln:
                 ptxas.append(f"{entry}: {spill}; "
                              f"{ln.split(':', 1)[1].strip()}")
     emit("env", card=nvidia_smi_line(), torch=torch.__version__,
@@ -272,14 +279,27 @@ def phase_check():
 
     from wan2gp_tpu_torch.ops import sparse_attention as SP
     from wan2gp_tpu_torch.ops import sol_attention as SOL
+    # (B, L, N, D, block_q, block_kv, every row reads the last kv block);
+    # the 128-key tiles against the kv blocks: block_kv 64 (two blocks a
+    # tile), 192 (a tile half past each block end), S in the first tile of
+    # the last block (the next tiles lie wholly past S, and no key of them
+    # may count); block_q 64 and 192 take the 64-row CTA
     sparse = {}
-    for name, (b, l, n, d, bq, bkv) in {
-            "ragged_d128_q128_kv64": (1, 1000, 2, 128, 128, 64),
-            "ragged_d64_q64_kv256": (2, 777, 3, 64, 64, 256),
-            "q512_kv256": (1, 2048, 2, 128, 512, 256)}.items():
+    for name, (b, l, n, d, bq, bkv, tail) in {
+            "ragged_d128_q128_kv64": (1, 1000, 2, 128, 128, 64, False),
+            "ragged_d64_q64_kv256": (2, 777, 3, 64, 64, 256, False),
+            "q512_kv256": (1, 2048, 2, 128, 512, 256, False),
+            "kv64_q256": (1, 1000, 2, 128, 256, 64, True),
+            "q64_kv128": (2, 700, 2, 128, 64, 128, True),
+            "kv192_q192_d64": (1, 1000, 2, 64, 192, 192, True),
+            "s_in_first_tile_kv256": (1, 800, 2, 128, 128, 256, True),
+            "s_in_first_tile_kv512_d64": (1, 1100, 2, 64, 512, 512,
+                                          True)}.items():
         q, k, v = (randn((b, l, n, d), gen) for _ in range(3))
         mask = torch.rand((-(-l // bq), -(-l // bkv)), generator=gen,
                           device="cuda") < 0.5
+        if tail:
+            mask[:, -1] = True
         mask[1] = False                      # a q block that attends nothing
         kv_idx, counts = (torch.from_numpy(a).cuda() for a in
                           SP.compress_block_mask(mask.cpu().numpy()))
@@ -287,19 +307,35 @@ def phase_check():
         ref = SP.table_attention_ref(q.float(), k.float(), v.float(),
                                      kv_idx[None], counts[None], _scale(q),
                                      bq, bkv)[0]
+        if got[:, bq:2 * bq].any():
+            raise AssertionError(f"sparse_flash {name}: the q block with "
+                                 f"count 0 is not zero")
         sparse[name] = attn_check("sparse_flash", name, q, k, got, ref)
+        sparse[name]["blocks"] = [bq, bkv]
+    # (B, L, N, D, block_q, block_kv); group 1's first q block attends
+    # nothing (zeros, lse -1e30)
     sol = {}
-    for name, (b, l, n, d) in {"ragged_l1500": (1, 1500, 2, 128),
-                               "b2_l2048": (2, 2048, 3, 128)}.items():
+    for name, (b, l, n, d, bq, bkv) in {
+            "ragged_l1500": (1, 1500, 2, 128, 512, 256),
+            "b2_l2048": (2, 2048, 3, 128, 512, 256),
+            "d64": (1, 1500, 2, 64, 512, 256),
+            "q128_kv64": (1, 1000, 2, 128, 128, 64),
+            "q64_kv256": (1, 777, 2, 128, 64, 256),
+            "s_in_first_tile_kv256": (1, 1300, 2, 128, 512, 256)}.items():
         q, k, v = (randn((b, l, n, d), gen) for _ in range(3))
-        idx, cnt, _, _ = SOL.sol_route(q, k, _scale(q), 0.5, 512, 256,
+        idx, cnt, _, _ = SOL.sol_route(q, k, _scale(q), 0.5, bq, bkv,
                                        budget=0.5)
         cnt[1, 0] = 0                        # a row that attends nothing
-        got, lse = SOL.sol_flash(q, k, v, idx, cnt, _scale(q), 512, 256)
+        got, lse = SOL.sol_flash(q, k, v, idx, cnt, _scale(q), bq, bkv)
         ref, ref_lse = SP.table_attention_ref(q.float(), k.float(),
                                               v.float(), idx, cnt,
-                                              _scale(q), 512, 256)
+                                              _scale(q), bq, bkv)
+        zb, zh = divmod(1, n)
+        if got[zb, :bq, zh].any() or not (lse[zb, zh, :bq] == -1e30).all():
+            raise AssertionError(f"sol_flash {name}: the row with count 0 "
+                                 f"is not zero with lse -1e30")
         sol[name] = sol_check(name, q, k, got, lse, ref, ref_lse)
+        sol[name]["blocks"] = [bq, bkv]
     w4, w4a8 = {}, {}
     for name, (m, k, n) in {"qkvo_5120x5120": (4096, 5120, 5120),
                             "fc1_ragged_m": (333, 5120, 13824),
@@ -700,15 +736,17 @@ def time_sparse(b, l, n, d, frames, tpf):
             qt, kt, vt, attn_mask=bias[None, None], scale=scale), 3)
     del bias, qt, kt, vt
     torch.cuda.empty_cache()
-    bound_ms, by = bound(4.0 * d * b * n * pairs,
+    flops = 4.0 * d * b * n * pairs
+    bound_ms, by = bound(flops,
                          2.0 * (2 * b * l * n * d + 2 * b * l * n * d))
     return {"shape": [b, l, l, n, d], "block_q": bq, "block_kv": bkv,
-            "density": pairs / (l * l), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "density": pairs / (l * l), "pairs": b * n * pairs, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "library_call": "F.scaled_dot_product_attention (memory-"
                             "efficient backend) with the block mask as a "
                             "[L, S] bf16 bias",
-            "bound_ms": bound_ms, "bound_by": by, "err": err}
+            "bound_ms": bound_ms, "bound_by": by,
+            **rates(flops, ms, bound_ms), "err": err}
 
 
 def time_sol(b, l, n, d):
@@ -728,16 +766,17 @@ def time_sol(b, l, n, d):
     plain_ms = cuda_ms(lambda: SP.table_attention_ref(
         q, k, v, idx, cnt, scale, bq, bkv), 1, warmup=0)
     pairs = _pairs(idx, cnt, l, l, bq, bkv)
-    bound_ms, by = bound(4.0 * d * pairs,
-                         2.0 * 4 * b * l * n * d + 4.0 * b * n * l)
+    flops = 4.0 * d * pairs
+    bound_ms, by = bound(flops, 2.0 * 4 * b * l * n * d + 4.0 * b * n * l)
     return {"shape": [b, l, l, n, d], "block_q": bq, "block_kv": bkv,
             "table_width": idx.shape[-1],
             "mean_count_over_w": cnt.float().mean().item() / idx.shape[-1],
-            "density": pairs / (b * n * l * l), "ms": ms,
+            "density": pairs / (b * n * l * l), "pairs": pairs, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             "library_call": "none: no single PyTorch call computes a "
                             "per-head table-driven attention",
-            "bound_ms": bound_ms, "bound_by": by, "err": err}
+            "bound_ms": bound_ms, "bound_by": by,
+            **rates(flops, ms, bound_ms), "err": err}
 
 
 def time_w4(m, k, n):
@@ -810,6 +849,13 @@ def phase_time(tokens: int):
     w8["1024x1536x1536"] = time_w8("1024x1536x1536", 1024, 1536, 1536)
     sparse = {"radial_720p": time_sparse(2, 75600, 40, 128, 21, 3600)}
     sol = {"sol_720p": time_sol(2, 75600, 40, 128)}
+    # time per attended (query, key, head) against the dense kernel's
+    dense = flash["self_14B_720p"]
+    dense_ps = dense["ms"] * 1e9 / math.prod(dense["shape"][:4])
+    for t in (sparse["radial_720p"], sol["sol_720p"]):
+        t["ps_per_pair"] = t["ms"] * 1e9 / t["pairs"]
+        t["dense_ps_per_pair"] = dense_ps
+        t["pair_time_over_dense"] = t["ps_per_pair"] / dense_ps
     w4 = {"151200x5120x5120_first": first["matmul_w4"]}
     w4a8 = {"151200x5120x5120_first": first["matmul_w4a8"]}
     shapes_14b = ((151200, 5120, 5120), (151200, 5120, 13824),
@@ -1015,7 +1061,7 @@ def phase_service(frames: int):
         results["int8a8"] = run("1.3B int8a8", "t2v_1.3B", "int8a8", "auto",
                                 1, w, h, 30, {"flash_attention": 60,
                                               "matmul_w8a8": 300})
-        # 14B at 1280x720: (A) every layer; (B) depth cut to B_LAYERS
+        # 14B at 1280x720, (A) and (B) at every layer
         results["14B_int4a8_sol"] = run(
             "14B int4a8 sol", "t2v", "int4a8", "sol", 1, 1280, 720, 40,
             {"sol_flash": 40, "flash_attention": 40, "matmul_w4a8": 400})
@@ -1030,7 +1076,7 @@ def phase_service(frames: int):
         krea2_pipe.krea2_denoise = real_krea2_denoise
     emit("service", frames=frames, latent_frames=(frames - 1) // 4 + 1,
          steps=STEPS, guidance_scale=5.0, solver="unipc",
-         depth_cut=f"14B (B) runs {B_LAYERS} of 40 layers", **results)
+         b_layers=f"14B (B) runs {B_LAYERS} of 40 layers", **results)
     return results
 
 

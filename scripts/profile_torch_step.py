@@ -32,11 +32,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
-    # flash_fwd_kernel<D, Masked, consumer warpgroups>
-    ("flash_fwd_kernel<128, true,", "flash_attention_kvmask (port kernel)"),
-    ("flash_fwd_kernel<64, true,", "flash_attention_kvmask (port kernel)"),
+    # flash_fwd_kernel<D, mode (0 dense, 1 masked, 2 table), consumers>
+    ("flash_fwd_kernel<128, 1,", "flash_attention_kvmask (port kernel)"),
+    ("flash_fwd_kernel<64, 1,", "flash_attention_kvmask (port kernel)"),
+    ("flash_fwd_kernel<128, 2,", "sparse/sol flash (port kernel)"),
+    ("flash_fwd_kernel<64, 2,", "sparse/sol flash (port kernel)"),
     ("flash_fwd_kernel", "flash_attention (port kernel)"),
-    ("sparse_flash_kernel", "sparse/sol flash (port kernel)"),
     ("w8a8_matmul_kernel", "matmul_w8a8 (port kernel)"),
     ("w8_matmul_kernel", "matmul_w8 (port kernel)"),
     ("w4a8_matmul_kernel", "matmul_w4a8 (port kernel)"),

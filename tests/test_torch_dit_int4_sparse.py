@@ -46,7 +46,8 @@ GRID = (4, 16, 16)                         # 1,024 tokens per sample
 
 @pytest.fixture(scope="module")
 def jparams4():
-    p = jdit.init_wan_dit(jax.random.key(3), JCFG, jnp.float32)
+    p = jax.jit(lambda key: jdit.init_wan_dit(key, JCFG, jnp.float32))(
+        jax.random.key(3))
     return jquant.quantize_params_tree(p, predicate=lambda s: "blocks" in s,
                                        bits=4, min_dim=256)
 
@@ -77,9 +78,11 @@ def test_dit_forward_matches_jax(monkeypatch, jparams4, mode, backend, act,
                         _interpret(jquant.matmul_w4a8))
     monkeypatch.setattr(jquant, "_ACT_QUANT", act)
     jcos, jsin = jbuild_rope(GRID, head_dim=JCFG.head_dim)
-    ref = np.asarray(jdit.wan_dit_forward(
-        jparams4, JCFG, jnp.asarray(lat), jnp.asarray(t), jnp.asarray(ctx),
-        jcos, jsin, attn_backend=backend), np.float32)
+    # traced (and compiled once) while the patches above are in place
+    ref = np.asarray(jax.jit(functools.partial(
+        jdit.wan_dit_forward, cfg=JCFG, attn_backend=backend))(
+        jparams4, latents=lat, t=t, context=ctx, rope_cos=jcos,
+        rope_sin=jsin), np.float32)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams4), "cpu")
     assert params["blocks"]["ffn"]["fc1"]["w_q4"].dtype == torch.int8
     cos, sin = build_rope_3d(GRID, head_dim=CFG.head_dim)

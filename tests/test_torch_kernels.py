@@ -283,6 +283,58 @@ def test_sol_flash_kernel_matches_plain(gen, l):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("entry,l,d,block_q,block_kv", [
+    ("sparse", 1000, 128, 256, 64),     # two 64-key blocks per 128-key tile
+    ("sparse", 700, 128, 64, 128),      # block_q 64: the 64-row CTA
+    ("sparse", 1000, 64, 192, 192),     # a tile half past each block end
+    ("sparse", 800, 128, 128, 256),     # S in the first tile of the last
+    ("sparse", 1100, 64, 512, 512),     # block: the next tiles lie past S
+    ("sol", 1500, 64, 512, 256),        # D = 64
+    ("sol", 1000, 128, 128, 64),
+    ("sol", 777, 128, 64, 256),
+    ("sol", 1300, 128, 512, 256)])      # last block: one tile past S
+def test_table_flash_kernels_at_tile_edges(gen, entry, l, d, block_q,
+                                           block_kv):
+    """Both table entry points where the 128-key tiles and the kv blocks
+    do not line up, with a q block whose count is 0 (zeros out, lse
+    -1e30)."""
+    q, k, v = (_randn((2, l, 2, d), gen) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    if entry == "sparse":
+        rng = np.random.default_rng(l + block_kv)
+        mask = rng.random((-(-l // block_q), -(-l // block_kv))) < 0.5
+        mask[:, -1] = True                         # every row reads the end
+        mask[1] = False                            # a row with count 0
+        kv_idx, counts = (torch.from_numpy(a).cuda()
+                          for a in sparse.compress_block_mask(mask))
+        before = sparse.launches
+        out = sparse.sparse_flash(q, k, v, kv_idx, counts, scale, block_q,
+                                  block_kv)
+        torch.cuda.synchronize()
+        assert sparse.launches == before + 1
+        ref = sparse.table_attention_ref(q.float(), k.float(), v.float(),
+                                         kv_idx[None], counts[None], scale,
+                                         block_q, block_kv)[0]
+        assert not out[:, block_q:2 * block_q].any()
+    else:
+        kv_idx, counts, _, _ = sol.sol_route(q, k, scale, 0.5, block_q,
+                                             block_kv, budget=0.5)
+        counts[1, 0] = 0                           # (b 0, head 1), block 0
+        before = sol.launches
+        out, lse = sol.sol_flash(q, k, v, kv_idx, counts, scale, block_q,
+                                 block_kv)
+        torch.cuda.synchronize()
+        assert sol.launches == before + 1
+        ref, ref_lse = sparse.table_attention_ref(
+            q.float(), k.float(), v.float(), kv_idx, counts, scale, block_q,
+            block_kv)
+        assert (lse - ref_lse).abs().max().item() <= 1e-2
+        assert not out[0, :block_q, 1].any()
+        assert (lse[0, 1, :block_q] == -1e30).all()
+    _tables_close(out, ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(300, 5120, 5120), (77, 13824, 512),
                                    (129, 1000, 200), (33, 100, 51)])
 def test_w4_and_w4a8_kernels_match_plain(gen, m, k, n):

@@ -7,9 +7,12 @@ PyTorch versions.  fp32 tolerance 1e-5; bf16 cases at 3e-2 * max|ref|.
 The CUDA kernels themselves are held to their plain versions in
 test_torch_kernels.py.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 import importlib
@@ -149,12 +152,13 @@ def test_unported_attention_backends_raise(backend):
 def test_structured_attention_backends_match_jax(backend):
     """Self-attention at 1,024 tokens takes the sparse path on both sides
     (the JAX package through its XLA oracles); a cross-attention shape
-    falls back to dense attention.  fp32, 1e-4 * max|ref|."""
+    falls back to dense attention.  fp32, 1e-4 * max|ref|.  The JAX side
+    runs under jax.jit (one compiled program, not an eager op each)."""
     q, k, v = _qkv(1, 1024, 1024, 2, 32, seed=9)
+    jref = jax.jit(functools.partial(jattn.attention, backend=backend))
     for s_len in (1024, 77):
         args = (q, k[:, :s_len], v[:, :s_len])
-        ref = np.asarray(jattn.attention(*map(jnp.asarray, args),
-                                         backend=backend))
+        ref = np.asarray(jref(*args))
         got = _np(attention.attention(*map(_t, args), backend=backend))
         np.testing.assert_allclose(got, ref, rtol=0,
                                    atol=1e-4 * np.abs(ref).max())

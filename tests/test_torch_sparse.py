@@ -6,13 +6,17 @@ Pallas kernels in interpret mode and its XLA oracles; the port's side runs
 the kernels' plain PyTorch version (`table_attention_ref`).  Mask
 builders, table compression and Sol's routing tables must be exactly
 equal; attention outputs agree within 1e-4 * max|ref| in fp32 (the two
-sides sum the same fp32 terms in another order).
+sides sum the same fp32 terms in another order).  The JAX references run
+under `jax.jit`: one compiled program per call instead of an eager
+dispatch (and a compile) per operation.
 """
+import functools
 import math
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 import importlib
@@ -82,9 +86,9 @@ def test_sparse_attention_matches_jax(l, block_q, block_kv):
                                   torch.from_numpy(v), mask,
                                   block_q=block_q, block_kv=block_kv)
     for kw in (dict(interpret=True), dict(backend="xla")):
-        ref = jsparse.sparse_attention(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask,
-            block_q=block_q, block_kv=block_kv, **kw)
+        ref = jax.jit(functools.partial(
+            jsparse.sparse_attention, block_mask=mask, block_q=block_q,
+            block_kv=block_kv, **kw))(q, k, v)
         _close(got.numpy(), ref)
     assert not got[0, block_q:2 * block_q].any()   # count 0 -> zeros
 
@@ -108,7 +112,7 @@ def test_sol_route_matches_jax(case):
     c = dict(ROUTE_CASES[case])
     q, k, _ = _qkv(2, c.pop("l"), 2, 32, seed=3)
     scale = 1.0 / math.sqrt(32)
-    ref = jsol.sol_route(jnp.asarray(q), jnp.asarray(k), scale, **c)
+    ref = jax.jit(functools.partial(jsol.sol_route, scale=scale, **c))(q, k)
     got = sol.sol_route(torch.from_numpy(q), torch.from_numpy(k), scale,
                         **c)
     idx, cnt, exact, kc = (np.asarray(a) for a in ref)
@@ -128,15 +132,15 @@ def test_sol_route_matches_jax(case):
 def test_block_pool_and_thresholds_match_jax():
     x, y, _ = _qkv(1, 200, 2, 16, seed=4)
     means, lens = sol.block_pool(torch.from_numpy(x), 64)
-    jmeans, jlens = jsol.block_pool(jnp.asarray(x), 64)
+    jmeans, jlens = jax.jit(jsol.block_pool, static_argnums=1)(x, 64)
     np.testing.assert_allclose(means.numpy(), np.asarray(jmeans),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(lens.numpy(), jlens)
     kc = sol.block_pool(torch.from_numpy(y), 32)[0]
     for t in ("diag", "exact"):
         got = sol.sol_thresholds(means, kc, 0.25, 1.5, t)
-        ref = jsol.sol_thresholds(jnp.asarray(means.numpy()),
-                                  jnp.asarray(kc.numpy()), 0.25, 1.5, t)
+        ref = jax.jit(jsol.sol_thresholds, static_argnums=(2, 3, 4))(
+            means.numpy(), kc.numpy(), 0.25, 1.5, t)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                    atol=1e-6)
 
@@ -151,9 +155,9 @@ def test_sol_attention_matches_jax(l, tau, budget, jax_paths):
     got = sol.sol_attention(torch.from_numpy(q), torch.from_numpy(k),
                             torch.from_numpy(v), **kw).numpy()
     for path in jax_paths:
-        extra = dict(backend=path, interpret=path == "pallas")
-        ref = jsol.sol_attention(jnp.asarray(q), jnp.asarray(k),
-                                 jnp.asarray(v), **kw, **extra)
+        ref = jax.jit(functools.partial(
+            jsol.sol_attention, **kw, backend=path,
+            interpret=path == "pallas"))(q, k, v)
         _close(got, ref)
 
 
@@ -162,8 +166,9 @@ def test_sol_flash_out_and_lse_match_jax_kernel():
     interpret mode: out and the per-row logsumexp."""
     q, k, v = _qkv(1, 200, 2, 32, seed=6)
     scale = 1.0 / math.sqrt(32)
-    idx, cnt, _, _ = jsol.sol_route(jnp.asarray(q), jnp.asarray(k), scale,
-                                    0.5, 64, 64, budget=0.5)
+    idx, cnt, _, _ = jax.jit(functools.partial(
+        jsol.sol_route, scale=scale, tau=0.5, block_q=64, block_kv=64,
+        budget=0.5))(q, k)
     cnt = np.asarray(cnt).copy()
     cnt[1, 2] = 0                                  # a row with count 0
 

@@ -21,13 +21,15 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .attention import _NEG_INF, _REF_SCORE_BYTES, _check_flash_inputs, \
-    _scaled_q
+from .attention import _NEG_INF, _REF_SCORE_BYTES, _bf16_scale, \
+    _check_flash_inputs, _scaled_q, _tma_strides
 
 # plain integer count of kernel launches (read and reset by callers)
 launches = 0
 
-# the kernel's query tile and kv tile: route blocks are multiples of these
+# route blocks the kernel takes are multiples of these (its q tile is 128
+# rows when block_q is a multiple of 128, else 64; its kv tile is 128 keys,
+# masked at the end of each kv block)
 KERNEL_BLOCK_Q = 64
 KERNEL_BLOCK_KV = 64
 
@@ -236,8 +238,9 @@ def launch_table_flash(symbol: str, q, k, v, kv_idx, counts, scale: float,
                            block_q, block_kv)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+        *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+        *o.stride()[:3])
+    scale_q = _bf16_scale(float(scale))
     lib = _cuda.library("sparse_flash")
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
     if lse is not None:
