@@ -21,6 +21,14 @@ the repository).  Phases, each printing one JSON line:
             structured weights with integer x, where every sum is exact:
             bit-equal to the plain version; and at shapes their TMA maps do
             not take, which the wrappers pad (the padding counters move).
+            W8A8 and W4A8 also bit-equal to the plain product on the same
+            int8 activations (the integer product is exact; the count of
+            differing elements must be 0), at M = 1, ragged M, padded K
+            and N, W4A8 with K < 2 KH, and on inputs with an all-zero row
+            and a row whose x / sx fall on .5 ties; the activation
+            quantization (act_quant) bit-equal to its plain version (x_q
+            and the bits of sx) on each of those inputs and on the 14B 720p
+            fc2 input (151,200 x 13,824).
             The table-driven kernels also where their 128-key tiles and the
             kv blocks do not line up (block_kv 64 and 192, S ending in the
             first tile of the last block), at block_q 64 and 192, D 64,
@@ -45,8 +53,13 @@ the repository).  Phases, each printing one JSON line:
             layer-wise text blocks through the dense kernel; W8 and W8A8
             at the 1.3B linears and cross k/v (M = 1,024), W8A8 at the 14B
             ones.  W8 and W4 rows add their share of the bound and their
-            time over cuBLAS's.  W4 and W4A8 at K=N=5120 run once more
-            first, before any other timing.
+            time over cuBLAS's.  A8 rows time the call (with its
+            quantization), the product alone on activations quantized
+            beforehand and the quantization alone, each with its share of
+            its bound, beside torch._int_mm and the weight-only kernel at
+            the same shape; act_quant alone at every A8 input shape.  W4
+            and W4A8 at K=N=5120 run once more first, before any other
+            timing.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
@@ -57,7 +70,8 @@ the repository).  Phases, each printing one JSON line:
             each writing a PNG.  Every launch counter is reset just before
             each model's requests and read just after; the launches per
             DiT forward (Krea 2: and per request) are asserted, and that no
-            W8 or W4 launch of a Wan request padded its operands.
+            W8, W4, W8A8 or W4A8 launch of a Wan request padded its
+            operands.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -182,10 +196,14 @@ def phase_env():
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
     ptxas = []              # "<mangled kernel>: spills; registers, smem"
+    warnings = []           # "(C75xx) <function>": serialized wgmmas
     for log in logs.values():
         entry = spill = ""
         for ln in log.splitlines():
-            if "Compiling entry function" in ln:
+            if "(C75" in ln:
+                warnings.append(ln[ln.index("(C75"):][:7] + " "
+                                + ln.rsplit("function", 1)[-1].strip(" '"))
+            elif "Compiling entry function" in ln:
                 entry = ln.split("'")[1]
             elif "spill" in ln:
                 spill = ln.strip()
@@ -196,7 +214,8 @@ def phase_env():
          cuda=torch.version.cuda, python=sys.version.split()[0],
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-         kernels_built=sorted(logs), build_s=build_s, ptxas=ptxas)
+         kernels_built=sorted(logs), build_s=build_s, ptxas=ptxas,
+         ptxas_warnings=warnings)
 
 
 _ATTN_TOL = (f"mean_abs<={FLASH_MEAN_REL}*mean|ref|, "
@@ -206,9 +225,10 @@ TOLERANCE = {"flash_attention": _ATTN_TOL,
              "sparse_flash": _ATTN_TOL,
              "sol_flash": _ATTN_TOL + f", lse max_abs<={LSE_MAX_ABS}",
              "matmul_w8": f"rel_fro<={MM_REL_FRO}",
-             "matmul_w8a8": f"rel_fro<={MM_REL_FRO}",
+             "matmul_w8a8": f"rel_fro<={MM_REL_FRO}, wrong_elements==0",
              "matmul_w4": f"rel_fro<={MM_REL_FRO}",
-             "matmul_w4a8": f"rel_fro<={MM_REL_FRO}"}
+             "matmul_w4a8": f"rel_fro<={MM_REL_FRO}, wrong_elements==0",
+             "act_quant": "x_q and the bits of sx equal the plain version's"}
 
 
 def counters():
@@ -223,7 +243,8 @@ def counters():
             "sparse_flash": (SP, "launches"),
             "sol_flash": (SOL, "launches"),
             "matmul_w4": (Q, "w4_launches"),
-            "matmul_w4a8": (Q, "w4a8_launches")}
+            "matmul_w4a8": (Q, "w4a8_launches"),
+            "act_quant": (Q, "act_quant_launches")}
 
 
 def reset_counts():
@@ -336,7 +357,7 @@ def phase_check():
                                  f"is not zero with lse -1e30")
         sol[name] = sol_check(name, q, k, got, lse, ref, ref_lse)
         sol[name]["blocks"] = [bq, bkv]
-    w4, w4a8 = {}, {}
+    w4, w4a8, aq = {}, {}, {}
     for name, (m, k, n) in {"qkvo_5120x5120": (4096, 5120, 5120),
                             "fc1_ragged_m": (333, 5120, 13824),
                             "fc2_ragged_m": (77, 13824, 512),
@@ -348,8 +369,19 @@ def phase_check():
         w4[name] = mm_check("matmul_w4", name, Q.matmul_w4(x, wp, sc),
                             Q.matmul_w4_ref(x.float(), wp, sc))
         w4[name]["padded"] = Q.w4_pad_launches - pads
-        w4a8[name] = mm_check("matmul_w4a8", name, Q.matmul_w4a8(x, wp, sc),
-                              Q.matmul_w4a8_ref(x.float(), wp, sc))
+        x = a8_rows(x)
+        aq[f"w4a8_{name}"] = act_quant_check(x)
+        w4a8[name] = a8_check("matmul_w4a8", name, x, wp, sc)
+    # M = 1; K < 2 KH with K and N padded; 40 packed rows padded to 64,
+    # which moves x's high half
+    for name, (m, k, n, block_k) in {"m1": (1, 5120, 5120, 512),
+                                     "k_lt_2kh_pad": (129, 1000, 200, 512),
+                                     "kh40_moved": (50, 70, 32, 20)}.items():
+        x = a8_rows(randn((m, k), gen))
+        wp, sc = Q.quantize_int4(torch.randn((k, n), generator=gen,
+                                             device="cuda"), block_k)
+        aq[f"w4a8_{name}"] = act_quant_check(x)
+        w4a8[name] = a8_check("matmul_w4a8", name, x, wp, sc)
     w4["structured_exact"] = structured_check("w4", 600, 5120, 1536)
     for kernel, cases in (("matmul_w8", w8), ("matmul_w4", w4)):
         # only the (77, 100, 51) case has a K and an N the TMA maps refuse
@@ -374,18 +406,87 @@ def phase_check():
         got = A.flash_attention(q, k, v, _scale(q), mask)
         kvmask[name] = kvmask_check(name, q, k, v, mask, got, dead)
     w8a8 = {}
-    for name, (m, k, n) in w8_cases.items():
-        x = randn((m, k), gen)
+    # beside the W8 cases: M = 1, and K % 16 == 8 (padded)
+    for name, (m, k, n) in {**w8_cases, "m1": (1, 1536, 1536),
+                            "k_pad_1544": (64, 1544, 1552)}.items():
+        x = a8_rows(randn((m, k), gen))
         wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
                                              device="cuda"))
-        w8a8[name] = mm_check("matmul_w8a8", name, Q.matmul_w8a8(x, wq, sc),
-                              Q.matmul_w8a8_ref(x.float(), wq, sc))
+        aq[f"w8a8_{name}"] = act_quant_check(x)
+        w8a8[name] = a8_check("matmul_w8a8", name, x, wq, sc)
+    for kernel, cases, want in (
+            ("matmul_w8a8", w8a8, {"ragged_mnk", "k_pad_1544"}),
+            ("matmul_w4a8", w4a8, {"ragged_mnk", "k_lt_2kh_pad",
+                                   "kh40_moved"})):
+        if {n for n, e in cases.items() if e["padded"]} != want:
+            raise AssertionError(f"{kernel}: padded launches {cases}")
+    # the 14B fc2 input, and K past what the one-pass CTA holds (two-pass)
+    for m, k in ((151200, 13824), (3, 20000)):
+        aq[f"{m}x{k}"] = act_quant_check(a8_rows(randn((m, k), gen)))
     emit("check", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
-         matmul_w4=w4, matmul_w4a8=w4a8, tolerance=TOLERANCE)
+         matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, tolerance=TOLERANCE)
     return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
-            "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8}
+            "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8,
+            "act_quant": aq}
+
+
+def a8_rows(x):
+    """x [M, K] bf16 with, where M > 2, row 1 all zeros (sx = 1e-8 *
+    fp32(1/127)) and row 2 of absmax 127 (sx = 1.0) whose other values are
+    -126.5 .. 126.5 in steps of 1, so that each x / sx is a .5 tie that
+    rounds to even."""
+    if x.shape[0] > 2:
+        x[1] = 0
+        ties = torch.arange(x.shape[1], device=x.device) % 254 - 126.5
+        ties[0] = 127
+        x[2] = ties.to(x.dtype)
+    return x
+
+
+def act_quant_check(x):
+    """quantize_act_int8 (the kernel) against its plain version: x_q and the
+    bits of sx must be equal."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    xq, sx = Q.quantize_act_int8(x)
+    rq, rsx = Q.quantize_act_int8_ref(x)
+    e = {"shape": list(x.shape),
+         "wrong_elements": int((xq != rq).sum().item()),
+         "wrong_scales": int((sx.view(torch.int32)
+                              != rsx.view(torch.int32)).sum().item())}
+    del xq, sx, rq, rsx
+    if e["wrong_elements"] or e["wrong_scales"]:
+        raise AssertionError(f"act_quant {list(x.shape)}: {e}")
+    return {**e, "max_abs": 0.0}
+
+
+def a8_check(kernel, name, x, w, sc):
+    """An A8 kernel against its plain versions: the relative Frobenius
+    error against the fp32 plain version from x, and the count of output
+    elements that differ from the plain product on the same int8
+    activations (exact integer sums: it must be 0); `padded`: whether the
+    launch padded its operands."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    if kernel == "matmul_w8a8":
+        fn, ref_fn, prod_ref = Q.matmul_w8a8, Q.matmul_w8a8_ref, \
+            Q.w8a8_product_ref
+        pad = "w8a8_pad_launches"
+    else:
+        fn, ref_fn, prod_ref = Q.matmul_w4a8, Q.matmul_w4a8_ref, \
+            Q.w4a8_product_ref
+        pad = "w4a8_pad_launches"
+    pads = getattr(Q, pad)
+    got = fn(x, w, sc)
+    padded = getattr(Q, pad) - pads
+    e = mm_check(kernel, name, got, ref_fn(x.float(), w, sc))
+    exact = prod_ref(*Q.quantize_act_int8_ref(x), w, sc, got.dtype)
+    e["wrong_elements"] = int((got != exact).sum().item())
+    e["shape"], e["padded"] = [x.shape[0], x.shape[1], sc.shape[0]], padded
+    del got, exact
+    if e["wrong_elements"]:
+        raise AssertionError(f"{kernel} {name}: {e}")
+    return e
 
 
 def _scale(q):
@@ -632,32 +733,77 @@ def time_kvmask(name, b, l, n, d, valid):
             **rates(flops, ms, bound_ms), "err": err}
 
 
+def time_a8(kernel, x, w, sc, w_int, reps):
+    """An A8 call at one main-path shape: the call (the wrapper with its
+    quantization; `ms`), the product alone on activations quantized
+    beforehand and the quantization alone, each beside its bound, the
+    plain version, torch._int_mm on the same int8 activations and w_int
+    (the weight as int8), and the weight-only kernel on the same weight."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    fn, ref_fn, wo_fn, w_bytes = {
+        "matmul_w8a8": (Q.matmul_w8a8, Q.matmul_w8a8_ref, Q.matmul_w8, 1.0),
+        "matmul_w4a8": (Q.matmul_w4a8, Q.matmul_w4a8_ref, Q.matmul_w4,
+                        0.5)}[kernel]
+    m, k = x.shape
+    n = sc.shape[0]
+    err = a8_check(kernel, f"{m}x{k}x{n}", x, w, sc)
+    xq = Q.quantize_act_int8(x)
+    flops = 2.0 * m * k * n
+    out = {"shape": [m, k, n],
+           "ms": cuda_ms(lambda: fn(x, w, sc), reps),
+           "product_ms": cuda_ms(lambda: fn(x, w, sc, xq), reps),
+           "act_quant_ms": cuda_ms(lambda: Q.quantize_act_int8(x), reps),
+           "weight_only_ms": cuda_ms(lambda: wo_fn(x, w, sc), reps),
+           "plain_ms": cuda_ms(lambda: ref_fn(x, w, sc), 1),
+           "library_ms": (cuda_ms(lambda: torch._int_mm(xq[0], w_int), reps)
+                          if m > 16 else None),
+           "library_call": "torch._int_mm on the int8 activations and the "
+                           "weight as int8 (int32 out, no scales)",
+           "err": err}
+    # the call reads bf16 x; the product int8 x_q and fp32 sx; the
+    # quantization reads bf16 x and writes x_q and sx
+    out["bound_ms"], out["bound_by"] = bound(
+        flops, 2 * m * k + k * n * w_bytes + 4 * n + 2 * m * n,
+        peak=PEAK_INT8_OPS)
+    out["product_bound_ms"], _ = bound(
+        flops, m * k + 4 * m + k * n * w_bytes + 4 * n + 2 * m * n,
+        peak=PEAK_INT8_OPS)
+    out["act_quant_bound_ms"], _ = bound(0.0, 3 * m * k + 4 * m)
+    for key in ("", "product_", "act_quant_"):
+        out[f"{key}bound_share"] = out[f"{key}bound_ms"] / out[f"{key}ms"]
+    out["ms_over_weight_only"] = out["ms"] / out["weight_only_ms"]
+    del xq
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_w8a8(m, k, n):
     from wan2gp_tpu_torch.ops import quant as Q
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = randn((m, k), gen)
     wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
                                          device="cuda"))
-    name = f"{m}x{k}x{n}"
-    reps = 5 if m * k * n > 1e12 else 20
-    err = mm_check("matmul_w8a8", name, Q.matmul_w8a8(x, wq, sc),
-                   Q.matmul_w8a8_ref(x.float(), wq, sc))
-    xq, _ = Q.quantize_act_int8(x)
-    out = {"shape": [m, k, n],
-           "ms": cuda_ms(lambda: Q.matmul_w8a8(x, wq, sc), reps),
-           "act_quant_ms": cuda_ms(lambda: Q.quantize_act_int8(x), reps),
-           "plain_ms": cuda_ms(lambda: Q.matmul_w8a8_ref(x, wq, sc), 1),
-           "library_ms": (cuda_ms(lambda: torch._int_mm(xq, wq), reps)
-                          if m > 16 else None),
-           "library_call": "torch._int_mm on the int8 activations (int32 "
-                           "out, no scales)",
-           "err": err}
-    out["bound_ms"], out["bound_by"] = bound(
-        2.0 * m * k * n, 2 * m * k + k * n + 4 * n + 2 * m * n,
-        peak=PEAK_INT8_OPS)
-    del xq
+    return time_a8("matmul_w8a8", x, wq, sc, wq,
+                   5 if m * k * n > 1e12 else 20)
+
+
+def time_act_quant(m, k):
+    """quantize_act_int8 at an A8 input shape, checked bit for bit."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = randn((m, k), gen)
+    err = act_quant_check(x)
+    ms = cuda_ms(lambda: Q.quantize_act_int8(x), 20)
+    plain_ms = cuda_ms(lambda: Q.quantize_act_int8_ref(x), 3)
+    bound_ms, by = bound(0.0, 3 * m * k + 4 * m)
+    del x
     torch.cuda.empty_cache()
-    return out
+    return {"shape": [m, k], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call quantizes per row "
+                            "to int8 on the card",
+            "bound_ms": bound_ms, "bound_by": by,
+            "bound_share": bound_ms / ms, "err": err}
 
 
 def time_w8(name, m, k, n):
@@ -808,25 +954,10 @@ def time_w4(m, k, n):
         **rates(2.0 * m * k * n, ms, b_ms),
         "over_library": ms / library_ms, "err": err}
     del w_bf16
-    # W4A8: int8 activations (the wrapper quantizes them), int32 product
-    err = mm_check("matmul_w4a8", name, Q.matmul_w4a8(x, wp, sc),
-                   Q.matmul_w4a8_ref(x.float(), wp, sc))
-    xq, _ = Q.quantize_act_int8(x)
-    w_i8 = w_int.contiguous()
-    b_ms, b_by = bound(2.0 * m * k * n, 2 * m * k + k * n / 2 + 4 * n
-                       + 2 * m * n, peak=PEAK_INT8_OPS)
-    out["matmul_w4a8"] = {
-        "shape": [m, k, n], "ms": cuda_ms(lambda: Q.matmul_w4a8(x, wp, sc),
-                                          reps),
-        "act_quant_ms": cuda_ms(lambda: Q.quantize_act_int8(x), reps),
-        "plain_ms": cuda_ms(lambda: Q.matmul_w4a8_ref(x, wp, sc), 1),
-        "library_ms": (cuda_ms(lambda: torch._int_mm(xq, w_i8), reps)
-                       if m > 16 else None),
-        "library_call": "torch._int_mm on the int8 activations and the "
-                        "weight unpacked to int8 beforehand (int32 out, no "
-                        "scales)",
-        "bound_ms": b_ms, "bound_by": b_by, "err": err}
-    del xq, w_i8, w_int
+    # W4A8: int8 activations, int32 product
+    out["matmul_w4a8"] = time_a8("matmul_w4a8", x, wp, sc,
+                                 w_int.contiguous(), reps)
+    del w_int
     torch.cuda.empty_cache()
     return out
 
@@ -876,12 +1007,17 @@ def phase_time(tokens: int):
     w8a8["1024x1536x1536"] = time_w8a8(1024, 1536, 1536)
     w8a8.update({f"{m}x{k}x{n}": time_w8a8(m, k, n)
                  for m, k, n in shapes_14b})
+    # every A8 input: the 1.3B and 14B linears' K at their M
+    aq = {f"{m}x{k}": time_act_quant(m, k) for m, k in (
+        (2 * tokens, 1536), (2 * tokens, 8960), (1024, 1536),
+        (151200, 5120), (151200, 13824), (1024, 5120))}
     emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
-         matmul_w4=w4, matmul_w4a8=w4a8, tolerance=TOLERANCE)
+         matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, tolerance=TOLERANCE)
     return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
-            "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8}
+            "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8,
+            "act_quant": aq}
 
 
 def phase_service(frames: int):
@@ -952,6 +1088,7 @@ def phase_service(frames: int):
             fam._ARCH[model_type] = arch
         reset_counts()
         Q.w8_pad_launches = Q.w4_pad_launches = 0
+        Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
         reqs = []
         for i in range(n_req):
             seen.clear()
@@ -978,9 +1115,10 @@ def phase_service(frames: int):
                 for name in counts}
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, want {want}")
-        padded = Q.w8_pad_launches + Q.w4_pad_launches
+        padded = (Q.w8_pad_launches + Q.w4_pad_launches
+                  + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
         if padded:
-            raise AssertionError(f"{label}: {padded} W8/W4 launches padded "
+            raise AssertionError(f"{label}: {padded} matmul launches padded "
                                  f"their operands")
         svc.release_model()
         del svc
@@ -1058,13 +1196,17 @@ def phase_service(frames: int):
         results["int8"] = run("1.3B int8", "t2v_1.3B", "int8", "auto", 1, w,
                               h, 30, {"flash_attention": 60,
                                       "matmul_w8": 300})
+        # A8: 10 products a layer from 7 quantizations (q, k and v share
+        # one, cross k and v another)
         results["int8a8"] = run("1.3B int8a8", "t2v_1.3B", "int8a8", "auto",
                                 1, w, h, 30, {"flash_attention": 60,
-                                              "matmul_w8a8": 300})
+                                              "matmul_w8a8": 300,
+                                              "act_quant": 210})
         # 14B at 1280x720, (A) and (B) at every layer
         results["14B_int4a8_sol"] = run(
             "14B int4a8 sol", "t2v", "int4a8", "sol", 1, 1280, 720, 40,
-            {"sol_flash": 40, "flash_attention": 40, "matmul_w4a8": 400})
+            {"sol_flash": 40, "flash_attention": 40, "matmul_w4a8": 400,
+             "act_quant": 280})
         results["14B_int4_radial"] = run(
             "14B int4 radial", "t2v", "int4", "radial", 1, 1280, 720,
             B_LAYERS, {"sparse_flash": B_LAYERS, "flash_attention": B_LAYERS,
@@ -1155,6 +1297,10 @@ def main(argv=None):
          "14B_int4_radial", "151200x5120x13824"),
         ("matmul_w4a8", "w4_matmul.cu", "wan2gp_tpu/ops/quant.py:304",
          "14B_int4a8_sol", "151200x5120x13824"),
+        ("act_quant", "act_quant.cu",
+         "wan2gp_tpu/ops/quant.py:222 quantize_act_int8 (XLA; the JAX "
+         "package has no Pallas kernel for it)", "14B_int4a8_sol",
+         "151200x13824"),
     )
     kernels = []
     for name, src, replaces, run, case in table:

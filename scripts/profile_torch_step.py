@@ -38,10 +38,12 @@ FAMILIES = (
     ("flash_fwd_kernel<128, 2,", "sparse/sol flash (port kernel)"),
     ("flash_fwd_kernel<64, 2,", "sparse/sol flash (port kernel)"),
     ("flash_fwd_kernel", "flash_attention (port kernel)"),
-    ("w8a8_matmul_kernel", "matmul_w8a8 (port kernel)"),
+    # w8_matmul_kernel<kA8, rows>, w4_matmul_kernel<kA8, rows>
+    ("w8_matmul_kernel<true", "matmul_w8a8 (port kernel)"),
     ("w8_matmul_kernel", "matmul_w8 (port kernel)"),
-    ("w4a8_matmul_kernel", "matmul_w4a8 (port kernel)"),
+    ("w4_matmul_kernel<true", "matmul_w4a8 (port kernel)"),
     ("w4_matmul_kernel", "matmul_w4 (port kernel)"),
+    ("act_quant", "act_quant (port kernel)"),
     # cuDNN's implicit-GEMM convolutions also say "gemm": match them first
     ("fprop", "cuDNN convolution"), ("conv", "cuDNN convolution"),
     ("implicit", "cuDNN convolution"), ("winograd", "cuDNN convolution"),

@@ -450,6 +450,81 @@ def test_weight_only_kernels_pad_what_tma_does_not_take(gen, kernel, m, k, n,
     assert ((got.float() - ref).norm() / ref.norm()).item() <= 1e-2
 
 
+def _a8_input(gen, m, k, dtype=torch.bfloat16):
+    """x [m, k] with the rows the activation quantization must get right
+    where m > 2: row 1 all zeros (sx = 1e-8 * fp32(1/127)), row 2 of
+    absmax 127 (sx = 1.0) whose other values are -126.5 .. 126.5 in steps
+    of 1, so that every x / sx is a .5 tie (round half to even)."""
+    x = _randn((m, k), gen)
+    if m > 2:
+        x[1] = 0
+        ties = torch.arange(k, device="cuda") % 254 - 126.5
+        ties[0] = 127
+        x[2] = ties.to(torch.bfloat16)
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,dtype", [
+    (1, 1536, torch.bfloat16),          # M = 1, one warp a row
+    (333, 5120, torch.bfloat16),        # 14B width, four warps a row
+    (77, 13824, torch.bfloat16),        # 14B fc2 input, eight warps a row
+    (300, 8960, torch.float32),         # fp32 x, taken as bf16
+    (5, 100, torch.bfloat16),           # K % 8 != 0: the two-pass CTA
+    (3, 20000, torch.bfloat16)])        # K past the registers: two-pass
+def test_act_quant_kernel_bit_equal_to_plain(gen, m, k, dtype):
+    x = _a8_input(gen, m, k, dtype)
+    before = quant.act_quant_launches
+    xq, sx = quant.quantize_act_int8(x)
+    torch.cuda.synchronize()
+    assert quant.act_quant_launches == before + 1
+    rq, rsx = quant.quantize_act_int8_ref(x)
+    assert xq.shape == (m, k) and sx.shape == (m, 1)
+    assert torch.equal(xq, rq)
+    assert torch.equal(sx.view(torch.int32), rsx.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,k,n,kh,pads", [
+    ("w8a8", 1, 1536, 1536, None, False),       # M = 1
+    ("w8a8", 333, 1536, 8960, None, False),     # ragged M
+    ("w8a8", 1000, 8960, 1536, None, False),    # 1.3B fc2 widths
+    ("w8a8", 77, 100, 51, None, True),          # K and N padded
+    ("w8a8", 64, 1544, 1552, None, True),       # K % 16 == 8 padded
+    ("w4a8", 1, 5120, 5120, 2560, False),       # M = 1
+    ("w4a8", 333, 5120, 13824, 2560, False),    # ragged M, 14B fc1 widths
+    ("w4a8", 300, 1000, 200, 512, True),        # K < 2 KH; K, N padded
+    ("w4a8", 50, 70, 32, 40, True),             # rows 40 -> 64, high half
+    ("w4a8", 129, 1024, 256, 1024, False)])     # K = KH: high half all zero
+def test_a8_kernels_exact(gen, kernel, m, k, n, kh, pads):
+    """With the same x_q and sx the integer product is exact, so the A8
+    kernels must return the plain product's bits, given pre-quantized
+    activations or quantizing x themselves."""
+    x = _a8_input(gen, m, k)
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    if kernel == "w8a8":
+        wq, s = quant.quantize_int8(w)
+        fn, ref_fn = quant.matmul_w8a8, quant.w8a8_product_ref
+    else:
+        wq, s = quant.quantize_int4(w, block_k=kh)
+        fn, ref_fn = quant.matmul_w4a8, quant.w4a8_product_ref
+        assert wq.shape[0] == kh
+    launches, pad = f"{kernel}_launches", f"{kernel}_pad_launches"
+    before, pads_before = getattr(quant, launches), getattr(quant, pad)
+    xq = quant.quantize_act_int8(x)
+    got = fn(x, wq, s, xq)
+    whole = fn(x, wq, s)
+    torch.cuda.synchronize()
+    assert getattr(quant, launches) == before + 2
+    assert getattr(quant, pad) == pads_before + (2 if pads else 0)
+    assert got.shape == (m, n) and got.is_contiguous()
+    ref = ref_fn(*quant.quantize_act_int8_ref(x), wq, s)
+    bad = (got != ref).nonzero()
+    assert bad.shape[0] == 0, \
+        f"{bad.shape[0]} elements differ, first {bad[:4]}"
+    assert torch.equal(got, whole)
+
+
 # (kernel, K, N, packed rows) -> the sizes the kernels take
 @pytest.mark.parametrize("kernel,k,n,kh,want", [
     ("w8", 1536, 8960, None, (1536, 8960, None)),    # Wan: nothing pads

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ...ops.attention import attention
 from ...ops.norms import rms_norm, layer_norm, modulated_layer_norm
+from ...ops.quant import dense_quant, quantize_dense_input
 from ...ops.rope import apply_rope
 
 
@@ -141,14 +142,15 @@ def layer_params(tree, i: int):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _dense(x, p, dtype=None, act_quant: str = "bf16"):
+def _dense(x, p, dtype=None, act_quant: str = "bf16", xq=None):
     """x @ W + b: products in `dtype`, bias added in fp32, cast to `dtype`.
     Quantized params {w_q|w_q4, scale} go through the dequant-fused
-    matmuls, with activations as `act_quant` says."""
+    matmuls, with activations as `act_quant` says (xq: x's int8
+    activations from `quantize_dense_input`, shared by the products of
+    several linears that read x)."""
     dtype = dtype or x.dtype
     if "w_q" in p or "w_q4" in p:
-        from ...ops.quant import dense_quant
-        return dense_quant(x, p, dtype, act_quant=act_quant)
+        return dense_quant(x, p, dtype, act_quant=act_quant, xq=xq)
     y = torch.matmul(x.to(dtype), p["w"].to(dtype))
     if "b" in p:
         y = y.float() + p["b"].float()
@@ -193,9 +195,10 @@ def _heads(x, n):
 def _self_attention(p, x, rope_cos, rope_sin, cfg, attn_backend):
     cdt, aq = cfg.compute_dtype, cfg.act_quant
     xc = x.to(cdt)
-    q = rms_norm(_dense(xc, p["q"], cdt, aq), p["norm_q"], cfg.eps)
-    k = rms_norm(_dense(xc, p["k"], cdt, aq), p["norm_k"], cfg.eps)
-    v = _heads(_dense(xc, p["v"], cdt, aq), cfg.num_heads)
+    xq = quantize_dense_input(xc, p["q"], cdt, aq)
+    q = rms_norm(_dense(xc, p["q"], cdt, aq, xq), p["norm_q"], cfg.eps)
+    k = rms_norm(_dense(xc, p["k"], cdt, aq, xq), p["norm_k"], cfg.eps)
+    v = _heads(_dense(xc, p["v"], cdt, aq, xq), cfg.num_heads)
     q = apply_rope(_heads(q, cfg.num_heads), rope_cos, rope_sin)
     k = apply_rope(_heads(k, cfg.num_heads), rope_cos, rope_sin)
     o = attention(q, k, v, backend=attn_backend)
@@ -207,9 +210,10 @@ def _cross_attention(p, x, context, cfg, attn_backend):
     xc = x.to(cdt)
     q = _heads(rms_norm(_dense(xc, p["q"], cdt, aq), p["norm_q"], cfg.eps),
                cfg.num_heads)
-    k = _heads(rms_norm(_dense(context, p["k"], cdt, aq), p["norm_k"],
+    cq = quantize_dense_input(context, p["k"], cdt, aq)
+    k = _heads(rms_norm(_dense(context, p["k"], cdt, aq, cq), p["norm_k"],
                         cfg.eps), cfg.num_heads)
-    v = _heads(_dense(context, p["v"], cdt, aq), cfg.num_heads)
+    v = _heads(_dense(context, p["v"], cdt, aq, cq), cfg.num_heads)
     o = attention(q, k, v, backend=attn_backend)
     return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt, aq)
 

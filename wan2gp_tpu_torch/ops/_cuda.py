@@ -20,7 +20,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNEL_SOURCES = ("flash_attention", "w8_matmul", "sparse_flash",
-                  "w4_matmul")
+                  "w4_matmul", "act_quant")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -53,6 +53,9 @@ ENTRY_POINTS = {
         "wg_w4_matmul_bf16": [_P] * 4 + [_I] * 4 + [_P],
         # x_q, sx, w_p, scale, y, M, N, K, KP/2, stream
         "wg_w4a8_matmul": [_P] * 5 + [_I] * 4 + [_P]},
+    "act_quant": {
+        # x, x_q, sx, M, K, stream
+        "wg_act_quant_int8": [_P] * 3 + [_I] * 2 + [_P]},
 }
 
 _libs = {}

@@ -5,12 +5,15 @@ per-output-channel fp32 scale [N], so y = (x @ w_q) * scale; int4 w_q4
 packed split-K as int8 [KP/2, N] (quantize_int4).  Activations run in the
 compute dtype, or, with act_quant="int8", as per-row dynamic int8
 (quantize_act_int8).  On a CUDA tensor `matmul_w8` / `matmul_w8a8`
-launch the kernels of csrc/w8_matmul.cu and `matmul_w4` / `matmul_w4a8`
-those of csrc/w4_matmul.cu; on a CPU tensor each runs its plain version
-(`matmul_w8_ref`, `matmul_w8a8_ref`, `matmul_w4_ref`, `matmul_w4a8_ref`).
-The W8 and W4 kernels read through TMA maps, which take only some sizes
-(`wo_layout`); their wrappers zero-pad other operands to those sizes,
-which is exact, and count the launches that needed it.
+launch the kernels of csrc/w8_matmul.cu, `matmul_w4` / `matmul_w4a8`
+those of csrc/w4_matmul.cu and `quantize_act_int8` that of
+csrc/act_quant.cu; on a CPU tensor each runs its plain version
+(`matmul_w8_ref`, `matmul_w8a8_ref`, `matmul_w4_ref`, `matmul_w4a8_ref`,
+`quantize_act_int8_ref`).  The matmul kernels read through TMA maps, which
+take only some sizes (`wo_layout`, `a8_layout`); their wrappers zero-pad
+other operands to those sizes, which is exact, and count the launches that
+needed it.  An input that feeds several A8 products (q, k and v of one
+x) is quantized once (`quantize_dense_input`) and handed to each.
 
 The activation mode is an argument, threaded from the DiT config, not a
 process-wide setting: a service created after another keeps its own.
@@ -27,9 +30,12 @@ launches = 0            # matmul_w8
 w8a8_launches = 0       # matmul_w8a8
 w4_launches = 0         # matmul_w4
 w4a8_launches = 0       # matmul_w4a8
-# launches of matmul_w8 / matmul_w4 whose operands had to be padded
+act_quant_launches = 0  # quantize_act_int8
+# launches of the matmul kernels whose operands had to be padded
 w8_pad_launches = 0
 w4_pad_launches = 0
+w8a8_pad_launches = 0
+w4a8_pad_launches = 0
 
 # packed-row block of the int4 layout: K is padded to a multiple of 2x this
 W4_BLOCK_K = 512
@@ -81,6 +87,15 @@ def _check_w8_inputs(name, x, w_q, scale, x_dtype):
         raise ValueError(f"{name}: M={m} exceeds the kernel's grid")
 
 
+def _layout(k: int, n: int, kh, k_mult: int, kh_mult: int):
+    n_to = -(-n // 16) * 16
+    if kh is None:
+        return -(-k // k_mult) * k_mult, n_to, None
+    kh_to = -(-kh // kh_mult) * kh_mult
+    k_to = k if k <= kh else kh_to + k - kh
+    return -(-k_to // k_mult) * k_mult, n_to, kh_to
+
+
 def wo_layout(k: int, n: int, kh: int | None = None):
     """The sizes the weight-only kernels (W8, W4) take, as (K, N, KH).
 
@@ -91,12 +106,15 @@ def wo_layout(k: int, n: int, kh: int | None = None):
     every Wan shape; otherwise the sizes the wrapper zero-pads to.  A W4
     operand whose KH grows has x's high half (columns KH..K) moved to start
     at the new KH, so each packed row keeps its pair of x columns."""
-    n_to = -(-n // 16) * 16
-    if kh is None:
-        return -(-k // 8) * 8, n_to, None
-    kh_to = -(-kh // 32) * 32
-    k_to = k if k <= kh else kh_to + k - kh
-    return -(-k_to // 8) * 8, n_to, kh_to
+    return _layout(k, n, kh, 8, 32)
+
+
+def a8_layout(k: int, n: int, kh: int | None = None):
+    """The sizes the A8 kernels (W8A8, W4A8) take, as (K, N, KH): as
+    `wo_layout`, but x_q rows are K int8 (K % 16) and W4A8's stages take 64
+    packed rows (KH % 64).  Zero int8 columns meet zero weight rows, so the
+    padding is exact."""
+    return _layout(k, n, kh, 16, 64)
 
 
 def _zero_pad(t, rows: int, cols: int):
@@ -111,12 +129,13 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def pad_w8_operands(x, w_q, scale):
-    """(x, w_q, scale, padded) as the W8 kernel takes them: zero-padded to
-    `wo_layout`'s sizes (x along K, w_q along K and N, scale along N) and
-    copied where a base is not 16-byte aligned."""
+def pad_w8_operands(x, w_q, scale, layout=wo_layout):
+    """(x, w_q, scale, padded) as the W8 kernel (or, with `a8_layout` and
+    x_q for x, the W8A8 kernel) takes them: zero-padded to the layout's
+    sizes (x along K, w_q along K and N, scale along N) and copied where a
+    base is not 16-byte aligned."""
     k, n = w_q.shape
-    k_to, n_to, _ = wo_layout(k, n)
+    k_to, n_to, _ = layout(k, n)
     if (k_to, n_to) == (k, n) and _aligned(x, w_q, scale):
         return x, w_q, scale, False
     return (_zero_pad(x, x.shape[0], k_to), _zero_pad(w_q, k_to, n_to),
@@ -186,14 +205,14 @@ def matmul_w4_ref(x, w_p, scale):
     return (torch.matmul(x.float(), w) * scale.float()).to(x.dtype)
 
 
-def quantize_act_int8(x):
-    """x: [M, K] float -> (x_q int8 [M, K], sx fp32 [M, 1]), per-row
-    symmetric: absmax over a bf16 view of x, sx = max(absmax, 1e-8) *
-    fp32(1/127), x_q = round-half-even(x_bf16 / sx) clipped to +-127, as
-    the JAX package computes it once compiled (XLA turns its division by
-    the constant 127 into that multiplication; an ulp of sx can move an
-    int8 rounding).  Runs in row blocks so no fp32 copy of a whole
-    [151,200, 13,824] activation is made."""
+def quantize_act_int8_ref(x):
+    """Plain version: x [M, K] float -> (x_q int8 [M, K], sx fp32 [M, 1]),
+    per-row symmetric: absmax over a bf16 view of x, sx = max(absmax,
+    1e-8) * fp32(1/127), x_q = round-half-even(x_bf16 / sx) clipped to
+    +-127, as the JAX package computes it once compiled (XLA turns its
+    division by the constant 127 into that multiplication; an ulp of sx
+    can move an int8 rounding).  Runs in row blocks so no fp32 copy of a
+    whole [151,200, 13,824] activation is made."""
     m, k = x.shape
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
@@ -208,13 +227,59 @@ def quantize_act_int8(x):
     return xq, sx
 
 
+def quantize_act_int8(x):
+    """x: [M, K] float -> (x_q int8 [M, K], sx fp32 [M, 1]), as
+    `quantize_act_int8_ref` computes them.  CPU tensors run the plain
+    version; CUDA tensors (x taken as bf16) launch the one-pass kernel of
+    csrc/act_quant.cu, bit-equal to it, or raise."""
+    global act_quant_launches
+    if x.device.type == "cpu":
+        return quantize_act_int8_ref(x)
+    if x.ndim != 2 or not x.is_cuda:
+        raise ValueError(f"quantize_act_int8: x must be a 2-D CUDA tensor; "
+                         f"got {tuple(x.shape)} on {x.device}")
+    xb = x.to(torch.bfloat16).contiguous()
+    m, k = xb.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return xq, sx
+    if k == 0:
+        raise ValueError("quantize_act_int8: empty rows")
+    lib = _cuda.library("act_quant")
+    _cuda.check(lib.wg_act_quant_int8(
+        xb.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
+        _cuda.stream_handle(xb)), "quantize_act_int8 launch")
+    act_quant_launches += 1
+    return xq, sx
+
+
+def w4a8_product_ref(xq, sx, w_p, scale, dtype=torch.bfloat16):
+    """Plain version of the W4A8 product: int8 activations xq [M, K] and
+    their row scales sx [M, 1], an exact integer product (fp32 holds every
+    partial sum: |sum| <= 127*7*K < 2^24 for K up to 18,000), then (acc *
+    scale) * sx -> [M, N] in `dtype`."""
+    acc = torch.matmul(xq.float(), _unpack_nibbles(w_p, xq.shape[1]).float())
+    return (acc * scale.float() * sx).to(dtype)
+
+
 def matmul_w4a8_ref(x, w_p, scale):
-    """Plain version: x [M, K] float -> int8 activations, an exact integer
-    product (fp32 holds every partial sum: |sum| <= 127*7*K < 2^24 for K
-    up to 18,000), then (acc * scale) * sx -> [M, N] in x.dtype."""
-    xq, sx = quantize_act_int8(x)
-    acc = torch.matmul(xq.float(), _unpack_nibbles(w_p, x.shape[1]).float())
-    return (acc * scale.float() * sx).to(x.dtype)
+    """Plain version: x [M, K] float -> int8 activations
+    (quantize_act_int8_ref), then `w4a8_product_ref` -> [M, N] in
+    x.dtype."""
+    xq, sx = quantize_act_int8_ref(x)
+    return w4a8_product_ref(xq, sx, w_p, scale, x.dtype)
+
+
+def _check_act(name, xq, sx):
+    """The pre-quantized activations an A8 kernel takes: int8 x_q [M, K]
+    and fp32 sx [M, 1] (or [M]) on x_q's device, contiguous."""
+    m = xq.shape[0]
+    if sx.device != xq.device or sx.dtype != torch.float32 \
+            or sx.numel() != m or not sx.is_contiguous():
+        raise ValueError(f"{name}: sx must be a contiguous fp32 [M, 1] on "
+                         f"x_q's device; got {sx.dtype} {tuple(sx.shape)} "
+                         f"on {sx.device}")
 
 
 def _check_w4_inputs(name, x, w_p, scale, x_dtype, row_multiple=64):
@@ -246,14 +311,15 @@ def _check_w4_inputs(name, x, w_p, scale, x_dtype, row_multiple=64):
         raise ValueError(f"{name}: M={m} exceeds the kernel's grid")
 
 
-def pad_w4_operands(x, w_p, scale):
-    """(x, w_p, scale, padded) as the W4 kernel takes them, per
-    `wo_layout`: w_p and scale zero-padded along N, w_p along its packed
-    rows, x along K with its high half (columns KH..K) moved to the new KH,
-    and anything copied whose base is not 16-byte aligned."""
+def pad_w4_operands(x, w_p, scale, layout=wo_layout):
+    """(x, w_p, scale, padded) as the W4 kernel (or, with `a8_layout` and
+    x_q for x, the W4A8 kernel) takes them, per the layout: w_p and scale
+    zero-padded along N, w_p along its packed rows, x along K with its high
+    half (columns KH..K) moved to the new KH, and anything copied whose
+    base is not 16-byte aligned."""
     kh, n = w_p.shape
     m, k = x.shape
-    k_to, n_to, kh_to = wo_layout(k, n, kh)
+    k_to, n_to, kh_to = layout(k, n, kh)
     if (k_to, n_to, kh_to) == (k, n, kh) and _aligned(x, w_p, scale):
         return x, w_p, scale, False
     xp = _zero_pad(x[:, :min(k, kh)], m, k_to)
@@ -289,91 +355,139 @@ def matmul_w4(x, w_p, scale):
     return y
 
 
-def matmul_w4a8(x, w_p, scale):
+def matmul_w4a8(x, w_p, scale, xq=None):
     """x: [M, K] float; w_p: packed int4 [KP/2, N]; scale: [N] -> [M, N] in
     x.dtype, through int8 activations (quantize_act_int8) and an int32
-    product.  CPU tensors run `matmul_w4a8_ref`; CUDA tensors launch the
-    kernel (bf16 out, any M, N, K <= KP) or raise."""
-    global w4a8_launches
+    product.  xq: (x_q, sx) = quantize_act_int8(x) where the caller has
+    them already (one quantization for several products of x).  CPU
+    tensors run the plain versions; CUDA tensors launch the kernel (bf16
+    out, any M, N, K <= KP; padded per `a8_layout` where needed) or
+    raise."""
+    global w4a8_launches, w4a8_pad_launches
     if x.device.type == "cpu":
-        return matmul_w4a8_ref(x, w_p, scale)
+        if xq is None:
+            return matmul_w4a8_ref(x, w_p, scale)
+        return w4a8_product_ref(*xq, w_p, scale, x.dtype)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"matmul_w4a8 kernel writes bf16; got x {x.dtype}")
-    xq, sx = quantize_act_int8(x)
-    _check_w4_inputs("matmul_w4a8", xq, w_p, scale, torch.int8)
-    m, k = x.shape
-    kh, n = w_p.shape
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    x_q, sx = quantize_act_int8(x) if xq is None else xq
+    _check_w4_inputs("matmul_w4a8", x_q, w_p, scale, torch.int8,
+                     row_multiple=1)
+    _check_act("matmul_w4a8", x_q, sx)
+    m = x_q.shape[0]
+    n = w_p.shape[1]
+    x_q, w_p, scale, padded = pad_w4_operands(x_q, w_p, scale, a8_layout)
+    kh_to, n_to = w_p.shape
+    y = torch.empty((m, n_to), dtype=x.dtype, device=x.device)
     lib = _cuda.library("w4_matmul")
     _cuda.check(lib.wg_w4a8_matmul(
-        xq.data_ptr(), sx.data_ptr(), w_p.data_ptr(), scale.data_ptr(),
-        y.data_ptr(), m, n, k, kh, _cuda.stream_handle(x)),
+        x_q.data_ptr(), sx.data_ptr(), w_p.data_ptr(), scale.data_ptr(),
+        y.data_ptr(), m, n_to, x_q.shape[1], kh_to, _cuda.stream_handle(x)),
         "matmul_w4a8 launch")
     w4a8_launches += 1
+    if padded:
+        w4a8_pad_launches += 1
+        y = y[:, :n].contiguous()
     return y
 
 
 # ------------------------------------------------------------------ W8A8
 
-def matmul_w8a8_ref(x, w_q, scale):
-    """Plain version: x [M, K] float -> int8 activations
-    (quantize_act_int8), an exact integer product (in fp64, which holds
-    every partial sum: |sum| <= 127*127*K < 2^53), then (acc * scale) * sx
-    in fp32 -> [M, N] in x.dtype.  Row blocks keep the fp64 copy of x
-    near 1 GB."""
-    xq, sx = quantize_act_int8(x)
-    m, k = x.shape
+def w8a8_product_ref(xq, sx, w_q, scale, dtype=torch.bfloat16):
+    """Plain version of the W8A8 product: int8 activations xq [M, K] and
+    their row scales sx [M, 1], an exact integer product (in fp64, which
+    holds every partial sum: |sum| <= 127*127*K < 2^53), then (acc *
+    scale) * sx in fp32 -> [M, N] in `dtype`.  Row blocks keep the fp64
+    copy of xq near 1 GB."""
+    m, k = xq.shape
     w = w_q.double()
     sw = scale.float()
-    out = torch.empty((m, w_q.shape[1]), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, w_q.shape[1]), dtype=dtype, device=xq.device)
     rows = max(1, _W8A8_REF_BYTES // (8 * max(k, 1)))
     for i in range(0, m, rows):
         acc = torch.matmul(xq[i:i + rows].double(), w).float()
-        out[i:i + rows] = (acc * sw * sx[i:i + rows]).to(x.dtype)
+        out[i:i + rows] = (acc * sw * sx[i:i + rows]).to(dtype)
     return out
 
 
-def matmul_w8a8(x, w_q, scale):
+def matmul_w8a8_ref(x, w_q, scale):
+    """Plain version: x [M, K] float -> int8 activations
+    (quantize_act_int8_ref), then `w8a8_product_ref` -> [M, N] in
+    x.dtype."""
+    xq, sx = quantize_act_int8_ref(x)
+    return w8a8_product_ref(xq, sx, w_q, scale, x.dtype)
+
+
+def matmul_w8a8(x, w_q, scale, xq=None):
     """x: [M, K] float; w_q: [K, N] int8; scale: [N] -> [M, N] in x.dtype,
     through int8 activations (quantize_act_int8) and an int32 product.
-    CPU tensors run `matmul_w8a8_ref`; CUDA tensors launch the kernel
-    (bf16 out, any M, N, K) or raise."""
-    global w8a8_launches
+    xq: (x_q, sx) = quantize_act_int8(x) where the caller has them already
+    (one quantization for several products of x).  CPU tensors run the
+    plain versions; CUDA tensors launch the kernel (bf16 out, any M, N, K;
+    padded per `a8_layout` where needed) or raise."""
+    global w8a8_launches, w8a8_pad_launches
     if x.device.type == "cpu":
-        return matmul_w8a8_ref(x, w_q, scale)
+        if xq is None:
+            return matmul_w8a8_ref(x, w_q, scale)
+        return w8a8_product_ref(*xq, w_q, scale, x.dtype)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"matmul_w8a8 kernel writes bf16; got x {x.dtype}")
-    xq, sx = quantize_act_int8(x)
-    _check_w8_inputs("matmul_w8a8", xq, w_q, scale, torch.int8)
-    m, k = x.shape
+    x_q, sx = quantize_act_int8(x) if xq is None else xq
+    _check_w8_inputs("matmul_w8a8", x_q, w_q, scale, torch.int8)
+    _check_act("matmul_w8a8", x_q, sx)
+    m = x_q.shape[0]
     n = w_q.shape[1]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    x_q, w_q, scale, padded = pad_w8_operands(x_q, w_q, scale, a8_layout)
+    k_to, n_to = w_q.shape
+    y = torch.empty((m, n_to), dtype=x.dtype, device=x.device)
     lib = _cuda.library("w8_matmul")
     _cuda.check(lib.wg_w8a8_matmul(
-        xq.data_ptr(), sx.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-        y.data_ptr(), m, n, k, _cuda.stream_handle(x)), "matmul_w8a8 launch")
+        x_q.data_ptr(), sx.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+        y.data_ptr(), m, n_to, k_to, _cuda.stream_handle(x)),
+        "matmul_w8a8 launch")
     w8a8_launches += 1
+    if padded:
+        w8a8_pad_launches += 1
+        y = y[:, :n].contiguous()
     return y
 
 
 # ----------------------------------------------------------- dense layer
 
-def dense_quant(x, p, dtype=None, act_quant: str = "bf16"):
-    """Dense layer over quantized params {w_q|w_q4, scale[, b]}; x: [..., K]
-    -> [..., N] in `dtype` (default x.dtype).  act_quant "int8" runs the
-    W8A8 / W4A8 kernels (int8 activations); "bf16" keeps the activations
-    in `dtype`.  The bias is added in fp32."""
-    dtype = dtype or x.dtype
-    lead = x.shape[:-1]
-    xk = x.reshape(-1, x.shape[-1]).to(dtype).contiguous()
+def _dense_input(x, dtype, act_quant: str):
     if act_quant not in ("bf16", "int8"):
         raise ValueError(f"unknown activation mode {act_quant!r}")
+    return x.reshape(-1, x.shape[-1]).to(dtype).contiguous()
+
+
+def quantize_dense_input(x, p, dtype=None, act_quant: str = "bf16"):
+    """(x_q, sx) of x [..., K] as `dense_quant(x, p, dtype, "int8")` would
+    quantize it, for several dense layers that read the same x (q, k and v
+    of one input): hand it to each as `xq`.  None where p is not quantized
+    or the activations stay in `dtype`."""
+    if act_quant != "int8" or not ("w_q" in p or "w_q4" in p):
+        return None
+    return quantize_act_int8(_dense_input(x, dtype or x.dtype, act_quant))
+
+
+def dense_quant(x, p, dtype=None, act_quant: str = "bf16", xq=None):
+    """Dense layer over quantized params {w_q|w_q4, scale[, b]}; x: [..., K]
+    -> [..., N] in `dtype` (default x.dtype).  act_quant "int8" runs the
+    W8A8 / W4A8 kernels (int8 activations; xq: x's `quantize_dense_input`,
+    if the caller made it); "bf16" keeps the activations in `dtype`.  The
+    bias is added in fp32."""
+    dtype = dtype or x.dtype
+    lead = x.shape[:-1]
+    xk = _dense_input(x, dtype, act_quant)
     if "w_q4" in p:
-        mm = matmul_w4a8 if act_quant == "int8" else matmul_w4
-        y = mm(xk, p["w_q4"], p["scale"]).float()
+        if act_quant == "int8":
+            y = matmul_w4a8(xk, p["w_q4"], p["scale"], xq).float()
+        else:
+            y = matmul_w4(xk, p["w_q4"], p["scale"]).float()
+    elif act_quant == "int8":
+        y = matmul_w8a8(xk, p["w_q"], p["scale"], xq).float()
     else:
-        mm = matmul_w8a8 if act_quant == "int8" else matmul_w8
-        y = mm(xk, p["w_q"], p["scale"]).float()
+        y = matmul_w8(xk, p["w_q"], p["scale"]).float()
     if "b" in p:
         y = y + p["b"].float()
     return y.reshape(*lead, -1).to(dtype)
