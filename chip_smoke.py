@@ -59,7 +59,9 @@ the repository).  Phases, each printing one JSON line:
             its bound, beside torch._int_mm and the weight-only kernel at
             the same shape; act_quant alone at every A8 input shape.  W4
             and W4A8 at K=N=5120 run once more first, before any other
-            timing.
+            timing.  The batch-1 shapes of (C) below: Sol at B1, the cross
+            flash at B1 (S=512), W4A8 and act_quant at M = 75,600, each
+            with its launches per (C) forward.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
@@ -71,7 +73,22 @@ the repository).  Phases, each printing one JSON line:
             each model's requests and read just after; the launches per
             DiT forward (Krea 2: and per request) are asserted, and that no
             W8, W4, W8A8 or W4A8 launch of a Wan request padded its
-            operands.
+            operands.  Then three paths whose forwards are recorded one by
+            one (launches, seconds, whether it ran the block stack), each
+            forward's launches asserted against its calc/skip flag and the
+            flags against the skip plan, the frames checked finite:
+            (C) the JAX package's bench default on (A)'s pipeline: 14B
+                720p int4a8 + Sol, sequential CFG (two batch-1 forwards a
+                step), TeaCache for 1.75x (C_STEPS = 6 steps, 3 computed),
+                bf16 residuals, through WanPipeline.generate;
+            (D) t2v_1.3B from files: random weights exported as a
+                quanto-int8 DiT file and a torch-layout VAE file, loaded by
+                the service through make_checkpoints_resolver (the loaded
+                tree equal to the written tensors bit for bit); DPM++, NAG
+                2.0, MagCache, 8 steps (W8 on the loaded int8 weights);
+            (E) t2v_1.3B sliding windows: 157 frames in two windows of 81
+                overlapping by 5, Euler, first-block cache, 2 steps a
+                window.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -81,6 +98,7 @@ Then the card's `nvidia-smi` name and power limit, and the last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -962,6 +980,34 @@ def time_w4(m, k, n):
     return out
 
 
+def time_w4a8(m, k, n):
+    """matmul_w4a8 alone at one (M, K, N) (the batch-1 shapes of
+    sequential CFG at 14B)."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = randn((m, k), gen)
+    wp, sc = Q.quantize_int4(torch.randn((k, n), generator=gen,
+                                         device="cuda"))
+    out = time_a8("matmul_w4a8", x, wp, sc,
+                  Q._unpack_nibbles(wp, k).contiguous(),
+                  5 if m * k * n > 1e12 else 20)
+    del x, wp, sc
+    torch.cuda.empty_cache()
+    return out
+
+
+# launches per batch-1 DiT forward of (C) (14B, sequential CFG) at the
+# shapes only (C) runs: per layer one Sol and one cross flash; W4A8 on
+# q, k, v, o of the self-attention and q, o of the cross-attention
+# (5120x5120), fc1 and fc2 at M = 75,600, cross k and v at M = 512; one
+# quantization for q/k/v, one for each other input at M = 75,600 and one
+# for the 512 text tokens
+C_PER_FORWARD = {"sol_720p_b1": 40, "cross_14B_720p_b1": 40,
+                 "75600x5120x5120": 240, "75600x5120x13824": 40,
+                 "75600x13824x5120": 40, "75600x5120": 200,
+                 "75600x13824": 40}
+
+
 def phase_time(tokens: int):
     # W4 and W4A8 at K=N=5120 first, before any other timing, and again in
     # their place below: does the order of the phase move their times?
@@ -979,11 +1025,15 @@ def phase_time(tokens: int):
     # cross-attention k/v: 2 x 512 text tokens
     w8["1024x1536x1536"] = time_w8("1024x1536x1536", 1024, 1536, 1536)
     sparse = {"radial_720p": time_sparse(2, 75600, 40, 128, 21, 3600)}
-    sol = {"sol_720p": time_sol(2, 75600, 40, 128)}
+    sol = {"sol_720p": time_sol(2, 75600, 40, 128),
+           # (C): one branch at a time under sequential CFG
+           "sol_720p_b1": time_sol(1, 75600, 40, 128)}
+    flash["cross_14B_720p_b1"] = time_flash("cross_14B_720p_b1", 1, 75600,
+                                            512, 40, 128)
     # time per attended (query, key, head) against the dense kernel's
     dense = flash["self_14B_720p"]
     dense_ps = dense["ms"] * 1e9 / math.prod(dense["shape"][:4])
-    for t in (sparse["radial_720p"], sol["sol_720p"]):
+    for t in (sparse["radial_720p"], sol["sol_720p"], sol["sol_720p_b1"]):
         t["ps_per_pair"] = t["ms"] * 1e9 / t["pairs"]
         t["dense_ps_per_pair"] = dense_ps
         t["pair_time_over_dense"] = t["ps_per_pair"] / dense_ps
@@ -1007,10 +1057,18 @@ def phase_time(tokens: int):
     w8a8["1024x1536x1536"] = time_w8a8(1024, 1536, 1536)
     w8a8.update({f"{m}x{k}x{n}": time_w8a8(m, k, n)
                  for m, k, n in shapes_14b})
+    # (C)'s batch-1 products at M = 75,600
+    w4a8.update({f"{m}x{k}x{n}": time_w4a8(m, k, n) for m, k, n in (
+        (75600, 5120, 5120), (75600, 5120, 13824), (75600, 13824, 5120))})
     # every A8 input: the 1.3B and 14B linears' K at their M
     aq = {f"{m}x{k}": time_act_quant(m, k) for m, k in (
         (2 * tokens, 1536), (2 * tokens, 8960), (1024, 1536),
-        (151200, 5120), (151200, 13824), (1024, 5120))}
+        (151200, 5120), (151200, 13824), (1024, 5120), (75600, 5120),
+        (75600, 13824))}
+    for table in (flash, sol, w4a8, aq):
+        for case, t in table.items():
+            if case in C_PER_FORWARD:
+                t["launches_per_forward_C"] = C_PER_FORWARD[case]
     emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
          matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, tolerance=TOLERANCE)
@@ -1020,11 +1078,149 @@ def phase_time(tokens: int):
             "act_quant": aq}
 
 
+# the denoise steps of (C): the fewest at which a TeaCache plan for 1.75x
+# (int(6 / 1.75) = 3 computed steps) skips a step
+C_STEPS = 6
+# the first-block cache's threshold in (E): far above the rel-L1 of block
+# 0's output between two steps, so every step that may skip does
+E_FBC_THRESHOLD = 1e3
+# while a list is pushed, each DiT forward of the pipeline appends to it:
+# calc (whether it ran the block stack), its launches by kernel, seconds
+FORWARDS = []
+
+
+def record_forwards():
+    """Wraps the pipeline's DiT forward to record each forward while
+    FORWARDS holds a list; returns the real forward."""
+    from wan2gp_tpu_torch.models.wan import pipeline as P
+    real = P.wan_dit_forward
+
+    def recorder(*a, **kw):
+        if not FORWARDS:
+            return real(*a, **kw)
+        torch.cuda.synchronize()
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = read_counts()
+        skip, fbc = kw.get("skip_state"), kw.get("fbc_state")
+        if skip is not None:
+            calc = bool(skip[0])
+        elif fbc is not None:           # a skip hands the tail back as is
+            calc = out[1][1] is not fbc[1]
+        else:
+            calc = True
+        FORWARDS[-1].append({"calc": calc, "s": dt, "launches": {
+            k: after[k] - before[k] for k in after if after[k] != before[k]}})
+        return out
+    P.wan_dit_forward = recorder
+    return real
+
+
+def tea_threshold(pipe, sched, speed: float, pixels: int):
+    """The TeaCache threshold for `speed` on these weights: the smallest
+    partial sum of the per-step deltas (just above it) whose plan computes
+    int(steps / speed) steps.  The auto threshold searches 0.01..0.6 and so
+    skips nothing on random weights, whose time embeddings move by a
+    rel-L1 near 1 a step (trained ones by about 0.1).  Returns (threshold,
+    rel-L1s)."""
+    from wan2gp_tpu_torch import caches
+    from wan2gp_tpu_torch.models.wan.dit import time_embedding_vec
+    e = [time_embedding_vec(pipe.dit_params, pipe.dit_cfg, torch.tensor(
+        [t], dtype=torch.float32, device=pipe.device)).cpu().numpy()
+         for t in sched.timesteps]
+    co = caches.teacache_coefficients(pipe.base_model_type, False, pixels)
+    rel = caches.teacache_rel_l1s(e)
+    deltas = [abs(np.poly1d(co)(r)) for r in rel]
+    target = int(len(e) / speed)
+    cands = sorted({sum(deltas[i:j]) * (1 + 1e-6)
+                    for i in range(1, len(e)) for j in range(i + 1,
+                                                             len(e) + 1)})
+    hit = [t for t in cands
+           if caches._teacache_decide(rel, co, t, 0).sum() == target]
+    if not hit:
+        raise AssertionError(f"no TeaCache threshold plans {target} of "
+                             f"{len(e)} steps (deltas {deltas})")
+    return hit[0], rel
+
+
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def vae_state_dict(p, cfg):
+    """A port VAE tree as the reference's torch-layout state dict: the
+    key names `io.wan_checkpoint.load_wan_vae_params` consumes."""
+    from wan2gp_tpu_torch.models.wan.vae import encoder_plan, decoder_plan
+    sd = {}
+
+    def conv(pre, c):
+        sd[f"{pre}.weight"], sd[f"{pre}.bias"] = c["w"], c["b"]
+
+    def gamma(key, g, ndim):            # RMS_norm gamma [C, 1, 1(, 1)]
+        sd[key] = g.reshape(-1, *([1] * ndim))
+
+    def res(pre, r):
+        gamma(f"{pre}.residual.0.gamma", r["norm1"], 3)
+        conv(f"{pre}.residual.2", r["conv1"])
+        gamma(f"{pre}.residual.3.gamma", r["norm2"], 3)
+        conv(f"{pre}.residual.6", r["conv2"])
+        if "shortcut" in r:
+            conv(f"{pre}.shortcut", r["shortcut"])
+
+    def attn(pre, a):
+        gamma(f"{pre}.norm.gamma", a["norm"], 2)
+        conv(f"{pre}.to_qkv", a["qkv"])
+        conv(f"{pre}.proj", a["proj"])
+
+    def tower(plan, prefix, ps):
+        for j, ((op, _, _), q) in enumerate(zip(plan, ps)):
+            pre = f"{prefix}.{j}"
+            if op == "res":
+                res(pre, q)
+            elif op == "attn":
+                attn(pre, q)
+            else:
+                conv(f"{pre}.resample.1", q["conv"])
+                if "time_conv" in q:
+                    conv(f"{pre}.time_conv", q["time_conv"])
+
+    def mid(prefix, m):
+        res(f"{prefix}.0", m[0])
+        attn(f"{prefix}.1", m[1])
+        res(f"{prefix}.2", m[2])
+
+    enc, dec = p["encoder"], p["decoder"]
+    conv("encoder.conv1", enc["conv1"])
+    tower(encoder_plan(cfg), "encoder.downsamples", enc["down"])
+    mid("encoder.middle", enc["mid"])
+    gamma("encoder.head.0.gamma", enc["head_norm"], 3)
+    conv("encoder.head.2", enc["head_conv"])
+    conv("conv1", p["conv1"])
+    conv("conv2", p["conv2"])
+    conv("decoder.conv1", dec["conv1"])
+    mid("decoder.middle", dec["mid"])
+    tower(decoder_plan(cfg), "decoder.upsamples", dec["up"])
+    gamma("decoder.head.0.gamma", dec["head_norm"], 3)
+    conv("decoder.head.2", dec["head_conv"])
+    return sd
+
+
 def phase_service(frames: int):
     """The main paths through GenerationService on cuda, each with the
     launch counters reset just before its requests and read just after."""
     from wan2gp_tpu_torch.families import wan as fam
     from wan2gp_tpu_torch.models.krea2 import pipeline as krea2_pipe
+    from wan2gp_tpu_torch.models.wan import pipeline as pipe_mod
     from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
     from wan2gp_tpu_torch.ops import quant as Q
     from wan2gp_tpu_torch.runtime import service as svc_mod
@@ -1048,19 +1244,24 @@ def phase_service(frames: int):
     split = {}
 
     def timed(name, fn):
+        """Seconds and peak of each call, summed and maxed over the calls
+        of one request (a sliding-window request makes one a window)."""
         def wrapper(*a, **kw):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             r = fn(*a, **kw)
             torch.cuda.synchronize()
-            split[name + "_s"] = time.perf_counter() - t0
-            split[name + "_peak_gb"] = (torch.cuda.max_memory_allocated()
-                                        / 1e9)
+            split[name + "_s"] = (split.get(name + "_s", 0.0)
+                                  + time.perf_counter() - t0)
+            split[name + "_peak_gb"] = max(
+                split.get(name + "_peak_gb", 0.0),
+                torch.cuda.max_memory_allocated() / 1e9)
             return r
         return wrapper
 
     media.save_video, media.save_image = save_checked, save_image_checked
+    real_forward = record_forwards()
     real_denoise, real_decode = WanPipeline.denoise, WanPipeline.decode
     real_krea2_denoise = krea2_pipe.krea2_denoise
     WanPipeline.denoise = timed("denoise", real_denoise)
@@ -1069,9 +1270,10 @@ def phase_service(frames: int):
     out_dir = os.path.join(OUT, "outputs")
 
     def run(label, model_type, quantize, attention, n_req, w, h, layers,
-            per_forward):
+            per_forward, after=None):
         """n_req requests; per_forward: the launches one DiT forward must
-        make, by kernel (the others must make none)."""
+        make, by kernel (the others must make none).  after(svc): more
+        work on the loaded pipeline before it is released."""
         arch = fam._ARCH[model_type]
         fam._ARCH[model_type] = {**arch, "num_layers": layers}
         svc = svc_mod.GenerationService(init_random_weights=True,
@@ -1120,6 +1322,7 @@ def phase_service(frames: int):
         if padded:
             raise AssertionError(f"{label}: {padded} matmul launches padded "
                                  f"their operands")
+        extra = after(svc) if after else None
         svc.release_model()
         del svc
         torch.cuda.empty_cache()
@@ -1127,7 +1330,239 @@ def phase_service(frames: int):
                 "quantize": quantize or "bf16", "attention": attention,
                 "layers": layers, "requests": reqs, "load_s": load_s,
                 "load_peak_gb": load_peak, "launches": counts,
-                "launches_per_forward": per_forward, "padded_launches": 0}
+                "launches_per_forward": per_forward, "padded_launches": 0,
+                **({"then": extra} if extra else {})}
+
+    def run_c(svc):
+        """(C), the JAX package's bench default, on the pipeline loaded
+        for (A): sequential CFG (two batch-1 forwards a step), TeaCache at
+        1.75x, bf16 residuals, guidance 5.0, through WanPipeline.generate
+        (no service setting selects sequential CFG or the residual dtype,
+        in either package)."""
+        from wan2gp_tpu_torch.models.wan.pipeline import SamplingConfig
+        from wan2gp_tpu_torch.schedulers import make_schedule
+        pipe = svc.get_pipeline("t2v")
+        cfg0 = pipe.dit_cfg
+        pipe.dit_cfg = dataclasses.replace(cfg0,
+                                           residual_dtype=torch.bfloat16)
+        base = dict(solver="unipc", steps=C_STEPS, shift=5.0,
+                    guide_scale=5.0, joint_pass=False, host_loop=True,
+                    cache_type="tea", cache_speed_factor=1.75)
+        sched = make_schedule("unipc", C_STEPS, 5.0)
+        auto = pipe.skip_schedule(SamplingConfig(**base), sched, 1280, 720)
+        thresh, rel = tea_threshold(pipe, sched, 1.75, 1280 * 720)
+        sampling = SamplingConfig(**base, cache_threshold=thresh)
+        plan = pipe.skip_schedule(sampling, sched, 1280, 720)
+        if plan.all():
+            raise AssertionError(f"(C): the TeaCache plan {plan} skips "
+                                 "no step")
+        per_forward = {"sol_flash": 40, "flash_attention": 40,
+                       "matmul_w4a8": 400, "act_quant": 280}
+        try:
+            out = recorded_request(
+                "(C)", lambda: pipe.generate(
+                    "a red fox", width=1280, height=720, frame_num=frames,
+                    sampling=sampling, seed=0),
+                np.repeat(plan, 2), per_forward, {}, frames, 720, 1280)
+        finally:
+            pipe.dit_cfg = cfg0
+        return {"label": "(C) 14B 720p int4a8 + Sol, sequential CFG, "
+                         "TeaCache, bf16 residuals", "steps": C_STEPS,
+                "solver": "unipc", "guidance_scale": 5.0,
+                "teacache_auto_plan": auto.astype(int).tolist(),
+                "teacache_rel_l1": rel.tolist(),
+                "teacache_threshold": thresh, "plan": plan.astype(int)
+                .tolist(), "launches_per_calc_forward": per_forward, **out}
+
+    def recorded_request(label, fn, calc_flags, per_calc, per_skip, n_frames,
+                         h, w):
+        """Runs fn (a request) with every DiT forward recorded; checks each
+        forward's launches against per_calc / per_skip by its calc flag,
+        the flags against calc_flags (None: the data decided them), the
+        total against the counters, and the frames."""
+        reset_counts()
+        seen.clear()
+        split.clear()
+        FORWARDS.clear()
+        FORWARDS.append([])
+        t0 = time.perf_counter()
+        try:
+            video = fn()
+        finally:
+            fw = FORWARDS.pop()
+        req_s = time.perf_counter() - t0
+        counts = read_counts()
+        flags = [f["calc"] for f in fw]
+        if calc_flags is not None and flags != [bool(c) for c in calc_flags]:
+            raise AssertionError(f"{label}: forwards {flags}, plan "
+                                 f"{list(calc_flags)}")
+        for i, f in enumerate(fw):
+            want = {k: v for k, v in (per_calc if f["calc"]
+                                      else per_skip).items() if v}
+            if f["launches"] != want:
+                raise AssertionError(f"{label}: forward {i} launched "
+                                     f"{f['launches']}, want {want}")
+        total = {k: sum(f["launches"].get(k, 0) for f in fw) for k in counts}
+        if counts != total:
+            raise AssertionError(f"{label}: launches {counts} outside the "
+                                 f"forwards {total}")
+        nbytes = None
+        if isinstance(video, torch.Tensor):      # WanPipeline.generate
+            seen.append({"shape": list(video.shape),
+                         "finite": bool(torch.isfinite(video).all())})
+        else:                                    # the service's paths
+            if len(video) != 1 or os.path.getsize(video[0]) == 0:
+                raise AssertionError(f"{label}: outputs {video}")
+            nbytes = os.path.getsize(video[0])
+            os.remove(video[0])             # frames are stored uncompressed
+        if not (seen and seen[0]["finite"]
+                and seen[0]["shape"] == [n_frames, h, w, 3]):
+            raise AssertionError(f"{label}: frames {seen}")
+        n_calc = sum(flags)
+        calc_s = sum(f["s"] for f in fw if f["calc"])
+        return {"forwards": len(fw), "calc_forwards": n_calc,
+                "calc_flags": [int(c) for c in flags],
+                "forward_s": [f["s"] for f in fw],
+                "calc_forward_s": calc_s / max(n_calc, 1),
+                "request_s": req_s, **split, "launches": counts,
+                "frames": seen[0]["shape"], "bytes": nbytes}
+
+    def run_d():
+        """(D): 1.3B from checkpoint files through the service.  Random
+        DiT weights are exported as a quanto-int8 file, with a
+        torch-layout VAE file; the service loads both through the
+        resolver (no random weights, no quantize: the file's int8 w_q run
+        the W8 kernel as loaded).  The 1.3B definition names only its bf16
+        file, so the run's definition adds the quanto one, named as t2v's
+        definition names the 14B's, and the resolver picks it for
+        quantization "int8".  There is no UMT5 file: the resolver is
+        asked for the transformer and the VAE only, and prompts are
+        embedded by their hash."""
+        from wan2gp_tpu_torch.caches import (MAGCACHE_DEF_RATIOS,
+                                             magcache_auto_threshold,
+                                             magcache_interp_ratios,
+                                             magcache_schedule)
+        from wan2gp_tpu_torch.io.downloads import make_checkpoints_resolver
+        from wan2gp_tpu_torch.io.safetensors_reader import save_safetensors
+        from wan2gp_tpu_torch.io.save_quantized import \
+            export_quantized_wan_dit
+        from wan2gp_tpu_torch.models.wan.dit import init_wan_dit
+        from wan2gp_tpu_torch.models.wan.vae import (WanVAEConfig,
+                                                     init_wan_vae)
+        ckdir = os.path.join(OUT, "ckpts")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        os.makedirs(ckdir)
+        model_def = dict(svc_mod.GenerationService(
+            init_random_weights=True).registry.get("t2v_1.3B"))
+        url = model_def["URLs"][0].replace("_mbf16", "_quanto_mbf16_int8")
+        model_def["URLs"] = [*model_def["URLs"], url]
+        dit_path = os.path.join(ckdir, os.path.basename(url))
+        vae_path = os.path.join(ckdir, "Wan2.1_VAE.safetensors")
+        cfg = fam.WanFamilyHandler.dit_config("t2v_1.3B")
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        params = init_wan_dit(gen, cfg)
+        vae_cfg = WanVAEConfig()
+        gen.manual_seed(12)
+        vae_params = init_wan_vae(gen, vae_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_quantized_wan_dit(params, dit_path)
+        save_safetensors(vae_path, vae_state_dict(vae_params, vae_cfg))
+        write_s = time.perf_counter() - t0
+        # what the file must load back as: the block linears quantized as
+        # the export quantizes them, every other tensor as it was
+        want = {"dit": params, "vae": vae_params}
+        blocks = params["blocks"]
+        for lin in [blocks[a][m] for a in ("self_attn", "cross_attn")
+                    for m in "qkvo"] + list(blocks["ffn"].values()):
+            lin["w_q"], lin["scale"] = Q.quantize_int8(lin.pop("w").float())
+        svc = svc_mod.GenerationService(
+            checkpoints_resolver=make_checkpoints_resolver(
+                [ckdir], quantization="int8", roles=("transformer", "vae")),
+            output_dir=out_dir)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = svc.get_pipeline("t2v_1.3B", model_def)
+        if pipe.t5_params is not None:
+            raise AssertionError("(D): a text encoder was loaded")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        leaves = 0
+        for name, got in (("dit", pipe.dit_params), ("vae", pipe.vae_params)):
+            a, b = dict(_flat(got)), dict(_flat(want[name]))
+            if sorted(a) != sorted(b):
+                raise AssertionError(
+                    f"(D) {name}: keys {sorted(set(a) ^ set(b))}")
+            for k in a:
+                if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"(D) {name}{k}: not the written "
+                                         "tensor")
+            leaves += len(a)
+        del want, params, vae_params, blocks
+        torch.cuda.empty_cache()
+        n = 8
+        ratios = magcache_interp_ratios(MAGCACHE_DEF_RATIOS["t2v_1.3B"], n)
+        plan = magcache_schedule(ratios, magcache_auto_threshold(ratios,
+                                                                 1.75))
+        # NAG: the context_neg k/v products and a second cross flash
+        per_forward = {"flash_attention": 90, "matmul_w8": 360}
+        out = recorded_request("(D)", lambda: svc.generate({
+            "model_type": "t2v_1.3B", "prompt": "a red fox",
+            "resolution": "832x480", "video_length": frames,
+            "num_inference_steps": n, "guidance_scale": 5.0,
+            "sample_solver": "dpm++", "NAG_scale": 2.0, "NAG_tau": 3.5,
+            "NAG_alpha": 0.5, "cache_type": "mag", "seed": 3}),
+            plan, per_forward, {}, frames, 480, 832)
+        svc.release_model()
+        del svc, pipe
+        files = {os.path.basename(p): os.path.getsize(p)
+                 for p in (dit_path, vae_path)}
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        return {"label": "(D) 1.3B 480p from checkpoint files: quanto-int8 "
+                         "DiT (W8 as loaded), DPM++, NAG 2.0, MagCache",
+                "text_encoder": "none (prompts embedded by their hash)",
+                "files_bytes": files, "write_s": write_s, "load_s": load_s,
+                "load_peak_gb": load_peak, "leaves_equal": leaves,
+                "steps": n, "plan": plan.astype(int).tolist(),
+                "launches_per_calc_forward": per_forward, **out}
+
+    def run_e():
+        """(E): 1.3B sliding windows through the service: two windows of
+        81 frames overlapping by 5, Euler, first-block cache, 2 steps a
+        window.  The cache's threshold (E_FBC_THRESHOLD, far above any
+        rel-L1 of block 0's output) makes each window's second step a
+        skip, so both of its branches run on the card."""
+        from wan2gp_tpu_torch.windows import plan_windows
+        n_frames = 157
+        plans = plan_windows(n_frames, 81, 5)
+        total = sum(p.size for p in plans) - sum(p.overlap for p in plans)
+        if len(plans) != 2 or total != n_frames:
+            raise AssertionError(f"(E): plan {plans}")
+        svc = svc_mod.GenerationService(init_random_weights=True,
+                                        output_dir=out_dir)
+        svc.get_pipeline("t2v_1.3B")
+        # a computed forward: 30 self + 30 cross; a skipped one: block 0's;
+        # a window's first step is computed, its second skipped
+        out = recorded_request("(E)", lambda: svc.generate({
+            "model_type": "t2v_1.3B", "prompt": "a red fox",
+            "resolution": "832x480", "video_length": n_frames,
+            "sliding_window_size": 81, "sliding_window_overlap": 5,
+            "num_inference_steps": 2, "guidance_scale": 5.0,
+            "sample_solver": "euler", "cache_type": "fbc",
+            "cache_threshold": E_FBC_THRESHOLD, "seed": 4}),
+            [1, 0, 1, 0], {"flash_attention": 60}, {"flash_attention": 2},
+            total, 480, 832)
+        svc.release_model()
+        del svc
+        torch.cuda.empty_cache()
+        return {"label": "(E) 1.3B 480p sliding windows: 2 x 81 frames, "
+                         "overlap 5, Euler, first-block cache",
+                "windows": [vars(p) for p in plans],
+                "stitched_frames": total, "steps_per_window": 2,
+                "fbc_threshold": E_FBC_THRESHOLD,
+                "plan": out["calc_flags"], **out}
 
     def run_krea2(n_req, size):
         """n_req krea2_raw requests (guidance 3.5: CFG as batch 2) at all
@@ -1202,18 +1637,21 @@ def phase_service(frames: int):
                                 1, w, h, 30, {"flash_attention": 60,
                                               "matmul_w8a8": 300,
                                               "act_quant": 210})
-        # 14B at 1280x720, (A) and (B) at every layer
+        # 14B at 1280x720, (A) and (B) at every layer; (C) on (A)'s pipeline
         results["14B_int4a8_sol"] = run(
             "14B int4a8 sol", "t2v", "int4a8", "sol", 1, 1280, 720, 40,
             {"sol_flash": 40, "flash_attention": 40, "matmul_w4a8": 400,
-             "act_quant": 280})
+             "act_quant": 280}, after=run_c)
         results["14B_int4_radial"] = run(
             "14B int4 radial", "t2v", "int4", "radial", 1, 1280, 720,
             B_LAYERS, {"sparse_flash": B_LAYERS, "flash_attention": B_LAYERS,
                        "matmul_w4": 10 * B_LAYERS})
         results["krea2_raw"] = run_krea2(2, 1024)
+        results["1.3B_checkpoint_D"] = run_d()
+        results["1.3B_sliding_E"] = run_e()
     finally:
         media.save_video, media.save_image = real_save, real_save_image
+        pipe_mod.wan_dit_forward = real_forward
         WanPipeline.denoise, WanPipeline.decode = real_denoise, real_decode
         krea2_pipe.krea2_denoise = real_krea2_denoise
     emit("service", frames=frames, latent_frames=(frames - 1) // 4 + 1,

@@ -24,6 +24,7 @@ from wan2gp_tpu_torch.runtime.service import quantize_dit_params
 
 from tests.test_goldens import _load
 
+from tests._torch_trees import to_jax
 from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 JCFG = jdit.WanDiTConfig(dim=64, ffn_dim=128, num_heads=2, num_layers=2,
@@ -59,8 +60,15 @@ def _forward_pair(jparams, jcfg, cfg, dtype=None, quant=False):
     return got.float().numpy(), np.asarray(ref, np.float32)
 
 
+def _init(cfg, seed, dtype=torch.float32):
+    """The port's random tree as a JAX tree (the eager JAX init takes
+    seconds)."""
+    return to_jax(dit.init_wan_dit(torch.Generator().manual_seed(seed), cfg,
+                                   dtype))
+
+
 def test_dit_forward_fp32_matches_jax():
-    jparams = jdit.init_wan_dit(jax.random.key(0), JCFG, jnp.float32)
+    jparams = _init(CFG, 0)
     got, ref = _forward_pair(jparams, JCFG, CFG)
     assert got.shape == (2, 16, 3, 8, 8)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
@@ -69,7 +77,7 @@ def test_dit_forward_fp32_matches_jax():
 def test_dit_forward_bf16_matches_jax():
     jcfg = dataclasses.replace(JCFG, compute_dtype=jnp.bfloat16)
     cfg = dataclasses.replace(CFG, compute_dtype=torch.bfloat16)
-    jparams = jdit.init_wan_dit(jax.random.key(1), jcfg, jnp.bfloat16)
+    jparams = _init(cfg, 1, torch.bfloat16)
     got, ref = _forward_pair(jparams, jcfg, cfg)
     np.testing.assert_allclose(got, ref, rtol=0,
                                atol=3e-2 * np.abs(ref).max())
@@ -78,16 +86,15 @@ def test_dit_forward_bf16_matches_jax():
 def test_dit_forward_int8_matches_jax():
     jcfg = dataclasses.replace(JCFG, dim=256, num_heads=2, ffn_dim=256)
     cfg = dataclasses.replace(CFG, dim=256, num_heads=2, ffn_dim=256)
-    jparams = jdit.init_wan_dit(jax.random.key(2), jcfg, jnp.float32)
+    jparams = _init(cfg, 2)
     got, ref = _forward_pair(jparams, jcfg, cfg, quant=True)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
 def test_quantize_dit_params_matches_jax_tree():
-    jcfg = dataclasses.replace(JCFG, dim=256, ffn_dim=256)
-    jq = jquantize(jdit.init_wan_dit(jax.random.key(3), jcfg, jnp.float32),
-                   "int8")
-    jparams = jdit.init_wan_dit(jax.random.key(3), jcfg, jnp.float32)
+    cfg = dataclasses.replace(CFG, dim=256, ffn_dim=256)
+    jq = jquantize(_init(cfg, 3), "int8")
+    jparams = _init(cfg, 3)
     q = quantize_dit_params(params_from_numpy(
         jax.tree.map(np.asarray, jparams), "cpu"), "int8")
     fc1 = q["blocks"]["ffn"]["fc1"]
@@ -96,8 +103,7 @@ def test_quantize_dit_params_matches_jax_tree():
     np.testing.assert_array_equal(
         fc1["scale"].numpy(), np.asarray(jq["blocks"]["ffn"]["fc1"]["scale"]))
     assert "w" in q["text_embedding"]["fc1"]
-    jq4 = jquantize(jdit.init_wan_dit(jax.random.key(3), jcfg, jnp.float32),
-                    "int4")
+    jq4 = jquantize(_init(cfg, 3), "int4")
     q4 = quantize_dit_params(params_from_numpy(
         jax.tree.map(np.asarray, jparams), "cpu"), "int4")
     np.testing.assert_array_equal(
@@ -115,7 +121,9 @@ def test_quantize_dit_params_matches_jax_tree():
 
 
 def test_init_matches_jax_tree_layout():
-    jp = jdit.init_wan_dit(jax.random.key(0), JCFG, jnp.bfloat16)
+    jp = jax.eval_shape(lambda key: jdit.init_wan_dit(key, JCFG,
+                                                      jnp.bfloat16),
+                        jax.random.key(0))
     p = dit.init_wan_dit(torch.Generator().manual_seed(0), CFG,
                          torch.bfloat16)
     jflat = {jax.tree_util.keystr(k): v for k, v in

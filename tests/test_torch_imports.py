@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and never falls back to the CPU.
 
-- Importing its entry points pulls in neither `jax` nor any module of the
-  JAX package `wan2gp_tpu` (checked in a fresh interpreter in which both
-  are made unimportable), and no source file of the port imports them.
+- Importing its entry points pulls in neither `jax`, `ml_dtypes` nor any
+  module of the JAX package `wan2gp_tpu` (checked in a fresh interpreter
+  in which they are made unimportable), and no source file of the port
+  imports them.
 - On a host without a GPU, every entry point called without `device=`
   raises instead of running on the CPU.
 - A tensor that is not on the CPU never reaches a kernel's plain version.
@@ -19,7 +20,7 @@ from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "wan2gp_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "wan2gp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "wan2gp_tpu")
 
 ENTRY_MODULES = (
     "wan2gp_tpu_torch",
@@ -42,6 +43,13 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.ops.quant",
     "wan2gp_tpu_torch.convert",
     "wan2gp_tpu_torch.utils.media",
+    "wan2gp_tpu_torch.caches",
+    "wan2gp_tpu_torch.windows",
+    "wan2gp_tpu_torch.io.safetensors_reader",
+    "wan2gp_tpu_torch.io.quant_formats",
+    "wan2gp_tpu_torch.io.wan_checkpoint",
+    "wan2gp_tpu_torch.io.save_quantized",
+    "wan2gp_tpu_torch.io.downloads",
 )
 
 _PROBE = r"""
@@ -107,6 +115,7 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
     from wan2gp_tpu_torch import resolve_device
     from wan2gp_tpu_torch.families.krea2 import Krea2FamilyHandler
     from wan2gp_tpu_torch.families.wan import WanFamilyHandler
+    from wan2gp_tpu_torch.io.wan_checkpoint import load_wan_vae_params
     from wan2gp_tpu_torch.models.krea2.dit import Krea2Config
     from wan2gp_tpu_torch.models.krea2.pipeline import Krea2Pipeline
     from wan2gp_tpu_torch.models.wan.dit import WanDiTConfig
@@ -126,6 +135,7 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
         "Krea2Pipeline": lambda: Krea2Pipeline({}, Krea2Config()),
         "krea2 load_model": lambda: Krea2FamilyHandler.load_model(
             "krea2_raw", {}, init_random=True),
+        "load_wan_vae_params": lambda: load_wan_vae_params({}, None),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

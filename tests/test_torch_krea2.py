@@ -61,7 +61,9 @@ def _close(got, ref, tol=TOL):
 def trees():
     """The JAX tree and its copy in the port, with random (non-zero) norm
     offsets and modulation biases so those paths are exercised."""
-    jparams = jdit.init_krea2(jax.random.key(0), JTINY)
+    # jitted: the same values, fewer seconds than the eager init
+    jparams = jax.jit(lambda key: jdit.init_krea2(key, JTINY))(
+        jax.random.key(0))
     rng = np.random.default_rng(1)
 
     def jitter(path, leaf):

@@ -32,6 +32,7 @@ from wan2gp_tpu_torch.ops import attention, quant
 from wan2gp_tpu_torch.ops.rope import build_rope_3d
 from wan2gp_tpu_torch.runtime.service import quantize_dit_params
 
+from tests._torch_trees import to_jax
 from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jattn = importlib.import_module("wan2gp_tpu.ops.attention")
@@ -200,7 +201,10 @@ def test_dit_forward_int8a8_matches_jax(monkeypatch):
     lat = rng.standard_normal((2, 16, 3, 8, 8)).astype(np.float32)
     t = np.array([900.0, 250.0], np.float32)
     ctx = rng.standard_normal((2, 16, 48)).astype(np.float32)
-    jparams = jdit.init_wan_dit(jax.random.key(4), JCFG, jnp.float32)
+    # the port's random tree as a JAX tree (the eager JAX init takes
+    # seconds)
+    jparams = to_jax(dit.init_wan_dit(torch.Generator().manual_seed(4), CFG,
+                                      torch.float32))
     params = quantize_dit_params(
         params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu"), "int8a8")
     jq = jquant.quantize_params_tree(jparams, predicate=lambda p: "blocks" in p,

@@ -1,5 +1,6 @@
-"""Parity of the port's UniPC sampler and guidance with the JAX package,
-and with the reference-executed solver goldens (5e-4, as
+"""Parity of the port's samplers (UniPC, DPM++, Euler, CausVid, LCM) and
+guidance with the JAX package (tables exact, trajectories at 1e-5), and
+with the reference-executed solver goldens (5e-4, as
 tests/test_goldens*.py hold the JAX package)."""
 import numpy as np
 import pytest
@@ -91,10 +92,77 @@ def test_golden_unipc_ref_trace():
                                    rtol=5e-4, atol=5e-4)
 
 
+@pytest.mark.parametrize("solver,steps,shift", [
+    ("dpm++", 7, 5.0), ("euler", 6, 3.0), ("causvid", 9, 8.0),
+    ("lcm", 10, 5.0), ("", 5, 5.0)])
+def test_other_solver_tables_match_jax(solver, steps, shift):
+    s = make_schedule(solver, steps, shift=shift)
+    j = jsched.make_schedule(solver, steps, shift=shift)
+    assert (s.name, s.num_steps) == (j.name, j.num_steps)
+    np.testing.assert_array_equal(s.timesteps, np.asarray(j.timesteps))
+    np.testing.assert_array_equal(s.sigmas, np.asarray(j.sigmas))
+    assert set(s.coeffs) == set(j.coeffs)
+    for k in s.coeffs:
+        np.testing.assert_array_equal(s.coeffs[k], np.asarray(j.coeffs[k]))
+
+
 @pytest.mark.parametrize("solver", ["dpm++", "euler", "causvid", "lcm"])
-def test_unported_solvers_raise(solver):
+def test_other_solver_trajectories_match_jax(solver):
+    rng = np.random.default_rng(1)
+    x0 = rng.standard_normal((2, 16, 3, 4, 4)).astype(np.float32)
+    outs = rng.standard_normal((5, 2, 16, 3, 4, 4)).astype(np.float32)
+    s = make_schedule(solver, 5)
+    j = jsched.make_schedule(solver, 5)
+    assert set(init_solver_state(s, torch.zeros(1))) == set(
+        jsched.init_solver_state(j, jnp.zeros(1)))
+    got = _run(s, solver_step, init_solver_state, x0, outs,
+               torch.from_numpy, lambda t: t.numpy())
+    ref = _run(j, jsched.solver_step, jsched.init_solver_state, x0, outs,
+               jnp.asarray, np.asarray)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _ref_velocity_trace(name, n, shift, x0):
+    """The reference-side generator's fake velocity, step by step."""
+    sched = make_schedule(name, n, shift=shift)
+    x = torch.from_numpy(np.asarray(x0, np.float32))
+    state = init_solver_state(sched, x)
+    traj = []
+    for i in range(n):
+        t = float(sched.timesteps[i])
+        v = 0.3 * x * np.float32(np.cos(t / 250.0)) - 0.1
+        x, state = solver_step(sched, i, sched.per_step(i), v, x, state)
+        traj.append(x.numpy())
+    return sched, np.stack(traj)
+
+
+@pytest.mark.parametrize("name,golden,n,shift", [
+    ("dpm++", "dpm_ref_trace.npz", 8, 5.0),
+    ("causvid", "flowmatch_ref_trace.npz", 9, 8.0)])
+def test_golden_ref_traces(name, golden, n, shift):
+    g = _load(golden)
+    sched, traj = _ref_velocity_trace(name, n, shift, g["x0"])
+    np.testing.assert_allclose(sched.timesteps.astype(np.float64),
+                               np.asarray(g["timesteps"], np.float64),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(traj, g["traj"], rtol=5e-4, atol=5e-4)
+
+
+def test_golden_lcm_trace():
+    g = _load("lcm_trace.npz")
+    n, shift = int(g["n_steps"]), float(g["shift"])
+    sched = make_schedule("lcm", n, shift=shift)
+    np.testing.assert_allclose(sched.sigmas, g["sigmas"], rtol=1e-5,
+                               atol=1e-6)
+    x = _run(sched, solver_step, init_solver_state, g["x0"], g["outputs"],
+             lambda a: torch.from_numpy(np.asarray(a, np.float32)),
+             lambda t: t.numpy())
+    np.testing.assert_allclose(x, g["x_final"], rtol=5e-4, atol=5e-4)
+
+
+def test_unknown_solver_raises():
     with pytest.raises(NotImplementedError):
-        make_schedule(solver, 4)
+        make_schedule("heun", 4)
 
 
 @pytest.mark.parametrize("use_alpha", [False, True])

@@ -18,6 +18,7 @@ from wan2gp_tpu_torch.models.wan import vae, vae_scan
 
 from tests.test_goldens import _load
 
+from tests._torch_trees import to_jax
 from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 JCFG = jvae.WanVAEConfig(dim=8, num_res_blocks=1)
@@ -26,9 +27,10 @@ CFG = vae.WanVAEConfig(dim=8, num_res_blocks=1)
 
 @pytest.fixture(scope="module")
 def params():
-    # jitted: the eager init dispatches thousands of small ops
-    jp = jax.jit(lambda key: jvae.init_wan_vae(key, JCFG))(jax.random.key(0))
-    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    # the port's init, carried to the JAX package: the JAX init takes
+    # about 12 s even jitted
+    p = vae.init_wan_vae(torch.Generator().manual_seed(0), CFG)
+    return to_jax(p), p
 
 
 def _jax(fn):
@@ -42,7 +44,10 @@ def _lat(t=3, seed=0):
 
 
 def test_params_from_numpy_conv_layout(params):
-    jp, p = params
+    jp, port = params
+    p = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    for a, b in zip(jax.tree.leaves(p), jax.tree.leaves(port)):
+        assert torch.equal(a, b)
     jw = np.asarray(jp["decoder"]["conv1"]["w"])           # kt kh kw ci co
     np.testing.assert_array_equal(p["decoder"]["conv1"]["w"].numpy(),
                                   jw.transpose(4, 3, 0, 1, 2))
@@ -81,9 +86,13 @@ def test_vae_encode_matches_jax(params):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_init_wan_vae_matches_jax_layout(params):
-    jp, p = params
+def test_init_wan_vae_matches_jax_layout():
     mine = vae.init_wan_vae(torch.Generator().manual_seed(0), CFG)
+    # the JAX init's tree, by shape only, carried over by `convert`
+    jshapes = jax.eval_shape(lambda key: jvae.init_wan_vae(key, JCFG),
+                             jax.random.key(0))
+    p = params_from_numpy(jax.tree.map(
+        lambda a: np.zeros(a.shape, a.dtype), jshapes), "cpu")
     shapes = jax.tree.map(lambda a: tuple(a.shape), mine)
     want = jax.tree.map(lambda a: tuple(a.shape), p)
     assert shapes == want

@@ -49,10 +49,17 @@ class Krea2FamilyHandler:
                 "batch_size": 1}
 
     @classmethod
-    def load_model(cls, base_model_type, model_def, dtype=torch.bfloat16,
-                   attn_backend: str = "auto", init_random: bool = False,
-                   seed: int = 0, device=None):
-        """init_random builds random weights from `seed` on `device`."""
+    def query_model_files(cls, base_model_type, model_def):
+        raise NotImplementedError(
+            "loading Krea 2 checkpoints is not ported yet (ROADMAP Queue 1: "
+            "io/krea2_checkpoint.py, Qwen3-VL text encoder)")
+
+    @classmethod
+    def load_model(cls, base_model_type, model_def, checkpoints=None,
+                   dtype=torch.bfloat16, attn_backend: str = "auto",
+                   init_random: bool = False, seed: int = 0, device=None):
+        """init_random builds random weights from `seed` on `device`;
+        checkpoints are not ported yet."""
         from ._image_vae import load_image_vae
         if not init_random:
             raise NotImplementedError(

@@ -1,12 +1,15 @@
 """Wan 2.1 family handler, text-to-video rows.
 
 Counterpart of wan2gp_tpu/families/wan.py for `t2v_1.3B` (dim 1536, 12
-heads, 30 layers) and `t2v` (14B: dim 5120, 40 heads, 40 layers).  The
-other Wan variants, and loading real checkpoints, are not ported yet.
+heads, 30 layers) and `t2v` (14B: dim 5120, 40 heads, 40 layers): random
+weights or checkpoint files (torch-layout safetensors, quanto-int8
+included), plain or sliding-window generation.  The other Wan variants
+are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import os
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -40,7 +43,7 @@ class WanFamilyHandler:
                         model_def: Dict[str, Any]) -> Dict[str, Any]:
         return {"vae_stride": _ARCH[base_model_type]["vae_stride"],
                 "i2v_class": False, "image_outputs": False,
-                "multiple_submodels": False, "sliding_window": False}
+                "multiple_submodels": False, "sliding_window": True}
 
     @staticmethod
     def default_settings(base_model_type: str) -> Dict[str, Any]:
@@ -62,27 +65,70 @@ class WanFamilyHandler:
             model_type=arch["model_type"],
             text_dim=arch.get("text_dim", 4096), compute_dtype=dtype)
 
+    @staticmethod
+    def query_model_files(base_model_type: str,
+                          model_def: Dict[str, Any]) -> List[Dict[str, Any]]:
+        """The checkpoint roles of a t2v model."""
+        base = "https://huggingface.co/DeepBeepMeep/Wan2.1/resolve/main/"
+        return [
+            {"role": "transformer", "urls": model_def.get("URLs", [])},
+            {"role": "text_encoder", "urls": [
+                base + "models_t5_umt5-xxl-enc-bf16.safetensors"]},
+            {"role": "vae", "urls": [base + "Wan2.1_VAE.safetensors"]},
+        ]
+
     @classmethod
     def load_model(cls, base_model_type: str, model_def: Dict[str, Any],
+                   checkpoints: Optional[Dict[str, str]] = None,
                    dtype=torch.bfloat16, attn_backend: str = "auto",
                    init_random: bool = False, seed: int = 0,
                    device=None) -> WanPipeline:
-        """init_random builds random weights from `seed` on `device`."""
-        if not init_random:
-            raise NotImplementedError(
-                "loading Wan checkpoints is not ported yet (ROADMAP Queue 1:"
-                " io/wan_checkpoint.py); pass init_random=True")
+        """checkpoints: {"transformer": path, "text_encoder": path, "vae":
+        path}; the text encoder and the VAE are optional (without the
+        text encoder, prompts are embedded by their hash); the text
+        encoder's tokenizer is read from the UMT5 tokenizer files in its
+        folder, and their absence raises.  init_random
+        builds random weights from `seed` on `device` instead.  A
+        transformer key that the loader does not consume raises."""
         dev = resolve_device(device)
         dit_cfg = cls.dit_config(base_model_type, dtype)
         vae_cfg = WanVAEConfig()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        dit_params = init_wan_dit(gen, dit_cfg, dtype)
-        gen.manual_seed(seed + 1)
-        vae_params = init_wan_vae(gen, vae_cfg)
-        return WanPipeline(dit_params, dit_cfg, t5_params=None,
-                           t5_cfg=T5Config(), vae_params=vae_params,
-                           vae_cfg=vae_cfg,
+        t5_cfg = T5Config()
+        if init_random:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            dit_params = init_wan_dit(gen, dit_cfg, dtype)
+            gen.manual_seed(seed + 1)
+            vae_params = init_wan_vae(gen, vae_cfg)
+            t5_params = tokenizer = None
+        else:
+            if not checkpoints or not checkpoints.get("transformer"):
+                raise ValueError(
+                    "no transformer checkpoint: pass checkpoints="
+                    "{'transformer': path, ...} or init_random=True")
+            from ..io.safetensors_reader import load_weights
+            from ..io.wan_checkpoint import (
+                normalize_wan_sd, load_wan_dit_params, load_t5_params,
+                load_wan_vae_params)
+            sd = normalize_wan_sd(load_weights(checkpoints["transformer"]))
+            dit_params, left = load_wan_dit_params(sd, dit_cfg, dtype,
+                                                   device=dev)
+            if left:
+                raise ValueError(f"unconsumed transformer keys: {left[:8]}")
+            del sd
+            t5_params = tokenizer = None
+            if checkpoints.get("text_encoder"):
+                tokenizer = umt5_tokenizer(checkpoints["text_encoder"])
+                t5_params, _ = load_t5_params(
+                    load_weights(checkpoints["text_encoder"]), t5_cfg, dtype,
+                    device=dev)
+            vae_params = None
+            if checkpoints.get("vae"):
+                vae_params, _ = load_wan_vae_params(
+                    load_weights(checkpoints["vae"]), vae_cfg, device=dev)
+        return WanPipeline(dit_params, dit_cfg, t5_params=t5_params,
+                           t5_cfg=t5_cfg, vae_params=vae_params,
+                           vae_cfg=vae_cfg, tokenizer=tokenizer,
                            vae_stride=_ARCH[base_model_type]["vae_stride"],
                            attn_backend=attn_backend,
                            base_model_type=base_model_type, device=dev)
@@ -90,27 +136,46 @@ class WanFamilyHandler:
     @classmethod
     def generate_video(cls, pipe, merged: Dict[str, Any], width: int,
                        height: int, frame_num: int, seed: int):
-        """Plain t2v generation.  Returns {"video": [T, H, W, 3] float in
-        [-1, 1] on the host, "fps": int}."""
+        """t2v generation, in sliding windows when `sliding_window_size`
+        is set and shorter than the video.  Returns {"video": [T, H, W, 3]
+        float in [-1, 1] on the host, "fps": int}."""
         for key in _UNPORTED_INPUTS:
             if merged.get(key):
                 raise NotImplementedError(
                     f"setting {key!r} selects a Wan variant that is not "
                     "ported yet (ROADMAP Queue 1)")
+        fps = int(merged.get("fps", 16) or 16)
+        common = dict(prompt=merged.get("prompt", ""),
+                      n_prompt=merged.get("negative_prompt", ""),
+                      width=width, height=height, frame_num=frame_num,
+                      sampling=sampling_from_settings(merged), seed=seed,
+                      context=merged.get("_context"),
+                      context_null=merged.get("_context_null"))
         window = int(merged.get("sliding_window_size", 0) or 0)
         if window and frame_num > window:
-            raise NotImplementedError(
-                "sliding-window generation is not ported yet (ROADMAP "
-                "Queue 1)")
-        video = pipe.generate(
-            prompt=merged.get("prompt", ""),
-            n_prompt=merged.get("negative_prompt", ""), width=width,
-            height=height, frame_num=frame_num,
-            sampling=sampling_from_settings(merged), seed=seed,
-            context=merged.get("_context"),
-            context_null=merged.get("_context_null"))
-        return {"video": video.cpu().numpy(),
-                "fps": int(merged.get("fps", 16) or 16)}
+            return {"video": pipe.generate_sliding(
+                window_size=window,
+                overlap=int(merged.get("sliding_window_overlap", 5)),
+                discard=int(merged.get(
+                    "sliding_window_discard_last_frames", 0)),
+                **common), "fps": fps}
+        return {"video": pipe.generate(**common).cpu().numpy(), "fps": fps}
+
+
+def umt5_tokenizer(text_encoder_path: str):
+    """The UMT5 tokenizer from the files (tokenizer.json or spiece.model,
+    with their configs) in the folder of the text encoder's weights, read
+    by transformers.  Raises when they are not there: the text encoder's
+    weights are useless without them."""
+    from ..utils.tokenizer import HFTokenizer
+    folder = os.path.dirname(os.path.abspath(text_encoder_path))
+    if not any(os.path.exists(os.path.join(folder, f))
+               for f in ("tokenizer.json", "spiece.model")):
+        raise FileNotFoundError(
+            f"no UMT5 tokenizer (tokenizer.json or spiece.model) in "
+            f"{folder}, the folder of the text encoder "
+            f"{os.path.basename(text_encoder_path)}")
+    return HFTokenizer(folder)
 
 
 def sampling_from_settings(merged: Dict[str, Any]) -> SamplingConfig:
@@ -132,5 +197,9 @@ def sampling_from_settings(merged: Dict[str, Any]) -> SamplingConfig:
         cfg_zero_step=int(merged.get("cfg_zero_step", -1)),
         apg_switch=bool(merged.get("apg_switch", False)),
         nag_scale=float(merged.get("NAG_scale", 0.0)),
+        nag_tau=float(merged.get("NAG_tau", 3.5)),
+        nag_alpha=float(merged.get("NAG_alpha", 0.5)),
         cache_type=str(merged.get("cache_type", "") or ""),
+        cache_threshold=float(merged.get("cache_threshold", 0.0)),
+        cache_speed_factor=float(merged.get("cache_speed_factor", 1.75)),
         enable_riflex=bool(merged.get("RIFLEx_setting", 0)))

@@ -8,8 +8,11 @@ leading layer axis); the block loop is a Python loop over that axis.
 The residual stream and modulation math are fp32, matmuls run in
 `compute_dtype` (bf16 by default).
 
-Variant hooks of the JAX module (VACE, i2v, NAG, caches, audio, ...) are
-not ported yet (ROADMAP Queue 1).
+Hooks of the denoise loop: NAG (a second text cross-attention against
+`context_neg`, combined by `_nag_combine`), the TeaCache/MagCache skip
+(`skip_state`, decided on the host) and the first-block cache
+(`fbc_state`, one host read a forward).  The variant hooks of the JAX
+module (VACE, i2v, audio, ...) are not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -205,16 +208,39 @@ def _self_attention(p, x, rope_cos, rope_sin, cfg, attn_backend):
     return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt, aq)
 
 
-def _cross_attention(p, x, context, cfg, attn_backend):
+def _nag_combine(x_pos, x_neg, nag):
+    """Negative attention guidance: extrapolate in attention-output space
+    (per head, over D), clamp by the L1-norm ratio tau, blend by alpha;
+    fp32."""
+    scale, tau, alpha = nag
+    x_pos = x_pos.float()
+    x_neg = x_neg.float()
+    x_g = scale * x_pos + (1.0 - scale) * x_neg
+    norm_pos = x_pos.abs().sum(dim=-1, keepdim=True)
+    norm_g = x_g.abs().sum(dim=-1, keepdim=True)
+    ratio = torch.nan_to_num(norm_g / norm_pos, nan=10.0)
+    factor = norm_pos * tau / (norm_g + 1e-7)
+    x_g = torch.where(ratio > tau, x_g * factor, x_g)
+    return alpha * x_g + (1.0 - alpha) * x_pos
+
+
+def _cross_attention(p, x, context, cfg, attn_backend, context_neg=None,
+                     nag=None):
     cdt, aq = cfg.compute_dtype, cfg.act_quant
     xc = x.to(cdt)
     q = _heads(rms_norm(_dense(xc, p["q"], cdt, aq), p["norm_q"], cfg.eps),
                cfg.num_heads)
-    cq = quantize_dense_input(context, p["k"], cdt, aq)
-    k = _heads(rms_norm(_dense(context, p["k"], cdt, aq, cq), p["norm_k"],
-                        cfg.eps), cfg.num_heads)
-    v = _heads(_dense(context, p["v"], cdt, aq, cq), cfg.num_heads)
-    o = attention(q, k, v, backend=attn_backend)
+
+    def text_attn(ctx):
+        cq = quantize_dense_input(ctx, p["k"], cdt, aq)
+        k = _heads(rms_norm(_dense(ctx, p["k"], cdt, aq, cq), p["norm_k"],
+                            cfg.eps), cfg.num_heads)
+        v = _heads(_dense(ctx, p["v"], cdt, aq, cq), cfg.num_heads)
+        return attention(q, k, v, backend=attn_backend)
+
+    o = text_attn(context)
+    if nag is not None and context_neg is not None:
+        o = _nag_combine(o, text_attn(context_neg), nag).to(o.dtype)
     return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt, aq)
 
 
@@ -225,9 +251,11 @@ def _ffn(p, y, cfg):
     return _dense(h, p["fc2"], cdt, aq)
 
 
-def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend):
+def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend,
+           context_neg=None, nag=None):
     """One WanAttentionBlock.  x [B, L, C] in residual_dtype; e6 fp32
-    [B, T_mod, 6, C] broadcast over tokens."""
+    [B, T_mod, 6, C] broadcast over tokens; nag = (scale, tau, alpha) with
+    the embedded `context_neg` for NAG."""
     rdt, cdt = cfg.residual_dtype, cfg.compute_dtype
     e = e6 + bp["modulation"].float()[None, None]
     b, l, c = x.shape
@@ -247,7 +275,8 @@ def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend):
     y = layer_norm(x, bp["norm3"]["w"], bp["norm3"]["b"], eps=cfg.eps,
                    out_dtype=cdt)
     x = (x.float() + _cross_attention(bp["cross_attn"], y, context, cfg,
-                                      attn_backend).float()).to(rdt)
+                                      attn_backend, context_neg=context_neg,
+                                      nag=nag).float()).to(rdt)
 
     xr = x.reshape(b, t_mod, l // t_mod, c)
     y = modulated_layer_norm(xr, emod(3), emod(4), eps=cfg.eps,
@@ -265,10 +294,22 @@ def time_embedding_vec(params, cfg: WanDiTConfig, t):
 
 
 def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
-                    rope_cos, rope_sin, attn_backend: str = "auto"):
+                    rope_cos, rope_sin, attn_backend: str = "auto",
+                    skip_state=None, context_neg=None, nag=None,
+                    fbc_state=None, fbc_threshold: float = 0.08):
     """latents [B, C, F, H, W]; t [B] or [B, F_lat] (0..1000); context
     [B, text_len, text_dim].  Returns the velocity [B, C_out, F, H, W]
-    in fp32."""
+    in fp32.
+
+    context_neg, nag = (scale, tau, alpha): NAG on the text
+    cross-attention.  skip_state = (should_calc: bool, prev_residual):
+    TeaCache/MagCache on a host-planned decision; returns (out, residual),
+    the block-stack residual in prev_residual's dtype.  fbc_state =
+    (prev_signature, tail_residual, allow_skip: bool): the first-block
+    cache; runs block 0, then either the other blocks or the cached tail
+    residual, whichever the rel-L1 of block 0's output against the cached
+    signature picks (one host read); returns (out, (signature,
+    tail_residual))."""
     b = latents.shape[0]
     pt, ph, pw = cfg.patch_size
     grid = (latents.shape[2] // pt, latents.shape[3] // ph,
@@ -286,13 +327,53 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
 
     cdt = cfg.compute_dtype
     te = params["text_embedding"]
-    h = _dense(context.to(cdt), te["fc1"], cdt)
-    h = F.gelu(h.float(), approximate="tanh").to(cdt)
-    ctx = _dense(h, te["fc2"], cdt)
 
-    for i in range(cfg.num_layers):
-        x = _block(layer_params(params["blocks"], i), x, e6, ctx, rope_cos,
-                   rope_sin, cfg, attn_backend)
+    def embed_text(c):
+        h = _dense(c.to(cdt), te["fc1"], cdt)
+        h = F.gelu(h.float(), approximate="tanh").to(cdt)
+        return _dense(h, te["fc2"], cdt)
+
+    ctx = embed_text(context)
+    ctx_neg = None if context_neg is None else embed_text(context_neg)
+
+    def block(i, x):
+        return _block(layer_params(params["blocks"], i), x, e6, ctx,
+                      rope_cos, rope_sin, cfg, attn_backend,
+                      context_neg=ctx_neg, nag=nag)
+
+    # the loops rebind x in this frame, so each block's input is freed as
+    # the next block runs (a helper taking x would pin the stack's input:
+    # 3.1 GB at 14B 720p with CFG)
+    new_residual = new_fbc = None
+    if fbc_state is not None:
+        prev_sig, tail_res, allow_skip = fbc_state
+        sig = x = block(0, x)
+        should_calc = True
+        if allow_skip:
+            diff = (sig.float() - prev_sig.float()).abs().mean()
+            ref = prev_sig.float().abs().mean().clamp_min(1e-8)
+            should_calc = bool(diff / ref > fbc_threshold)
+        if should_calc:
+            for i in range(1, cfg.num_layers):
+                x = block(i, x)
+            new_tail = x - sig
+        else:
+            x = x + tail_res.to(x.dtype)
+            new_tail = tail_res
+        new_fbc = (sig, new_tail)
+    elif skip_state is None:
+        for i in range(cfg.num_layers):
+            x = block(i, x)
+    else:
+        should_calc, prev_residual = skip_state
+        if should_calc:
+            x0 = x
+            for i in range(cfg.num_layers):
+                x = block(i, x)
+            new_residual = (x - x0).to(prev_residual.dtype)
+        else:
+            x = x + prev_residual.to(x.dtype)
+            new_residual = prev_residual
 
     hp = params["head"]
     eh = e_head[:, :, None, :] + hp["modulation"].float()[None, None]
@@ -301,4 +382,9 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
     xn = layer_norm(xr, eps=cfg.eps)
     xn = xn * (1.0 + eh[:, :, 1][:, :, None, :]) + eh[:, :, 0][:, :, None, :]
     out = _dense(xn.reshape(b, l, cfg.dim), hp["head"], torch.float32)
-    return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
+    out = unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
+    if fbc_state is not None:
+        return out, new_fbc
+    if skip_state is not None:
+        return out, new_residual
+    return out

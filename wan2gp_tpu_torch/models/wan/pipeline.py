@@ -1,29 +1,35 @@
 """Wan text-to-video pipeline: text encoding, denoise loop, VAE decode.
 
 Counterpart of the t2v path of wan2gp_tpu/models/wan/pipeline.py.  The
-JAX package compiles each guidance phase into one `lax.scan`; here each
-phase is a Python loop over steps (UniPC step + joint CFG: cond and
-uncond stacked on the batch axis, one DiT forward per step).
+JAX package compiles each guidance phase into one `lax.scan` (or, for
+sequential CFG with `host_loop`, a host loop over a jitted micro-step);
+here each phase is a Python loop over steps.  CFG runs joint (cond and
+uncond stacked on the batch axis, one DiT forward per step) or
+sequential (two batch-1 forwards per step, cond then uncond, each branch
+with its own skip residual).  The TeaCache/MagCache skip plan is decided
+on the host before the loop (`caches.py`), the first-block cache reads
+one scalar a step; NAG runs a second text cross-attention; sliding
+windows pin and re-noise the previous window's tail latents.
 
-Not ported yet (ROADMAP Queue 1): sequential CFG, TeaCache/MagCache and
-the first-block cache, NAG, sliding windows, the i2v/VACE conditioning
-and the variant generators.
+Not ported yet (ROADMAP Queue 1): the i2v/VACE conditioning, the VAE
+encode (so no continue-video) and the variant generators.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ... import caches
 from ...device import resolve_device
 from ...guidance import cfg_combine, apg_update
 from ...schedulers import Schedule, make_schedule, init_solver_state, \
     solver_step
 from ...ops.rope import build_rope_3d
-from .dit import WanDiTConfig, wan_dit_forward
+from .dit import WanDiTConfig, wan_dit_forward, time_embedding_vec
 from .vae import WanVAEConfig, vae_decode
 from .vae_scan import vae_decode_chunked
 from .t5 import T5Config, t5_encode
@@ -54,21 +60,23 @@ class SamplingConfig:
     apg_momentum: float = -0.75
     apg_norm_threshold: float = 55.0
     enable_riflex: bool = False
+    # step-skipping cache: "" | "tea" | "mag" (host-planned, caches.py) |
+    # "fbc" (first-block cache, decided each step from block 0's output)
     cache_type: str = ""
+    cache_threshold: float = 0.0      # 0 -> auto from cache_speed_factor
+    cache_speed_factor: float = 1.75
+    cache_start_step: int = 0
+    # NAG negative-attention guidance; active when nag_scale > 1
     nag_scale: float = 0.0
+    nag_tau: float = 3.5
+    nag_alpha: float = 0.5
+    # CFG batching: joint stacks cond/uncond on the batch axis; sequential
+    # runs the two branches one after another (half the activations)
     joint_pass: bool = True
-
-    def check_ported(self):
-        if self.cache_type:
-            raise NotImplementedError(
-                f"cache_type {self.cache_type!r} is not ported yet (ROADMAP "
-                "Queue 1: TeaCache/MagCache skip plans)")
-        if self.nag_scale > 1.0:
-            raise NotImplementedError(
-                "NAG guidance is not ported yet (ROADMAP Queue 1)")
-        if not self.joint_pass:
-            raise NotImplementedError(
-                "sequential CFG is not ported yet (ROADMAP Queue 1)")
+    # the JAX package's choice between its two sequential-CFG loop forms;
+    # the port's sequential CFG is always a host loop, so it changes
+    # nothing here
+    host_loop: bool = False
 
 
 def plan_phases(timesteps: np.ndarray, sampling: SamplingConfig,
@@ -101,39 +109,183 @@ def plan_phases(timesteps: np.ndarray, sampling: SamplingConfig,
     return segments
 
 
+def _pin_overlap(x, overlap_latents, noise, t, sigma_scale):
+    """x with its first frames set to the overlap latents re-noised to
+    the step's noise level (sigma = t / 1000 * sigma_scale, in fp32)."""
+    sigma = np.float32(t) / np.float32(1000.0) * np.float32(sigma_scale)
+    pinned = (overlap_latents * float(np.float32(1.0) - sigma)
+              + noise * float(sigma))
+    x = x.clone()
+    x[:, :, :overlap_latents.shape[2]] = pinned
+    return x
+
+
+def _tokens(x, cfg: WanDiTConfig) -> int:
+    pt, ph, pw = cfg.patch_size
+    return (x.shape[2] // pt) * (x.shape[3] // ph) * (x.shape[4] // pw)
+
+
 def denoise_segment(dit_params, dit_cfg: WanDiTConfig, schedule: Schedule,
                     carry, context, context_null, sampling: SamplingConfig,
                     guide_scale: float, rope_cos, rope_sin,
                     step_start: int, step_end: int,
-                    attn_backend: str = "auto"):
-    """Steps [step_start, step_end) with joint CFG.  carry = (x,
-    solver_state, apg_buf), threaded across segments; returns it updated."""
+                    attn_backend: str = "auto", skip_schedule=None,
+                    overlap_latents=None, overlap_sigma_scale: float = 1.0,
+                    overlap_noise=None):
+    """Steps [step_start, step_end).  carry = (x, solver_state, apg_buf),
+    threaded across segments; returns it updated.
+
+    skip_schedule: the host's bool[N] calc plan (TeaCache/MagCache).
+    overlap_latents [B, C, F_ov, H, W]: sliding-window prefix latents,
+    re-noised to the current sigma each step with overlap_noise[step -
+    step_start] (same shape)."""
     x, sstate, apg_buf = carry
     b = x.shape[0]
     g = guide_scale
     any_guidance = g != 1.0
+    use_skip = skip_schedule is not None
+    use_fbc = sampling.cache_type == "fbc"
+    fbc_threshold = (sampling.cache_threshold
+                     if sampling.cache_threshold > 0 else 0.05)
+    use_nag = sampling.nag_scale > 1.0
+    nag = ((sampling.nag_scale, sampling.nag_tau, sampling.nag_alpha)
+           if use_nag else None)
+
+    if any_guidance and not sampling.joint_pass:
+        if use_fbc:
+            raise ValueError("sequential CFG does not support the "
+                             "first-block cache")
+        return _denoise_segment_seqcfg(
+            dit_params, dit_cfg, schedule, carry, context, context_null,
+            sampling, g, rope_cos, rope_sin, step_start, step_end,
+            attn_backend=attn_backend, skip_schedule=skip_schedule,
+            overlap_latents=overlap_latents,
+            overlap_sigma_scale=overlap_sigma_scale,
+            overlap_noise=overlap_noise, nag=nag)
+
     ctx = torch.cat([context, context_null]) if any_guidance else context
-    for i in range(step_start, step_end):
+    # NAG on the cond branch; the uncond branch pairs with itself, which
+    # collapses the guidance to identity there (x_pos == x_neg)
+    ctx_neg = None
+    if use_nag:
+        ctx_neg = (torch.cat([context_null, context_null]) if any_guidance
+                   else context_null)
+    b_eff = 2 * b if any_guidance else b
+    if use_skip:
+        flags = np.asarray(skip_schedule, bool)[step_start:step_end].copy()
+        flags[0] = True     # segment boundary: the residual is reset
+        residual = torch.zeros((b_eff, _tokens(x, dit_cfg), dit_cfg.dim),
+                               dtype=dit_cfg.residual_dtype, device=x.device)
+    elif use_fbc:
+        # (block-0 signature, tail residual), both in the residual dtype
+        # that block 0 emits (the JAX package starts the signature in the
+        # compute dtype, which its scan refuses unless the two agree); a
+        # calc is forced on the segment's first step and before
+        # cache_start_step
+        flags = (np.arange(step_start, step_end)
+                 < max(sampling.cache_start_step, step_start + 1))
+        zeros = torch.zeros((b_eff, _tokens(x, dit_cfg), dit_cfg.dim),
+                            dtype=dit_cfg.residual_dtype, device=x.device)
+        residual = (zeros, zeros)
+    for idx, i in enumerate(range(step_start, step_end)):
         t = float(schedule.timesteps[i])
+        if overlap_latents is not None:
+            x = _pin_overlap(x, overlap_latents, overlap_noise[idx], t,
+                             overlap_sigma_scale)
         xb = torch.cat([x, x]) if any_guidance else x
         tb = torch.full((xb.shape[0],), t, dtype=torch.float32,
                         device=x.device)
-        v = wan_dit_forward(dit_params, dit_cfg, xb, tb, ctx, rope_cos,
-                            rope_sin, attn_backend=attn_backend)
-        if not any_guidance:
-            pred = v
-        elif sampling.apg_switch:
-            guidance, apg_buf = apg_update(
-                v[:b] - v[b:], v[:b], apg_buf,
-                momentum=sampling.apg_momentum,
-                norm_threshold=sampling.apg_norm_threshold)
-            pred = v[:b] + (g - 1.0) * guidance
+        skip_state = (bool(flags[idx]), residual) if use_skip else None
+        fbc_state = ((*residual, not bool(flags[idx])) if use_fbc
+                     else None)
+        out = wan_dit_forward(dit_params, dit_cfg, xb, tb, ctx, rope_cos,
+                              rope_sin, attn_backend=attn_backend,
+                              skip_state=skip_state, context_neg=ctx_neg,
+                              nag=nag, fbc_state=fbc_state,
+                              fbc_threshold=fbc_threshold)
+        if use_skip or use_fbc:
+            v, residual = out
         else:
-            use_alpha = sampling.cfg_star_switch and i > sampling.cfg_zero_step
-            pred = cfg_combine(v[:b], v[b:], g, use_alpha)
-        x, sstate = solver_step(schedule, i, schedule.per_step(i), pred, x,
-                                sstate)
+            v = out
+        x, sstate, apg_buf = _guide_and_step(
+            schedule, sampling, g, i, x, sstate, apg_buf,
+            *((v[:b], v[b:]) if any_guidance else (v,)))
     return x, sstate, apg_buf
+
+
+def _guide_and_step(schedule: Schedule, sampling: SamplingConfig, g: float,
+                    i: int, x, sstate, apg_buf, v_cond, v_uncond=None):
+    """Step i's prediction from the branches' velocities (v_uncond None:
+    no guidance; else APG or CFG, CFG-Zero* after cfg_zero_step), then
+    the solver step.  Returns (x, solver_state, apg_buf)."""
+    if v_uncond is None:
+        pred = v_cond
+    elif sampling.apg_switch:
+        guidance, apg_buf = apg_update(
+            v_cond - v_uncond, v_cond, apg_buf,
+            momentum=sampling.apg_momentum,
+            norm_threshold=sampling.apg_norm_threshold)
+        pred = v_cond + (g - 1.0) * guidance
+    else:
+        use_alpha = sampling.cfg_star_switch and i > sampling.cfg_zero_step
+        pred = cfg_combine(v_cond, v_uncond, g, use_alpha)
+    x, sstate = solver_step(schedule, i, schedule.per_step(i), pred, x,
+                            sstate)
+    return x, sstate, apg_buf
+
+
+def _denoise_segment_seqcfg(dit_params, dit_cfg: WanDiTConfig,
+                            schedule: Schedule, carry, context, context_null,
+                            sampling: SamplingConfig, guide_scale: float,
+                            rope_cos, rope_sin, step_start: int,
+                            step_end: int, attn_backend: str = "auto",
+                            skip_schedule=None, overlap_latents=None,
+                            overlap_sigma_scale: float = 1.0,
+                            overlap_noise=None, nag=None):
+    """Sequential CFG: 2 (end - start) micro-steps of one batch-1 DiT
+    forward each, the cond branch on even and the uncond branch on odd
+    micro-steps; guidance and the solver apply on odd ones.  Each branch
+    keeps its own skip residual, stored bf16 as the JAX package stores it;
+    the calc/skip decision is the shared host plan."""
+    x, sstate, apg_buf = carry
+    g = guide_scale
+    b = x.shape[0]
+    ctx2 = (context, context_null)
+    # NAG: the uncond branch pairs with itself, as in the joint form
+    ctx_neg = context_null if nag is not None else None
+    use_skip = skip_schedule is not None
+    if use_skip:
+        plan = np.asarray(skip_schedule, bool)
+        res2 = [torch.zeros((b, _tokens(x, dit_cfg), dit_cfg.dim),
+                            dtype=torch.bfloat16, device=x.device)
+                for _ in range(2)]
+    v_pend = None
+    for m in range(2 * (step_end - step_start)):
+        idx, branch = divmod(m, 2)
+        i = step_start + idx
+        t = float(schedule.timesteps[i])
+        if overlap_latents is not None and branch == 0:
+            x = _pin_overlap(x, overlap_latents, overlap_noise[idx], t,
+                             overlap_sigma_scale)
+        tb = torch.full((b,), t, dtype=torch.float32, device=x.device)
+        skip_state = (bool(plan[i]), res2[branch]) if use_skip else None
+        out = wan_dit_forward(dit_params, dit_cfg, x, tb, ctx2[branch],
+                              rope_cos, rope_sin, attn_backend=attn_backend,
+                              skip_state=skip_state, context_neg=ctx_neg,
+                              nag=nag)
+        if use_skip:
+            v, res2[branch] = out
+        else:
+            v = out
+        if branch == 0:
+            v_pend = v
+            continue
+        x, sstate, apg_buf = _guide_and_step(schedule, sampling, g, i, x,
+                                             sstate, apg_buf, v_pend, v)
+    return x, sstate, apg_buf
+
+
+NoiseFn = Callable[[str, int, tuple], torch.Tensor]
 
 
 class WanPipeline:
@@ -205,15 +357,71 @@ class WanPipeline:
                              enable_riflex=enable_riflex,
                              device=self.device)
 
+    # -- step-skip caches -------------------------------------------------
+
+    def skip_schedule(self, sampling: SamplingConfig, schedule: Schedule,
+                      width: int, height: int):
+        """Host-side TeaCache/MagCache calc plan (caches.py): bool[N], or
+        None for no cache and for the first-block cache, which decides
+        from the data each step."""
+        if not sampling.cache_type or sampling.cache_type == "fbc":
+            return None
+        if sampling.cache_type == "tea":
+            coeffs = caches.teacache_coefficients(
+                self.base_model_type, False, width * height)
+            # the time embedding of each step in fp32, one t at a time
+            e_list = [time_embedding_vec(
+                self.dit_params, self.dit_cfg,
+                torch.tensor([t], dtype=torch.float32, device=self.device)
+            ).cpu().numpy() for t in schedule.timesteps]
+            thresh = (sampling.cache_threshold
+                      or caches.teacache_auto_threshold(
+                          e_list, coeffs, sampling.cache_speed_factor,
+                          sampling.cache_start_step))
+            return caches.teacache_schedule(e_list, coeffs, thresh,
+                                            sampling.cache_start_step)
+        if sampling.cache_type == "mag":
+            table = caches.MAGCACHE_DEF_RATIOS.get(
+                self.base_model_type,
+                caches.MAGCACHE_DEF_RATIOS["t2v_1.3B"
+                                           if "1.3B" in self.base_model_type
+                                           else "t2v_14B"])
+            ratios = caches.magcache_interp_ratios(table, schedule.num_steps)
+            thresh = (sampling.cache_threshold
+                      or caches.magcache_auto_threshold(
+                          ratios, sampling.cache_speed_factor,
+                          start_step=sampling.cache_start_step))
+            return caches.magcache_schedule(
+                ratios, thresh, start_step=sampling.cache_start_step,
+                branches=2 if sampling.guide_scale != 1 else 1)
+        raise ValueError(f"unknown cache_type {sampling.cache_type!r}")
+
     # -- denoise ------------------------------------------------------------
 
+    def noise(self, kind: str, seed: int, shape) -> torch.Tensor:
+        """Standard normal noise drawn from `seed` on the pipeline's
+        device: the initial latents ("latents") or one overlap re-noising
+        per step ("overlap", shape [steps, ...]).  Tests replace it to
+        feed the JAX package's noise."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=self.device)
+
     def denoise(self, latents, context, context_null,
-                sampling: SamplingConfig, enable_riflex: bool = False):
-        """Run every guidance phase; returns the final latents (fp32)."""
-        sampling.check_ported()
+                sampling: SamplingConfig, overlap_latents=None,
+                seed: int = 0, enable_riflex: bool = False, width: int = 0,
+                height: int = 0, noise: Optional[NoiseFn] = None):
+        """Run every guidance phase; returns the final latents (fp32).
+        overlap_latents: a sliding window's pinned prefix; its per-step
+        noise comes from noise("overlap", seed + 1000 + start, ...) for
+        each phase starting at step `start`."""
+        noise = noise or self.noise
         schedule = make_schedule(sampling.solver, sampling.steps,
                                  sampling.shift,
                                  solver_order=sampling.solver_order)
+        skip = (self.skip_schedule(sampling, schedule, width or 832,
+                                   height or 480)
+                if sampling.cache_type else None)
         segments = plan_phases(schedule.timesteps, sampling, False)
         rope_cos, rope_sin = self._rope(latents.shape, enable_riflex)
         latents = latents.to(self.device, torch.float32)
@@ -221,13 +429,27 @@ class WanPipeline:
                  torch.zeros_like(latents))
         context = context.to(self.device)
         context_null = context_null.to(self.device)
+        if overlap_latents is not None:
+            overlap_latents = overlap_latents.to(self.device, torch.float32)
         backend = self.resolved_backend(latents.shape)
         for start, end, g, _ in segments:
+            ov_noise = None
+            if overlap_latents is not None:
+                ov_noise = noise("overlap", seed + 1000 + start,
+                                 (end - start, *overlap_latents.shape)
+                                 ).to(self.device, torch.float32)
             carry = denoise_segment(self.dit_params, self.dit_cfg, schedule,
                                     carry, context, context_null, sampling,
                                     g, rope_cos, rope_sin, start, end,
-                                    attn_backend=backend)
-        return carry[0]
+                                    attn_backend=backend,
+                                    skip_schedule=skip,
+                                    overlap_latents=overlap_latents,
+                                    overlap_noise=ov_noise)
+        x = carry[0]
+        if overlap_latents is not None:
+            x = x.clone()
+            x[:, :, :overlap_latents.shape[2]] = overlap_latents
+        return x
 
     def decode(self, latents_bcfhw, mode: str = "auto"):
         """VAE decode [B, C, F, H, W] -> [B, T, H, W, 3]; "auto" takes the
@@ -258,12 +480,66 @@ class WanPipeline:
                 [n_prompt or DEFAULT_NEGATIVE_PROMPT])
         if context_null is None:
             context_null = context
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        latents = torch.randn(self.latent_shape(frame_num, height, width),
-                              generator=gen, device=self.device)
+        latents = self.noise("latents", seed,
+                             self.latent_shape(frame_num, height, width))
         x = self.denoise(latents, context, context_null, sampling,
-                         enable_riflex=sampling.enable_riflex)
+                         enable_riflex=sampling.enable_riflex, width=width,
+                         height=height)
         if return_latents:
             return x
         return self.decode(x)[0]
+
+    def generate_sliding(self, prompt: str, n_prompt: str = "",
+                         width: int = 832, height: int = 480,
+                         frame_num: int = 161, window_size: int = 81,
+                         overlap: int = 5, discard: int = 0,
+                         sampling: SamplingConfig = SamplingConfig(),
+                         seed: int = 0, context=None, context_null=None,
+                         noise: Optional[NoiseFn] = None) -> np.ndarray:
+        """Sliding-window long-video generation (windows.py planning).
+        prompt may hold one line per window with /duration /overlap
+        /new_shot commands.  Each window after the first pins the previous
+        window's last latent frames (re-noised each step); the decoded
+        windows are cross-faded over their overlap.  Window k's initial
+        latents come from noise("latents", seed + k, ...).  Returns
+        [T, H, W, 3] fp32 on the host.  (The JAX package's continue-video
+        mode, `source_frames`, needs the VAE encode: ROADMAP Queue 1.)"""
+        from ...windows import plan_windows, latent_overlap, stitch_windows
+        noise = noise or self.noise
+        st = self.vae_stride[0]
+        prompts = [p for p in prompt.split("\n") if p.strip()] or [""]
+        plans = plan_windows(frame_num, window_size, overlap,
+                             discard=discard, prompts=prompts, quantum=st)
+        if context_null is None and sampling.guide_scale != 1.0 \
+                and context is None:
+            context_null = self.encode_text(
+                [n_prompt or DEFAULT_NEGATIVE_PROMPT])
+        segments, overlaps = [], []
+        prev_latents = None
+        ctx_cache = {}
+        for k, plan in enumerate(plans):
+            if context is not None:
+                ctx = context
+                ctxn = context_null if context_null is not None else context
+            else:
+                if plan.prompt not in ctx_cache:
+                    ctx_cache[plan.prompt] = self.encode_text([plan.prompt])
+                ctx = ctx_cache[plan.prompt]
+                ctxn = context_null if context_null is not None else ctx
+            overlap_latents = None
+            if k > 0 and plan.overlap > 0 and not plan.new_shot:
+                ov_lat = min(latent_overlap(plan.overlap, st),
+                             prev_latents.shape[2])
+                overlap_latents = prev_latents[:, :, -ov_lat:]
+            latents = noise("latents", seed + k,
+                            self.latent_shape(plan.size, height, width))
+            x = self.denoise(latents, ctx, ctxn, sampling,
+                             overlap_latents=overlap_latents, seed=seed + k,
+                             width=width, height=height, noise=noise)
+            prev_latents = x
+            frames = self.decode(x)[0]
+            if plan.discard > 0:
+                frames = frames[:-plan.discard]
+            segments.append(frames.cpu().numpy())
+            overlaps.append(plan.overlap if not plan.new_shot else 0)
+        return stitch_windows(segments, overlaps)

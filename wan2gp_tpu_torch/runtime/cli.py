@@ -2,6 +2,7 @@
 
 Usage:
   python -m wan2gp_tpu_torch --model t2v_1.3B --prompt "a cat" --random-weights
+  python -m wan2gp_tpu_torch --checkpoints-dir ckpts --process settings.json
   python -m wan2gp_tpu_torch --model krea2_raw --prompt "a cat" \
       --random-weights --resolution 1024x1024 --steps 28
   python -m wan2gp_tpu_torch --process queue.json
@@ -15,6 +16,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ..io.downloads import make_checkpoints_resolver
 from .queue import TaskQueue
 from .service import GenerationService
 
@@ -39,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--guidance-scale", type=float, default=None)
     p.add_argument("--flow-shift", type=float, default=None)
-    p.add_argument("--solver", default=None, choices=["unipc"])
+    p.add_argument("--solver", default=None,
+                   choices=["unipc", "dpm++", "euler", "causvid", "lcm"])
     p.add_argument("--seed", type=int, default=-1)
     p.add_argument("--output-dir", default="outputs")
     p.add_argument("--attention", default="auto",
@@ -54,6 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "int8 activations (Krea 2 takes none of them)")
     p.add_argument("--random-weights", action="store_true",
                    help="run with randomly initialized weights")
+    p.add_argument("--checkpoints-dir", default="ckpts",
+                   help="directory holding the checkpoint files of each "
+                        "model (file names as in the model definitions' "
+                        "URLs); unused with --random-weights")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -79,10 +86,13 @@ def _settings_from_args(args) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    service = GenerationService(output_dir=args.output_dir,
-                                attn_backend=args.attention,
-                                init_random_weights=args.random_weights,
-                                quantize=args.quantize, device=args.device)
+    service = GenerationService(
+        output_dir=args.output_dir, attn_backend=args.attention,
+        init_random_weights=args.random_weights,
+        checkpoints_resolver=(None if args.random_weights else
+                              make_checkpoints_resolver(
+                                  [args.checkpoints_dir])),
+        quantize=args.quantize, device=args.device)
     if args.list_models:
         for mt in service.registry.model_types():
             print(f"{mt:24s} {service.registry.get(mt).get('name', '')}")

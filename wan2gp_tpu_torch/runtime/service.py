@@ -9,8 +9,12 @@ the reference task format (prompt, negative_prompt, resolution "WxH",
 video_length, num_inference_steps, guidance_scale, flow_shift,
 sample_solver, seed, model_type, ...).
 
-Not ported yet (ROADMAP Queue 1): checkpoint resolution, plugins, LoRA,
-profiles, config groups, multi-chip meshes and post-processing.
+Weights are random (`init_random_weights`) or loaded from the files that
+`checkpoints_resolver` names for each role of the handler
+(`io.downloads.make_checkpoints_resolver` finds them on disk).
+
+Not ported yet (ROADMAP Queue 1): plugins, LoRA, profiles, config groups,
+multi-chip meshes and post-processing.
 """
 from __future__ import annotations
 
@@ -58,12 +62,15 @@ class GenerationService:
     def __init__(self, registry: Optional[ModelRegistry] = None,
                  output_dir: str = "outputs", attn_backend: str = "auto",
                  init_random_weights: bool = False,
+                 checkpoints_resolver: Optional[Callable] = None,
                  quantize: str = "", device=None):
         self.device = resolve_device(device)
         self.registry = registry or ModelRegistry(build_handler_map())
         self.output_dir = output_dir
         self.attn_backend = attn_backend
         self.init_random_weights = init_random_weights
+        # (model_type, handler, base_model_type, model_def) -> {role: path}
+        self.checkpoints_resolver = checkpoints_resolver
         self.quantize = quantize or ""
         self._pipelines: Dict[str, Any] = {}
 
@@ -80,10 +87,17 @@ class GenerationService:
                 raise ValueError(
                     f"quantize={self.quantize!r} is not supported for "
                     f"{model_type}: its linears read float weights only")
-            # without random weights the handler raises: checkpoint
-            # loading is not ported yet
+            ckpts = None
+            if not self.init_random_weights:
+                if self.checkpoints_resolver is None:
+                    raise RuntimeError(
+                        "no checkpoints_resolver configured; pass "
+                        "init_random_weights=True for synthetic runs")
+                ckpts = self.checkpoints_resolver(model_type, handler, base,
+                                                  model_def)
             pipe = handler.load_model(
-                base, model_def, attn_backend=self.attn_backend,
+                base, model_def, checkpoints=ckpts,
+                attn_backend=self.attn_backend,
                 init_random=self.init_random_weights, device=self.device)
             if self.quantize:
                 pipe.dit_params = quantize_dit_params(pipe.dit_params,

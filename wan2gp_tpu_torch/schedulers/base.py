@@ -1,13 +1,12 @@
-"""Flow-matching UniPC sampler: host-side coefficient tables + one step.
+"""Flow-matching samplers: host-side coefficient tables + one step.
 
 Counterpart of wan2gp_tpu/schedulers/base.py (a copy of its numpy table
 code).  `make_schedule` computes, in float64 numpy, the sigma/timestep
 schedule and every per-step update coefficient; `solver_step` applies one
-branch-free update from those per-step scalars.  The model predicts the
-velocity v with x_sigma = (1 - sigma) x0 + sigma noise, so x0 = x - sigma v.
-
-Only UniPC (the WanGP default) is ported; DPM++, Euler, CausVid and LCM
-are not ported yet (ROADMAP Queue 1).
+update from those per-step scalars.  The model predicts the velocity v
+with x_sigma = (1 - sigma) x0 + sigma noise, so x0 = x - sigma v.
+Solvers: unipc (the WanGP default), dpm++ (order 2, midpoint), and the
+first-order euler, causvid (fixed timestep table) and lcm.
 """
 from __future__ import annotations
 
@@ -39,6 +38,46 @@ def _lam(sigma):
     """lambda(sigma) = log(alpha) - log(sigma), alpha = 1 - sigma."""
     with np.errstate(divide="ignore"):
         return np.log1p(-sigma) - np.log(sigma)
+
+
+def _make_first_order(name, sigmas, timesteps, num_steps):
+    sig = np.asarray(sigmas, dtype=np.float64)
+    dt = sig[1:] - sig[:-1]  # [N]
+    return Schedule(name=name, num_steps=num_steps,
+                    timesteps=np.asarray(timesteps, dtype=np.float32),
+                    sigmas=np.asarray(sig, dtype=np.float32),
+                    coeffs={"dt": np.asarray(dt, dtype=np.float32)})
+
+
+def _euler_schedule(num_steps, shift, num_train_timesteps=1000):
+    """linspace(T, 1, N) + [0], timestep shift, last dropped."""
+    ts = np.linspace(num_train_timesteps, 1, num_steps, dtype=np.float64)
+    ts = np.concatenate([ts, [0.0]])
+    ts = _shift_sigma(ts / num_train_timesteps, shift) * num_train_timesteps
+    sigmas = ts / num_train_timesteps  # [N+1], last = 0
+    return _make_first_order("euler", sigmas, ts[:-1].astype(np.float32),
+                             num_steps)
+
+
+def _causvid_schedule(num_steps, shift=None, num_train_timesteps=1000):
+    """Fixed timestep table, sigma = t / 1000, final 0."""
+    table = np.array([1000, 934, 862, 756, 603, 410, 250, 140, 74],
+                     dtype=np.float64)
+    ts = table[:num_steps]
+    sigmas = np.concatenate([ts / num_train_timesteps, [0.0]])
+    return _make_first_order("causvid", sigmas, ts, num_steps)
+
+
+def _lcm_schedule(num_steps, shift, num_train_timesteps=1000):
+    """Rectified-flow sigma ramp of at most 8 steps; the final sigma is
+    not zero."""
+    num_steps = min(num_steps, 8)
+    t = np.linspace(0.0, 1.0, num_steps + 1, dtype=np.float64)
+    sigma_max, sigma_min = 1.0, 0.003 / 1.002
+    sigmas = sigma_min + (sigma_max - sigma_min) * (1.0 - t)
+    sigmas = _shift_sigma(sigmas, shift)
+    ts = sigmas[:-1] * num_train_timesteps
+    return _make_first_order("lcm", sigmas, ts, num_steps)
 
 
 def _flow_sigmas(num_steps, shift, num_train_timesteps):
@@ -140,30 +179,86 @@ def _unipc_schedule(num_steps, shift, num_train_timesteps=1000,
                     coeffs=coeffs)
 
 
+def _dpm_schedule(num_steps, shift, num_train_timesteps=1000):
+    """FlowDPM++ multistep, order 2, midpoint.
+
+      m_i = x_i - sigma[i] * v_i
+      x_{i+1} = A*x_i + B*m_i + C*(m_i - m_{i-1})
+    The first and last steps are first-order (C = 0).
+    """
+    sigmas = np.linspace(1.0, 0.0, num_steps + 1,
+                         dtype=np.float64)[:num_steps]
+    sigmas = _shift_sigma(sigmas, shift)
+    ts = np.trunc(sigmas * num_train_timesteps)
+    sig = np.concatenate([sigmas, [0.0]])
+    N = num_steps
+    alpha = 1.0 - sig
+    lam = _lam(sig)
+
+    A = np.zeros(N); B = np.zeros(N); C = np.zeros(N)
+    for i in range(N):
+        h = lam[i + 1] - lam[i]
+        em1 = np.expm1(-h)
+        A[i] = sig[i + 1] / sig[i] if sig[i] > 0 else 0.0
+        B[i] = -alpha[i + 1] * em1
+        first_order = (i == 0) or (i == N - 1)
+        if not first_order:
+            r0 = (lam[i] - lam[i - 1]) / h
+            C[i] = -alpha[i + 1] * em1 * 0.5 / r0
+    coeffs = {k: np.asarray(v, dtype=np.float32) for k, v in dict(
+        A=A, B=B, C=C, sigma=sig[:-1]).items()}
+    return Schedule(name="dpm++", num_steps=N,
+                    timesteps=np.asarray(ts, dtype=np.float32),
+                    sigmas=np.asarray(sig, dtype=np.float32),
+                    coeffs=coeffs)
+
+
+_MAKERS = {
+    "euler": _euler_schedule,
+    "causvid": _causvid_schedule,
+    "lcm": _lcm_schedule,
+    "unipc": _unipc_schedule,
+    "": _unipc_schedule,      # the WanGP default
+    "dpm++": _dpm_schedule,
+}
+
+
 def make_schedule(solver: str, num_steps: int, shift: float = 5.0,
                   num_train_timesteps: int = 1000,
                   solver_order: int = 2) -> Schedule:
-    if solver not in ("unipc", ""):
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet (ROADMAP Queue 1: "
-            "schedulers/base.py); use 'unipc'")
-    return _unipc_schedule(num_steps, shift, num_train_timesteps,
-                           solver_order=solver_order)
+    if solver not in _MAKERS:
+        raise NotImplementedError(f"unsupported solver {solver!r}")
+    if solver == "unipc":
+        return _unipc_schedule(num_steps, shift, num_train_timesteps,
+                               solver_order=solver_order)
+    return _MAKERS[solver](num_steps, shift, num_train_timesteps)
 
 
 def init_solver_state(schedule: Schedule, latents) -> Dict[str, Any]:
+    """Solver state carried across steps."""
     z = torch.zeros_like(latents, dtype=torch.float32)
-    return {"m1": z, "m2": z, "m3": z, "last_x": z}
+    if schedule.name == "unipc":
+        return {"m1": z, "m2": z, "m3": z, "last_x": z}
+    if schedule.name == "dpm++":
+        return {"m1": z}
+    return {}
 
 
 def solver_step(schedule: Schedule, i: int, coeffs_i: Dict[str, float],
                 model_output, x, state: Dict[str, Any]):
-    """One UniPC update from step-i scalars.  Returns (x_next, state)."""
-    if schedule.name != "unipc":
-        raise NotImplementedError(schedule.name)
+    """One update from step-i scalars.  Returns (x_next, state)."""
+    name = schedule.name
     c = coeffs_i
     v = model_output.float()
     x = x.float()
+    if name in ("euler", "causvid", "lcm"):
+        return x + v * c["dt"], state
+    if name == "dpm++":
+        m = x - c["sigma"] * v
+        return c["A"] * x + c["B"] * m + c["C"] * (m - state["m1"]), \
+            {"m1": m}
+    if name != "unipc":
+        raise NotImplementedError(name)
     m = x - c["sigma"] * v
     m1, m2, m3 = state["m1"], state["m2"], state["m3"]
     if c["use_corr"] > 0:
