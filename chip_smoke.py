@@ -28,7 +28,8 @@ the repository).  Phases, each printing one JSON line:
             and a row whose x / sx fall on .5 ties; the activation
             quantization (act_quant) bit-equal to its plain version (x_q
             and the bits of sx) on each of those inputs and on the 14B 720p
-            fc2 input (151,200 x 13,824).
+            fc2 input (151,200 x 13,824).  Dense flash also at the i2v
+            image cross-attention's ragged S = 257 (B 2, N 40).
             The table-driven kernels also where their 128-key tiles and the
             kv blocks do not line up (block_kv 64 and 192, S ending in the
             first tile of the last block), at block_q 64 and 192, D 64,
@@ -38,8 +39,10 @@ the repository).  Phases, each printing one JSON line:
             the same forward on the CPU through the plain versions: Wan
             with bf16, int8 and int8a8 weights and dense attention (48
             tokens), int4 weights with the radial mask and W4A8 with Sol
-            (1,024 tokens, so both engage); Krea 2 at head_dim 128 (its
-            masked self-attention and text refiner): max abs err <= 3e-2 *
+            (1,024 tokens, so both engage); a Wan i2v forward (in_dim 36
+            with y, 257 CLIP tokens through the image cross-attention: 3
+            flash launches a layer); Krea 2 at head_dim 128 (its masked
+            self-attention and text refiner): max abs err <= 3e-2 *
             max|ref|.
 4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
@@ -60,8 +63,12 @@ the repository).  Phases, each printing one JSON line:
             the same shape; act_quant alone at every A8 input shape.  W4
             and W4A8 at K=N=5120 run once more first, before any other
             timing.  The batch-1 shapes of (C) below: Sol at B1, the cross
-            flash at B1 (S=512), W4A8 and act_quant at M = 75,600, each
-            with its launches per (C) forward.
+            flash at B1 (S=512), W4A8 and act_quant at M = 75,600 and the
+            cross k/v's M = 512, each with its launches per (C) forward.
+            (F)'s flash shapes (14B at 832x480, CFG batch 2: self, text
+            cross S = 512, image cross S = 257) and (G)'s (the 14B
+            self-attention at 1280x720 at batch 2, W8 at the 14B linears
+            and cross k/v), each with its launches per forward.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
@@ -88,7 +95,22 @@ the repository).  Phases, each printing one JSON line:
                 2.0, MagCache, 8 steps (W8 on the loaded int8 weights);
             (E) t2v_1.3B sliding windows: 157 frames in two windows of 81
                 overlapping by 5, Euler, first-block cache, 2 steps a
-                window.
+                window;
+            (H) t2v_1.3B continue-video: (E)'s output continued by 81
+                frames, overlap 5 (its last 5 frames encoded to the 2
+                latent frames pinned at the window's start, asserted),
+                2 UniPC steps, stitched to 233 frames;
+            (F) i2v (Wan2.1 14B image-to-video) at 832x480x81, bf16, dense,
+                all 40 layers, a full-width CLIP ViT-H/14, from a 640x360
+                PNG (so both resizes run), 2 UniPC steps, guidance 5.0:
+                CLIP, encode, step and decode seconds and peaks; 120 flash
+                launches a forward;
+            (G) i2v_2_2 (Wan2.2 A14B) at 1280x720x81, quantize="int8" on
+                both experts, dense, all 40 layers, the definition's two
+                phases over 2 UniPC steps: the high-noise expert on the
+                first forward and the low-noise one on the second
+                (asserted), 80 flash and 400 W8 launches a forward, none
+                padded; the 720p frame-chunked encode's seconds and peak.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -287,6 +309,8 @@ def phase_check():
         "tail_l1_s70": (1, 1, 70, 3, 128),
         # Krea 2's layer-wise text blocks: B*L_txt items of the 12 layers
         "krea2_layerwise": (64, 12, 12, 20, 128),
+        # the i2v image cross-attention: 257 CLIP tokens, a ragged S
+        "image_cross_s257": (2, 1000, 257, 40, 128),
     }
     flash = {}
     for name, (b, l, s, n, d) in flash_cases.items():
@@ -647,8 +671,51 @@ def phase_dit():
                      "finite": bool(torch.isfinite(res["cuda"]).all())}
         if not (out[mode]["finite"] and err <= 3e-2 * ref_max):
             raise AssertionError(f"small DiT forward ({mode}): {out[mode]}")
+    out["i2v"] = dit_i2v()
     out["krea2"] = dit_krea2()
     emit("dit", tolerance="max_abs<=3e-2*max|ref|", **out)
+
+
+def dit_i2v():
+    """A small Wan i2v forward (in_dim 36 with y, 257 CLIP tokens through
+    img_emb and the image cross-attention), card against CPU; the card's
+    forward launches the flash kernel 3 times a layer."""
+    from wan2gp_tpu_torch.models.wan import dit
+    from wan2gp_tpu_torch.ops import attention as A
+    from wan2gp_tpu_torch.ops.rope import build_rope_3d
+    cfg = dit.WanDiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2,
+                           text_len=16, in_dim=36, model_type="i2v")
+    rng = np.random.default_rng(2)
+    grid = (3, 4, 4)
+    lat, y = (torch.from_numpy(rng.standard_normal(
+        (2, c, grid[0], 2 * grid[1], 2 * grid[2]), dtype=np.float32))
+        for c in (16, 20))
+    ctx = torch.from_numpy(rng.standard_normal((2, 16, 4096),
+                                               dtype=np.float32))
+    clip_fea = torch.from_numpy(rng.standard_normal((2, 257, 1280),
+                                                    dtype=np.float32))
+    t = torch.tensor([900.0, 250.0])
+    p = dit.init_wan_dit(torch.Generator().manual_seed(3), cfg)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        pd = _tree_to(p, dev)
+        cos, sin = build_rope_3d(grid, head_dim=cfg.head_dim, device=dev)
+        before = A.launches
+        res[dev] = dit.wan_dit_forward(
+            pd, cfg, lat.to(dev), t.to(dev), ctx.to(dev), cos, sin,
+            clip_fea=clip_fea.to(dev), y=y.to(dev)).float().cpu()
+        launched = A.launches - before
+    ref_max = res["cpu"].abs().max().item()
+    err = (res["cuda"] - res["cpu"]).abs().max().item()
+    out = {"config": "dim 256, 2 heads of 128, 2 layers, in_dim 36, "
+                     "257 CLIP tokens", "tokens": int(np.prod(grid)),
+           "max_abs": err, "ref_max": ref_max, "flash_launches": launched,
+           "finite": bool(torch.isfinite(res["cuda"]).all())}
+    if not (out["finite"] and err <= 3e-2 * ref_max
+            and launched == 3 * cfg.num_layers):
+        raise AssertionError(f"small i2v DiT forward: {out}, want "
+                             f"{3 * cfg.num_layers} flash launches")
+    return out
 
 
 def dit_krea2():
@@ -1005,7 +1072,18 @@ def time_w4a8(m, k, n):
 C_PER_FORWARD = {"sol_720p_b1": 40, "cross_14B_720p_b1": 40,
                  "75600x5120x5120": 240, "75600x5120x13824": 40,
                  "75600x13824x5120": 40, "75600x5120": 200,
-                 "75600x13824": 40}
+                 "75600x13824": 40, "512x5120x5120": 80, "512x5120": 40}
+# launches per DiT forward of (F) (14B i2v, 832x480, bf16, CFG batch 2):
+# per layer self, text cross and image cross flash
+F_PER_FORWARD = {"self_14B_480p": 40, "cross_14B_480p": 40,
+                 "image_cross_14B_480p": 40}
+# launches per DiT forward of (G) (Wan2.2 i2v at 1280x720, int8, CFG
+# batch 2), either expert: per layer one self and one cross flash; W8 on
+# q, k, v, o of the self-attention and q, o of the cross-attention, fc1,
+# fc2 at M = 151,200 and cross k, v at M = 1,024
+G_PER_FORWARD = {"self_14B_720p_b2": 40, "cross_14B_720p": 40,
+                 "151200x5120x5120": 240, "151200x5120x13824": 40,
+                 "151200x13824x5120": 40, "1024x5120x5120": 80}
 
 
 def phase_time(tokens: int):
@@ -1060,15 +1138,31 @@ def phase_time(tokens: int):
     # (C)'s batch-1 products at M = 75,600
     w4a8.update({f"{m}x{k}x{n}": time_w4a8(m, k, n) for m, k, n in (
         (75600, 5120, 5120), (75600, 5120, 13824), (75600, 13824, 5120))})
+    # (C)'s cross k/v products at M = 512
+    w4a8["512x5120x5120"] = time_w4a8(512, 5120, 5120)
     # every A8 input: the 1.3B and 14B linears' K at their M
     aq = {f"{m}x{k}": time_act_quant(m, k) for m, k in (
         (2 * tokens, 1536), (2 * tokens, 8960), (1024, 1536),
         (151200, 5120), (151200, 13824), (1024, 5120), (75600, 5120),
-        (75600, 13824))}
+        (75600, 13824), (512, 5120))}
+    # (F): 14B i2v at 832x480 (the 1.3B's tokens), CFG batch 2; (G): the
+    # 14B self-attention at 1280x720 at batch 2, W8 at the 14B linears
+    for name, shape in (
+            ("self_14B_480p", (2, tokens, tokens, 40, 128)),
+            ("cross_14B_480p", (2, tokens, 512, 40, 128)),
+            ("image_cross_14B_480p", (2, tokens, 257, 40, 128)),
+            ("self_14B_720p_b2", (2, 75600, 75600, 40, 128))):
+        flash[name] = time_flash(name, *shape)
+    w8.update({f"{m}x{k}x{n}": time_w8(f"{m}x{k}x{n}", m, k, n)
+               for m, k, n in shapes_14b})
     for table in (flash, sol, w4a8, aq):
         for case, t in table.items():
             if case in C_PER_FORWARD:
                 t["launches_per_forward_C"] = C_PER_FORWARD[case]
+    for case, n in F_PER_FORWARD.items():
+        flash[case]["launches_per_forward_F"] = n
+    for case, n in G_PER_FORWARD.items():
+        (flash if case in flash else w8)[case]["launches_per_forward_G"] = n
     emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
          matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, tolerance=TOLERANCE)
@@ -1112,8 +1206,10 @@ def record_forwards():
             calc = out[1][1] is not fbc[1]
         else:
             calc = True
-        FORWARDS[-1].append({"calc": calc, "s": dt, "launches": {
-            k: after[k] - before[k] for k in after if after[k] != before[k]}})
+        FORWARDS[-1].append({"calc": calc, "s": dt, "params": id(a[0]),
+                             "launches": {k: after[k] - before[k]
+                                          for k in after
+                                          if after[k] != before[k]}})
         return out
     P.wan_dit_forward = recorder
     return real
@@ -1263,17 +1359,22 @@ def phase_service(frames: int):
     media.save_video, media.save_image = save_checked, save_image_checked
     real_forward = record_forwards()
     real_denoise, real_decode = WanPipeline.denoise, WanPipeline.decode
+    real_encode, real_clip = (WanPipeline.encode_video,
+                              pipe_mod.clip_vision_encode)
     real_krea2_denoise = krea2_pipe.krea2_denoise
     WanPipeline.denoise = timed("denoise", real_denoise)
     WanPipeline.decode = timed("decode", real_decode)
+    WanPipeline.encode_video = timed("encode", real_encode)
+    pipe_mod.clip_vision_encode = timed("clip", real_clip)
     krea2_pipe.krea2_denoise = timed("denoise", real_krea2_denoise)
     out_dir = os.path.join(OUT, "outputs")
 
     def run(label, model_type, quantize, attention, n_req, w, h, layers,
-            per_forward, after=None):
+            per_forward, after=None, settings=None):
         """n_req requests; per_forward: the launches one DiT forward must
         make, by kernel (the others must make none).  after(svc): more
-        work on the loaded pipeline before it is released."""
+        work on the loaded pipeline before it is released.  settings: more
+        keys of each request."""
         arch = fam._ARCH[model_type]
         fam._ARCH[model_type] = {**arch, "num_layers": layers}
         svc = svc_mod.GenerationService(init_random_weights=True,
@@ -1301,7 +1402,7 @@ def phase_service(frames: int):
                 "resolution": f"{w}x{h}", "video_length": frames,
                 "num_inference_steps": STEPS, "guidance_scale": 5.0,
                 "sample_solver": "unipc", "seed": i,
-                "attention_mode": attention})
+                "attention_mode": attention, **(settings or {})})
             req_s = time.perf_counter() - t0
             ok = (len(paths) == 1 and os.path.getsize(paths[0]) > 0
                   and seen and seen[0]["finite"]
@@ -1375,11 +1476,12 @@ def phase_service(frames: int):
                 .tolist(), "launches_per_calc_forward": per_forward, **out}
 
     def recorded_request(label, fn, calc_flags, per_calc, per_skip, n_frames,
-                         h, w):
+                         h, w, keep=False):
         """Runs fn (a request) with every DiT forward recorded; checks each
         forward's launches against per_calc / per_skip by its calc flag,
         the flags against calc_flags (None: the data decided them), the
-        total against the counters, and the frames."""
+        total against the counters, and the frames.  keep: leave the
+        service's output file (its path is returned as "path")."""
         reset_counts()
         seen.clear()
         split.clear()
@@ -1406,7 +1508,7 @@ def phase_service(frames: int):
         if counts != total:
             raise AssertionError(f"{label}: launches {counts} outside the "
                                  f"forwards {total}")
-        nbytes = None
+        nbytes = path = None
         if isinstance(video, torch.Tensor):      # WanPipeline.generate
             seen.append({"shape": list(video.shape),
                          "finite": bool(torch.isfinite(video).all())})
@@ -1414,7 +1516,10 @@ def phase_service(frames: int):
             if len(video) != 1 or os.path.getsize(video[0]) == 0:
                 raise AssertionError(f"{label}: outputs {video}")
             nbytes = os.path.getsize(video[0])
-            os.remove(video[0])             # frames are stored uncompressed
+            if keep:
+                path = video[0]
+            else:
+                os.remove(video[0])         # frames are stored uncompressed
         if not (seen and seen[0]["finite"]
                 and seen[0]["shape"] == [n_frames, h, w, 3]):
             raise AssertionError(f"{label}: frames {seen}")
@@ -1423,9 +1528,11 @@ def phase_service(frames: int):
         return {"forwards": len(fw), "calc_forwards": n_calc,
                 "calc_flags": [int(c) for c in flags],
                 "forward_s": [f["s"] for f in fw],
+                "forward_params": [f["params"] for f in fw],
                 "calc_forward_s": calc_s / max(n_calc, 1),
                 "request_s": req_s, **split, "launches": counts,
-                "frames": seen[0]["shape"], "bytes": nbytes}
+                "frames": seen[0]["shape"], "bytes": nbytes,
+                **({"path": path} if keep else {})}
 
     def run_d():
         """(D): 1.3B from checkpoint files through the service.  Random
@@ -1553,7 +1660,7 @@ def phase_service(frames: int):
             "sample_solver": "euler", "cache_type": "fbc",
             "cache_threshold": E_FBC_THRESHOLD, "seed": 4}),
             [1, 0, 1, 0], {"flash_attention": 60}, {"flash_attention": 2},
-            total, 480, 832)
+            total, 480, 832, keep=True)
         svc.release_model()
         del svc
         torch.cuda.empty_cache()
@@ -1563,6 +1670,103 @@ def phase_service(frames: int):
                 "stitched_frames": total, "steps_per_window": 2,
                 "fbc_threshold": E_FBC_THRESHOLD,
                 "plan": out["calc_flags"], **out}
+
+    def run_h(source):
+        """(H): t2v_1.3B continue-video through the service: (E)'s
+        157-frame output continued by 81 frames, overlap 5, UniPC, 2
+        steps.  The source's last 5 frames encode to the 2 latent frames
+        pinned at the start of the only window; the result is the source
+        with the continuation cross-faded onto its last 5 frames."""
+        n_src = media.read_avi(source).shape[0]
+        svc = svc_mod.GenerationService(init_random_weights=True,
+                                        output_dir=out_dir)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svc.get_pipeline("t2v_1.3B")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        pinned = []
+        timed_denoise = WanPipeline.denoise
+
+        def spy(self, *a, overlap_latents=None, **kw):
+            pinned.append(None if overlap_latents is None
+                          else list(overlap_latents.shape))
+            return timed_denoise(self, *a, overlap_latents=overlap_latents,
+                                 **kw)
+        WanPipeline.denoise = spy
+        try:
+            out = recorded_request("(H)", lambda: svc.generate({
+                "model_type": "t2v_1.3B", "prompt": "a red fox",
+                "video_source": source, "video_length": frames,
+                "sliding_window_overlap": 5, "num_inference_steps": STEPS,
+                "guidance_scale": 5.0, "sample_solver": "unipc",
+                "seed": 6}), [1] * STEPS, {"flash_attention": 60}, {},
+                n_src + frames - 5, 480, 832)
+        finally:
+            WanPipeline.denoise = timed_denoise
+        if pinned != [[1, 16, 2, 60, 104]]:
+            raise AssertionError(f"(H): pinned overlaps {pinned}")
+        svc.release_model()
+        del svc
+        torch.cuda.empty_cache()
+        return {"label": "(H) 1.3B 480p continue-video: (E)'s output "
+                         "continued by 81 frames, overlap 5",
+                "source_frames": n_src, "new_frames": frames,
+                "pinned_overlap": pinned[0], "steps": STEPS,
+                "load_s": load_s, "load_peak_gb": load_peak, **out}
+
+    def run_g(png):
+        """(G): i2v_2_2 (Wan2.2 A14B image-to-video) at 1280x720x81 with
+        quantize="int8" on both experts, dense attention, all 40 layers,
+        the definition's two phases (switch_threshold 900, guidance
+        3.5 / 3.5, flow_shift 5) over 2 UniPC steps: t = 999 runs the
+        high-noise expert, t = 833 the low-noise one."""
+        from wan2gp_tpu_torch.models.wan.pipeline import plan_phases
+        from wan2gp_tpu_torch.schedulers import make_schedule
+        svc = svc_mod.GenerationService(init_random_weights=True,
+                                        output_dir=out_dir,
+                                        quantize="int8")
+        sampling = fam.sampling_from_settings({
+            **svc.registry.default_settings("i2v_2_2"),
+            "num_inference_steps": STEPS})
+        sched = make_schedule("unipc", STEPS, sampling.shift)
+        phases = plan_phases(sched.timesteps, sampling, True)
+        if [p[3] for p in phases] != [0, 1]:
+            raise AssertionError(f"(G): phases {phases}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = svc.get_pipeline("i2v_2_2")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        Q.w8_pad_launches = Q.w4_pad_launches = 0
+        Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+        per_forward = {"flash_attention": 80, "matmul_w8": 400}
+        out = recorded_request("(G)", lambda: svc.generate({
+            "model_type": "i2v_2_2", "prompt": "a red fox",
+            "resolution": "1280x720", "video_length": frames,
+            "num_inference_steps": STEPS, "sample_solver": "unipc",
+            "image_start": png, "seed": 5}), [1] * STEPS, per_forward, {},
+            frames, 720, 1280)
+        experts = [{id(pipe.dit_params): 0, id(pipe.dit_params2): 1}
+                   .get(i) for i in out.pop("forward_params")]
+        if experts != [0, 1]:
+            raise AssertionError(f"(G): experts by forward {experts}")
+        padded = (Q.w8_pad_launches + Q.w4_pad_launches
+                  + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
+        if padded:
+            raise AssertionError(f"(G): {padded} matmul launches padded")
+        svc.release_model()
+        del svc, pipe
+        torch.cuda.empty_cache()
+        return {"label": "(G) Wan2.2 i2v A14B 720p, int8 on both experts, "
+                         "two phases", "steps": STEPS,
+                "timesteps": sched.timesteps.tolist(),
+                "phases": [list(p) for p in phases],
+                "experts_by_forward": experts, "load_s": load_s,
+                "load_peak_gb": load_peak, "padded_launches": padded,
+                "launches_per_forward": per_forward, **out}
 
     def run_krea2(n_req, size):
         """n_req krea2_raw requests (guidance 3.5: CFG as batch 2) at all
@@ -1649,10 +1853,27 @@ def phase_service(frames: int):
         results["krea2_raw"] = run_krea2(2, 1024)
         results["1.3B_checkpoint_D"] = run_d()
         results["1.3B_sliding_E"] = run_e()
+        source = results["1.3B_sliding_E"].pop("path")
+        results["1.3B_continue_H"] = run_h(source)
+        os.remove(source)
+        # the image of (F) and (G), at another size than either request
+        png = os.path.join(OUT, "image_start.png")
+        yy, xx = np.meshgrid(np.linspace(0, 1, 360), np.linspace(0, 1, 640),
+                             indexing="ij")
+        real_save_image((np.stack([xx, yy, xx * yy], -1) * 2 - 1)
+                        .astype(np.float32), png)
+        # 40 self + 40 text cross + 40 image cross flash a forward
+        results["14B_i2v_F"] = run(
+            "(F) 14B i2v", "i2v", "", "auto", 1, 832, 480, 40,
+            {"flash_attention": 120}, settings={"image_start": png})
+        results["14B_i2v_2_2_G"] = run_g(png)
+        os.remove(png)
     finally:
         media.save_video, media.save_image = real_save, real_save_image
         pipe_mod.wan_dit_forward = real_forward
         WanPipeline.denoise, WanPipeline.decode = real_denoise, real_decode
+        WanPipeline.encode_video = real_encode
+        pipe_mod.clip_vision_encode = real_clip
         krea2_pipe.krea2_denoise = real_krea2_denoise
     emit("service", frames=frames, latent_frames=(frames - 1) // 4 + 1,
          steps=STEPS, guidance_scale=5.0, solver="unipc",

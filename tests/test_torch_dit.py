@@ -206,4 +206,4 @@ def test_block_goldens(golden):
 def test_unported_model_type_raises():
     with pytest.raises(NotImplementedError):
         dit.init_wan_dit(torch.Generator().manual_seed(0),
-                         dataclasses.replace(CFG, model_type="i2v"))
+                         dataclasses.replace(CFG, model_type="phantom"))

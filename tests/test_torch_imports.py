@@ -36,6 +36,7 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.models.flux.dit",
     "wan2gp_tpu_torch.models.wan.pipeline",
     "wan2gp_tpu_torch.models.wan.t5",
+    "wan2gp_tpu_torch.models.wan.clip_vision",
     "wan2gp_tpu_torch.models.wan.vae_scan",
     "wan2gp_tpu_torch.ops.attention",
     "wan2gp_tpu_torch.ops.sparse_attention",
@@ -132,6 +133,8 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
         "WanPipeline": lambda: WanPipeline({}, WanDiTConfig()),
         "load_model": lambda: WanFamilyHandler.load_model(
             "t2v_1.3B", {}, init_random=True),
+        "i2v load_model": lambda: WanFamilyHandler.load_model(
+            "i2v", {}, init_random=True),
         "Krea2Pipeline": lambda: Krea2Pipeline({}, Krea2Config()),
         "krea2 load_model": lambda: Krea2FamilyHandler.load_model(
             "krea2_raw", {}, init_random=True),

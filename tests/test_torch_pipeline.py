@@ -185,7 +185,7 @@ def test_unported_variant_settings_raise(tiny_arch, tmp_path):
     with pytest.raises(NotImplementedError):
         svc.generate({"prompt": "x", "resolution": "32x32",
                       "video_length": 1, "num_inference_steps": 1,
-                      "image_start": "start.png"})
+                      "image_end": "end.png"})
 
 
 # ------------------------------------------------------------------- media

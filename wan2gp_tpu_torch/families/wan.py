@@ -1,19 +1,23 @@
-"""Wan 2.1 family handler, text-to-video rows.
+"""Wan 2.1 / 2.2 family handler: text- and image-to-video rows.
 
 Counterpart of wan2gp_tpu/families/wan.py for `t2v_1.3B` (dim 1536, 12
-heads, 30 layers) and `t2v` (14B: dim 5120, 40 heads, 40 layers): random
-weights or checkpoint files (torch-layout safetensors, quanto-int8
-included), plain or sliding-window generation.  The other Wan variants
-are not ported yet.
+heads, 30 layers), `t2v` and `i2v` (14B: dim 5120, 40 heads, 40 layers;
+i2v with 36 input channels and the CLIP image branch) and Wan2.2's
+two-expert `t2v_2_2` and `i2v_2_2`: random weights or checkpoint files
+(torch-layout safetensors, quanto-int8 included), plain, image-started,
+sliding-window or continue-video generation.  The other Wan variants are
+not ported yet.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.wan.clip_vision import ClipVisionConfig, init_clip_vision
 from ..models.wan.dit import WanDiTConfig, init_wan_dit
 from ..models.wan.vae import WanVAEConfig, init_wan_vae
 from ..models.wan.t5 import T5Config
@@ -24,11 +28,18 @@ _ARCH: Dict[str, Dict[str, Any]] = {
                      model_type="t2v", vae_stride=(4, 8, 8)),
     "t2v": dict(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
                 model_type="t2v", vae_stride=(4, 8, 8)),
+    "t2v_2_2": dict(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
+                    model_type="t2v", vae_stride=(4, 8, 8), experts=2),
+    "i2v": dict(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
+                model_type="i2v", in_dim=36, vae_stride=(4, 8, 8)),
+    "i2v_2_2": dict(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
+                    model_type="t2v", in_dim=36, vae_stride=(4, 8, 8),
+                    experts=2),
 }
 
 # settings that select a generation path this port does not have yet
-_UNPORTED_INPUTS = ("image_start", "image_end", "image_refs", "video_guide",
-                    "video_source", "audio_guide", "custom_guide")
+_UNPORTED_INPUTS = ("image_end", "image_refs", "video_guide", "audio_guide",
+                    "custom_guide")
 
 
 class WanFamilyHandler:
@@ -41,9 +52,14 @@ class WanFamilyHandler:
     @staticmethod
     def query_model_def(base_model_type: str,
                         model_def: Dict[str, Any]) -> Dict[str, Any]:
-        return {"vae_stride": _ARCH[base_model_type]["vae_stride"],
-                "i2v_class": False, "image_outputs": False,
-                "multiple_submodels": False, "sliding_window": True}
+        arch = _ARCH[base_model_type]
+        return {"vae_stride": arch["vae_stride"],
+                "i2v_class": arch["model_type"] == "i2v",
+                "image_outputs": False,
+                "multiple_submodels": arch.get("experts", 1) > 1,
+                "sliding_window": True,
+                "tea_cache": arch.get("experts", 1) == 1,
+                "mag_cache": True}
 
     @staticmethod
     def default_settings(base_model_type: str) -> Dict[str, Any]:
@@ -68,10 +84,14 @@ class WanFamilyHandler:
     @staticmethod
     def query_model_files(base_model_type: str,
                           model_def: Dict[str, Any]) -> List[Dict[str, Any]]:
-        """The checkpoint roles of a t2v model."""
+        """The checkpoint roles of a t2v or i2v model: Wan2.2's second
+        expert is "transformer2", from the definition's URLs2."""
         base = "https://huggingface.co/DeepBeepMeep/Wan2.1/resolve/main/"
-        return [
-            {"role": "transformer", "urls": model_def.get("URLs", [])},
+        files = [{"role": "transformer", "urls": model_def.get("URLs", [])}]
+        if model_def.get("URLs2"):
+            files.append({"role": "transformer2",
+                          "urls": model_def["URLs2"]})
+        return files + [
             {"role": "text_encoder", "urls": [
                 base + "models_t5_umt5-xxl-enc-bf16.safetensors"]},
             {"role": "vae", "urls": [base + "Wan2.1_VAE.safetensors"]},
@@ -83,25 +103,44 @@ class WanFamilyHandler:
                    dtype=torch.bfloat16, attn_backend: str = "auto",
                    init_random: bool = False, seed: int = 0,
                    device=None) -> WanPipeline:
-        """checkpoints: {"transformer": path, "text_encoder": path, "vae":
-        path}; the text encoder and the VAE are optional (without the
-        text encoder, prompts are embedded by their hash); the text
-        encoder's tokenizer is read from the UMT5 tokenizer files in its
-        folder, and their absence raises.  init_random
-        builds random weights from `seed` on `device` instead.  A
-        transformer key that the loader does not consume raises."""
+        """checkpoints: {"transformer": path, "transformer2": path,
+        "text_encoder": path, "vae": path}; the text encoder and the VAE
+        are optional (without the text encoder, prompts are embedded by
+        their hash); the text encoder's tokenizer is read from the UMT5
+        tokenizer files in its folder, and their absence raises.  A model
+        with two experts needs "transformer2".  init_random builds random
+        weights from `seed` on `device` instead (expert 2 from seed + 2,
+        the CLIP tower of model_type "i2v" from seed + 3).  A transformer
+        key that the loader does not consume raises, and so does an i2v
+        model from files: the CLIP checkpoint has no loader yet."""
         dev = resolve_device(device)
+        arch = _ARCH[base_model_type]
         dit_cfg = cls.dit_config(base_model_type, dtype)
         vae_cfg = WanVAEConfig()
         t5_cfg = T5Config()
+        two = arch.get("experts", 1) > 1
+        dit_params2 = clip_params = clip_cfg = None
+        if dit_cfg.i2v_cross_attn:
+            clip_cfg = ClipVisionConfig(compute_dtype=dtype)
         if init_random:
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
             dit_params = init_wan_dit(gen, dit_cfg, dtype)
             gen.manual_seed(seed + 1)
             vae_params = init_wan_vae(gen, vae_cfg)
+            if two:
+                gen.manual_seed(seed + 2)
+                dit_params2 = init_wan_dit(gen, dit_cfg, dtype)
+            if clip_cfg is not None:
+                gen.manual_seed(seed + 3)
+                clip_params = init_clip_vision(gen, clip_cfg, dtype)
             t5_params = tokenizer = None
         else:
+            if clip_cfg is not None:
+                raise NotImplementedError(
+                    f"{base_model_type} from files needs its CLIP vision "
+                    "checkpoint, which has no loader yet (ROADMAP Queue 1 "
+                    "item 2); without it the image branch would be dropped")
             if not checkpoints or not checkpoints.get("transformer"):
                 raise ValueError(
                     "no transformer checkpoint: pass checkpoints="
@@ -110,12 +149,21 @@ class WanFamilyHandler:
             from ..io.wan_checkpoint import (
                 normalize_wan_sd, load_wan_dit_params, load_t5_params,
                 load_wan_vae_params)
-            sd = normalize_wan_sd(load_weights(checkpoints["transformer"]))
-            dit_params, left = load_wan_dit_params(sd, dit_cfg, dtype,
+            if two and not checkpoints.get("transformer2"):
+                raise ValueError(f"{base_model_type} has two experts: pass "
+                                 "checkpoints['transformer2'] too")
+
+            def load_dit(role):
+                sd = normalize_wan_sd(load_weights(checkpoints[role]))
+                params, left = load_wan_dit_params(sd, dit_cfg, dtype,
                                                    device=dev)
-            if left:
-                raise ValueError(f"unconsumed transformer keys: {left[:8]}")
-            del sd
+                if left:
+                    raise ValueError(f"unconsumed {role} keys: {left[:8]}")
+                return params
+
+            dit_params = load_dit("transformer")
+            if two:
+                dit_params2 = load_dit("transformer2")
             t5_params = tokenizer = None
             if checkpoints.get("text_encoder"):
                 tokenizer = umt5_tokenizer(checkpoints["text_encoder"])
@@ -131,19 +179,45 @@ class WanFamilyHandler:
                            vae_cfg=vae_cfg, tokenizer=tokenizer,
                            vae_stride=_ARCH[base_model_type]["vae_stride"],
                            attn_backend=attn_backend,
-                           base_model_type=base_model_type, device=dev)
+                           base_model_type=base_model_type, device=dev,
+                           dit_params2=dit_params2, clip_params=clip_params,
+                           clip_cfg=clip_cfg)
 
     @classmethod
     def generate_video(cls, pipe, merged: Dict[str, Any], width: int,
                        height: int, frame_num: int, seed: int):
-        """t2v generation, in sliding windows when `sliding_window_size`
-        is set and shorter than the video.  Returns {"video": [T, H, W, 3]
+        """t2v or i2v generation, in sliding windows when
+        `sliding_window_size` is set and shorter than the video.
+        `image_start` (an [H, W, 3] array, uint8 or float in [-1, 1], or a
+        PNG path; of a list, the first) starts the video from that image;
+        `video_source` (an AVI path) is continued by `video_length` frames
+        and the result stitched onto it.  An i2v-class model (DiT in_dim
+        above the VAE's latent channels) needs `image_start`; neither a
+        video source nor sliding windows take one.  Returns {"video": [T, H, W, 3]
         float in [-1, 1] on the host, "fps": int}."""
+        from ..utils import media
+        from ..windows import stitch_windows
         for key in _UNPORTED_INPUTS:
             if merged.get(key):
                 raise NotImplementedError(
                     f"setting {key!r} selects a Wan variant that is not "
                     "ported yet (ROADMAP Queue 1)")
+        ims = merged.get("image_start")
+        if isinstance(ims, (list, tuple)):
+            ims = ims[0] if ims else None
+        if isinstance(ims, str):
+            ims = media.read_image(ims)
+        window = int(merged.get("sliding_window_size", 0) or 0)
+        source = merged.get("video_source")
+        if ims is not None and (source or (window and frame_num > window)):
+            raise NotImplementedError(
+                "image_start with " + ("video_source" if source else
+                                       "sliding windows")
+                + " is not ported yet (ROADMAP Queue 1)")
+        if ims is None and pipe.dit_cfg.in_dim > pipe.vae_cfg.z_dim:
+            raise ValueError(
+                f"{pipe.base_model_type!r} is an image-to-video model (DiT "
+                f"in_dim {pipe.dit_cfg.in_dim}): it needs image_start")
         fps = int(merged.get("fps", 16) or 16)
         common = dict(prompt=merged.get("prompt", ""),
                       n_prompt=merged.get("negative_prompt", ""),
@@ -151,7 +225,19 @@ class WanFamilyHandler:
                       sampling=sampling_from_settings(merged), seed=seed,
                       context=merged.get("_context"),
                       context_null=merged.get("_context_null"))
-        window = int(merged.get("sliding_window_size", 0) or 0)
+        if source:
+            # the source's tail frames become the first window's overlap;
+            # the continuation is cross-faded onto the source over it
+            src = media.read_avi(source).astype(np.float32) / 127.5 - 1.0
+            ov = int(merged.get("sliding_window_overlap", 5) or 5)
+            common.update(width=src.shape[2], height=src.shape[1])
+            new = pipe.generate_sliding(
+                window_size=window or frame_num, overlap=ov,
+                discard=int(merged.get(
+                    "sliding_window_discard_last_frames", 0)),
+                source_frames=src, **common)
+            return {"video": stitch_windows([src, new], [0, ov]),
+                    "fps": fps}
         if window and frame_num > window:
             return {"video": pipe.generate_sliding(
                 window_size=window,
@@ -159,7 +245,8 @@ class WanFamilyHandler:
                 discard=int(merged.get(
                     "sliding_window_discard_last_frames", 0)),
                 **common), "fps": fps}
-        return {"video": pipe.generate(**common).cpu().numpy(), "fps": fps}
+        return {"video": pipe.generate(image_start=ims, **common)
+                .cpu().numpy(), "fps": fps}
 
 
 def umt5_tokenizer(text_encoder_path: str):

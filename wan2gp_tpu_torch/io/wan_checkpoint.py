@@ -1,7 +1,7 @@
 """Torch-layout checkpoint -> the port's param trees for the Wan stack.
 
-Counterpart of wan2gp_tpu/io/wan_checkpoint.py for the t2v path.  Maps
-the reference state-dict key space (models/wan/modules/model.py, t5.py,
+Counterpart of wan2gp_tpu/io/wan_checkpoint.py for the t2v and i2v DiTs.
+Maps the reference state-dict key space (models/wan/modules/model.py, t5.py,
 vae.py) onto the shared tree layout:
   - linear weights [out, in] -> transposed [in, out];
   - quanto-int8 linears (`weight._data` int8 [out, in] + `weight._scale`
@@ -15,10 +15,11 @@ Prefix/key normalization mirrors WanModel.preprocess_sd_with_dtype
 (tree, leftover keys); every leaf is a fresh tensor on `device` (cuda
 unless the caller asks for another device).
 
-The variant branches of the JAX loader (VACE, i2v image embedding,
-FantasyTalking, ShotPlan) are not ported: their keys stay leftovers, which
-`families/wan.py` refuses.  Wan2.2's VAE and the HF T5 encoder are ROADMAP
-Queue 1 items.
+The i2v image branch (`cross_attn.{k_img,v_img,norm_k_img}` and
+`img_emb.proj.*`) loads as the JAX loader loads it.  The other variant
+branches (VACE, FantasyTalking, ShotPlan) are not ported: their keys stay
+leftovers, which `families/wan.py` refuses.  Wan2.2's VAE and the HF T5
+encoder are ROADMAP Queue 1 items.
 """
 from __future__ import annotations
 
@@ -115,6 +116,10 @@ def load_wan_dit_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
         a = {k: r.lin(f"{pre}.{k}", dtype) for k in ("q", "k", "v", "o")}
         a["norm_q"] = r.vec(f"{pre}.norm_q.weight")
         a["norm_k"] = r.vec(f"{pre}.norm_k.weight")
+        if name == "cross_attn" and r.has(f"{pre}.k_img.weight"):
+            a["k_img"] = r.lin(f"{pre}.k_img", dtype)
+            a["v_img"] = r.lin(f"{pre}.v_img", dtype)
+            a["norm_k_img"] = r.vec(f"{pre}.norm_k_img.weight")
         return a
 
     def block(i):
@@ -136,6 +141,15 @@ def load_wan_dit_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
                     else "head.modulation.weight")
     p["head"] = {"head": r.lin("head.head", torch.float32),
                  "modulation": r.vec(head_mod_key, (2, -1))}
+    if r.has("img_emb.proj.1.weight"):
+        p["img_emb"] = {
+            "norm1": {"w": r.vec("img_emb.proj.0.weight"),
+                      "b": r.vec("img_emb.proj.0.bias")},
+            "fc1": r.lin("img_emb.proj.1", dtype),
+            "fc2": r.lin("img_emb.proj.3", dtype),
+            "norm2": {"w": r.vec("img_emb.proj.4.weight"),
+                      "b": r.vec("img_emb.proj.4.bias")},
+        }
     return p, r.leftover()
 
 

@@ -1,8 +1,11 @@
-"""Wan 2.1 diffusion transformer (DiT), text-to-video core.
+"""Wan 2.1 / 2.2 diffusion transformer (DiT), text- and image-to-video.
 
-Counterpart of wan2gp_tpu/models/wan/dit.py for the t2v path: patch
-embedding as reshape + matmul, adaLN-zero blocks with RMSNorm-QK
-self-attention + 3D RoPE and text cross-attention, and the adaLN head.
+Counterpart of wan2gp_tpu/models/wan/dit.py for the t2v and i2v paths:
+patch embedding as reshape + matmul (i2v: over the latents with the
+conditioning channels y concatenated), adaLN-zero blocks with RMSNorm-QK
+self-attention + 3D RoPE and text cross-attention (i2v: plus an image
+cross-attention over the CLIP tokens that `img_emb` projects, added to
+the text one), and the adaLN head.
 Params keep the JAX tree layout ([K, N] linears, blocks stacked on a
 leading layer axis); the block loop is a Python loop over that axis.
 The residual stream and modulation math are fp32, matmuls run in
@@ -11,8 +14,8 @@ The residual stream and modulation math are fp32, matmuls run in
 Hooks of the denoise loop: NAG (a second text cross-attention against
 `context_neg`, combined by `_nag_combine`), the TeaCache/MagCache skip
 (`skip_state`, decided on the host) and the first-block cache
-(`fbc_state`, one host read a forward).  The variant hooks of the JAX
-module (VACE, i2v, audio, ...) are not ported yet (ROADMAP Queue 1).
+(`fbc_state`, one host read a forward).  The other variant hooks of the
+JAX module (VACE, audio, ...) are not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ class WanDiTConfig:
     text_dim: int = 4096
     text_len: int = 512
     eps: float = 1e-6
-    model_type: str = "t2v"
+    model_type: str = "t2v"          # "t2v" | "i2v" (CLIP image branch)
     compute_dtype: Any = torch.bfloat16
     residual_dtype: Any = torch.float32
     # activations of the quantized block linears: "bf16" (compute dtype) or
@@ -53,6 +56,10 @@ class WanDiTConfig:
     @property
     def head_dim(self):
         return self.dim // self.num_heads
+
+    @property
+    def i2v_cross_attn(self):
+        return self.model_type == "i2v"
 
 
 # ---------------------------------------------------------------------------
@@ -86,8 +93,10 @@ def _linear(gen, n, d_in, d_out, dtype, std=None, bias=True):
 
 def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
                  dtype=torch.bfloat16) -> Dict[str, Any]:
-    """Random DiT params on the generator's device."""
-    if cfg.model_type != "t2v":
+    """Random DiT params on the generator's device.  model_type "i2v" adds
+    the image cross-attention (k_img, v_img, norm_k_img) and `img_emb`
+    (LN(1280) -> 1280x1280 -> GELU -> 1280xdim -> LN)."""
+    if cfg.model_type not in ("t2v", "i2v"):
         raise NotImplementedError(
             f"model_type {cfg.model_type!r} is not ported yet (ROADMAP "
             "Queue 1: Wan for the other BASELINE configs)")
@@ -96,17 +105,22 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
     pt, ph, pw = cfg.patch_size
     patch_in = cfg.in_dim * pt * ph * pw
 
-    def attn():
-        return {"q": _linear(gen, n, d, d, dtype),
-                "k": _linear(gen, n, d, d, dtype),
-                "v": _linear(gen, n, d, d, dtype),
-                "o": _linear(gen, n, d, d, dtype),
-                "norm_q": torch.ones((n, d), device=dev),
-                "norm_k": torch.ones((n, d), device=dev)}
+    def attn(cross=False):
+        p = {"q": _linear(gen, n, d, d, dtype),
+             "k": _linear(gen, n, d, d, dtype),
+             "v": _linear(gen, n, d, d, dtype),
+             "o": _linear(gen, n, d, d, dtype),
+             "norm_q": torch.ones((n, d), device=dev),
+             "norm_k": torch.ones((n, d), device=dev)}
+        if cross and cfg.i2v_cross_attn:
+            p["k_img"] = _linear(gen, n, d, d, dtype)
+            p["v_img"] = _linear(gen, n, d, d, dtype)
+            p["norm_k_img"] = torch.ones((n, d), device=dev)
+        return p
 
     blocks = {
         "self_attn": attn(),
-        "cross_attn": attn(),
+        "cross_attn": attn(cross=True),
         "norm3": {"w": torch.ones((n, d), device=dev),
                   "b": torch.zeros((n, d), device=dev)},
         "ffn": {"fc1": _linear(gen, n, d, cfg.ffn_dim, dtype),
@@ -115,7 +129,7 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
                               torch.float32),
     }
     f32 = torch.float32
-    return {
+    params = {
         "patch_embedding": _linear(gen, None, patch_in, d, f32),
         "text_embedding": {
             "fc1": _linear(gen, None, cfg.text_dim, d, dtype, std=0.02),
@@ -132,6 +146,16 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
             "modulation": _normal(gen, (2, d), 1.0 / math.sqrt(d), f32),
         },
     }
+    if cfg.i2v_cross_attn:
+        params["img_emb"] = {
+            "norm1": {"w": torch.ones((1280,), device=dev),
+                      "b": torch.zeros((1280,), device=dev)},
+            "fc1": _linear(gen, None, 1280, 1280, dtype),
+            "fc2": _linear(gen, None, 1280, d, dtype),
+            "norm2": {"w": torch.ones((d,), device=dev),
+                      "b": torch.zeros((d,), device=dev)},
+        }
+    return params
 
 
 def layer_params(tree, i: int):
@@ -225,7 +249,7 @@ def _nag_combine(x_pos, x_neg, nag):
 
 
 def _cross_attention(p, x, context, cfg, attn_backend, context_neg=None,
-                     nag=None):
+                     nag=None, context_img=None):
     cdt, aq = cfg.compute_dtype, cfg.act_quant
     xc = x.to(cdt)
     q = _heads(rms_norm(_dense(xc, p["q"], cdt, aq), p["norm_q"], cfg.eps),
@@ -241,6 +265,13 @@ def _cross_attention(p, x, context, cfg, attn_backend, context_neg=None,
     o = text_attn(context)
     if nag is not None and context_neg is not None:
         o = _nag_combine(o, text_attn(context_neg), nag).to(o.dtype)
+    if context_img is not None:
+        cq = quantize_dense_input(context_img, p["k_img"], cdt, aq)
+        k = _heads(rms_norm(_dense(context_img, p["k_img"], cdt, aq, cq),
+                            p["norm_k_img"], cfg.eps), cfg.num_heads)
+        v = _heads(_dense(context_img, p["v_img"], cdt, aq, cq),
+                   cfg.num_heads)
+        o = o + attention(q, k, v, backend=attn_backend)
     return _dense(o.reshape(*x.shape[:2], cfg.dim), p["o"], cdt, aq)
 
 
@@ -252,10 +283,11 @@ def _ffn(p, y, cfg):
 
 
 def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend,
-           context_neg=None, nag=None):
+           context_neg=None, nag=None, context_img=None):
     """One WanAttentionBlock.  x [B, L, C] in residual_dtype; e6 fp32
     [B, T_mod, 6, C] broadcast over tokens; nag = (scale, tau, alpha) with
-    the embedded `context_neg` for NAG."""
+    the embedded `context_neg` for NAG; context_img: the projected CLIP
+    tokens of the image cross-attention (i2v)."""
     rdt, cdt = cfg.residual_dtype, cfg.compute_dtype
     e = e6 + bp["modulation"].float()[None, None]
     b, l, c = x.shape
@@ -276,7 +308,8 @@ def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend,
                    out_dtype=cdt)
     x = (x.float() + _cross_attention(bp["cross_attn"], y, context, cfg,
                                       attn_backend, context_neg=context_neg,
-                                      nag=nag).float()).to(rdt)
+                                      nag=nag, context_img=context_img
+                                      ).float()).to(rdt)
 
     xr = x.reshape(b, t_mod, l // t_mod, c)
     y = modulated_layer_norm(xr, emod(3), emod(4), eps=cfg.eps,
@@ -294,12 +327,18 @@ def time_embedding_vec(params, cfg: WanDiTConfig, t):
 
 
 def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
-                    rope_cos, rope_sin, attn_backend: str = "auto",
-                    skip_state=None, context_neg=None, nag=None,
-                    fbc_state=None, fbc_threshold: float = 0.08):
+                    rope_cos, rope_sin, clip_fea=None, y=None,
+                    attn_backend: str = "auto", skip_state=None,
+                    context_neg=None, nag=None, fbc_state=None,
+                    fbc_threshold: float = 0.08):
     """latents [B, C, F, H, W]; t [B] or [B, F_lat] (0..1000); context
     [B, text_len, text_dim].  Returns the velocity [B, C_out, F, H, W]
     in fp32.
+
+    y [B, C_y, F, H, W]: conditioning latents concatenated to the latents
+    on channels before the patch embedding (i2v: mask and image latents,
+    C + C_y = in_dim).  clip_fea [B, 257, 1280]: CLIP image tokens, read
+    by the image cross-attention of model_type "i2v" (ignored otherwise).
 
     context_neg, nag = (scale, tau, alpha): NAG on the text
     cross-attention.  skip_state = (should_calc: bool, prev_residual):
@@ -314,7 +353,8 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
     pt, ph, pw = cfg.patch_size
     grid = (latents.shape[2] // pt, latents.shape[3] // ph,
             latents.shape[4] // pw)
-    x = patchify(latents.float(), cfg.patch_size)
+    x_in = latents if y is None else torch.cat([latents, y.to(latents)], 1)
+    x = patchify(x_in.float(), cfg.patch_size)
     x = _dense(x, params["patch_embedding"], torch.float32)
     x = x.to(cfg.residual_dtype)
 
@@ -335,11 +375,20 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
 
     ctx = embed_text(context)
     ctx_neg = None if context_neg is None else embed_text(context_neg)
+    ctx_img = None
+    if clip_fea is not None and cfg.i2v_cross_attn:
+        ie = params["img_emb"]
+        h = layer_norm(clip_fea.float(), ie["norm1"]["w"], ie["norm1"]["b"])
+        h = _dense(h.to(cdt), ie["fc1"], cdt)
+        h = F.gelu(h.float()).to(cdt)
+        h = _dense(h, ie["fc2"], cdt)
+        ctx_img = layer_norm(h.float(), ie["norm2"]["w"], ie["norm2"]["b"],
+                             out_dtype=cdt)
 
     def block(i, x):
         return _block(layer_params(params["blocks"], i), x, e6, ctx,
                       rope_cos, rope_sin, cfg, attn_backend,
-                      context_neg=ctx_neg, nag=nag)
+                      context_neg=ctx_neg, nag=nag, context_img=ctx_img)
 
     # the loops rebind x in this frame, so each block's input is freed as
     # the next block runs (a helper taking x would pin the stack's input:

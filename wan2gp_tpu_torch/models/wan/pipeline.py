@@ -1,6 +1,7 @@
-"""Wan text-to-video pipeline: text encoding, denoise loop, VAE decode.
+"""Wan text- and image-to-video pipeline: text encoding, i2v conditioning,
+denoise loop, VAE encode and decode.
 
-Counterpart of the t2v path of wan2gp_tpu/models/wan/pipeline.py.  The
+Counterpart of the t2v and i2v paths of wan2gp_tpu/models/wan/pipeline.py.  The
 JAX package compiles each guidance phase into one `lax.scan` (or, for
 sequential CFG with `host_loop`, a host loop over a jitted micro-step);
 here each phase is a Python loop over steps.  CFG runs joint (cond and
@@ -9,10 +10,15 @@ sequential (two batch-1 forwards per step, cond then uncond, each branch
 with its own skip residual).  The TeaCache/MagCache skip plan is decided
 on the host before the loop (`caches.py`), the first-block cache reads
 one scalar a step; NAG runs a second text cross-attention; sliding
-windows pin and re-noise the previous window's tail latents.
+windows pin and re-noise the previous window's tail latents, and
+continue-video pins the encoded tail of a source video the same way.
+Wan2.2's two experts run the guidance phases that `plan_phases` gives
+each (the high-noise expert first).  Image-to-video concatenates the
+conditioning y = mask(4) || VAE latents(16) of [image, zeros...] to the
+latents, and (Wan2.1 i2v) adds CLIP image tokens.
 
-Not ported yet (ROADMAP Queue 1): the i2v/VACE conditioning, the VAE
-encode (so no continue-video) and the variant generators.
+Not ported yet (ROADMAP Queue 1): the VACE conditioning, the other i2v
+variants (first-last frame, SVI) and the variant generators.
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ from ...schedulers import Schedule, make_schedule, init_solver_state, \
 from ...ops.rope import build_rope_3d
 from .dit import WanDiTConfig, wan_dit_forward, time_embedding_vec
 from .vae import WanVAEConfig, vae_decode
-from .vae_scan import vae_decode_chunked
+from .vae_scan import vae_decode_chunked, vae_encode_chunked
 from .t5 import T5Config, t5_encode
+from .clip_vision import (ClipVisionConfig, clip_vision_encode,
+                          preprocess_image, resize_bicubic)
 
 DEFAULT_NEGATIVE_PROMPT = (
     "色调艳丽，过曝，静态，细节模糊不清，字幕，风格，作品，画作，画面，静止，整体发灰，最差质量，"
@@ -129,11 +137,13 @@ def denoise_segment(dit_params, dit_cfg: WanDiTConfig, schedule: Schedule,
                     carry, context, context_null, sampling: SamplingConfig,
                     guide_scale: float, rope_cos, rope_sin,
                     step_start: int, step_end: int,
+                    y=None, clip_fea=None,
                     attn_backend: str = "auto", skip_schedule=None,
                     overlap_latents=None, overlap_sigma_scale: float = 1.0,
                     overlap_noise=None):
     """Steps [step_start, step_end).  carry = (x, solver_state, apg_buf),
-    threaded across segments; returns it updated.
+    threaded across segments; returns it updated.  y, clip_fea: the i2v
+    conditioning of one sample (doubled here for joint CFG).
 
     skip_schedule: the host's bool[N] calc plan (TeaCache/MagCache).
     overlap_latents [B, C, F_ov, H, W]: sliding-window prefix latents,
@@ -158,12 +168,17 @@ def denoise_segment(dit_params, dit_cfg: WanDiTConfig, schedule: Schedule,
         return _denoise_segment_seqcfg(
             dit_params, dit_cfg, schedule, carry, context, context_null,
             sampling, g, rope_cos, rope_sin, step_start, step_end,
+            y=y, clip_fea=clip_fea,
             attn_backend=attn_backend, skip_schedule=skip_schedule,
             overlap_latents=overlap_latents,
             overlap_sigma_scale=overlap_sigma_scale,
             overlap_noise=overlap_noise, nag=nag)
 
     ctx = torch.cat([context, context_null]) if any_guidance else context
+    if any_guidance:
+        y = None if y is None else torch.cat([y, y])
+        clip_fea = None if clip_fea is None else torch.cat([clip_fea,
+                                                            clip_fea])
     # NAG on the cond branch; the uncond branch pairs with itself, which
     # collapses the guidance to identity there (x_pos == x_neg)
     ctx_neg = None
@@ -199,7 +214,8 @@ def denoise_segment(dit_params, dit_cfg: WanDiTConfig, schedule: Schedule,
         fbc_state = ((*residual, not bool(flags[idx])) if use_fbc
                      else None)
         out = wan_dit_forward(dit_params, dit_cfg, xb, tb, ctx, rope_cos,
-                              rope_sin, attn_backend=attn_backend,
+                              rope_sin, clip_fea=clip_fea, y=y,
+                              attn_backend=attn_backend,
                               skip_state=skip_state, context_neg=ctx_neg,
                               nag=nag, fbc_state=fbc_state,
                               fbc_threshold=fbc_threshold)
@@ -238,7 +254,8 @@ def _denoise_segment_seqcfg(dit_params, dit_cfg: WanDiTConfig,
                             schedule: Schedule, carry, context, context_null,
                             sampling: SamplingConfig, guide_scale: float,
                             rope_cos, rope_sin, step_start: int,
-                            step_end: int, attn_backend: str = "auto",
+                            step_end: int, y=None, clip_fea=None,
+                            attn_backend: str = "auto",
                             skip_schedule=None, overlap_latents=None,
                             overlap_sigma_scale: float = 1.0,
                             overlap_noise=None, nag=None):
@@ -270,7 +287,8 @@ def _denoise_segment_seqcfg(dit_params, dit_cfg: WanDiTConfig,
         tb = torch.full((b,), t, dtype=torch.float32, device=x.device)
         skip_state = (bool(plan[i]), res2[branch]) if use_skip else None
         out = wan_dit_forward(dit_params, dit_cfg, x, tb, ctx2[branch],
-                              rope_cos, rope_sin, attn_backend=attn_backend,
+                              rope_cos, rope_sin, clip_fea=clip_fea, y=y,
+                              attn_backend=attn_backend,
                               skip_state=skip_state, context_neg=ctx_neg,
                               nag=nag)
         if use_skip:
@@ -289,17 +307,25 @@ NoiseFn = Callable[[str, int, tuple], torch.Tensor]
 
 
 class WanPipeline:
-    """End-to-end Wan T2V: holds params + configs on one device."""
+    """End-to-end Wan T2V / I2V: holds params + configs on one device.
+    dit_params2: Wan2.2's low-noise expert (same architecture and config
+    as dit_params); clip_params / clip_cfg: the CLIP vision tower of
+    Wan2.1 i2v."""
 
     def __init__(self, dit_params, dit_cfg: WanDiTConfig,
                  t5_params=None, t5_cfg: Optional[T5Config] = None,
                  vae_params=None, vae_cfg: Optional[WanVAEConfig] = None,
                  tokenizer=None, vae_stride=(4, 8, 8),
                  attn_backend: str = "auto",
-                 base_model_type: str = "t2v_1.3B", device=None):
+                 base_model_type: str = "t2v_1.3B", device=None,
+                 dit_params2=None, clip_params=None,
+                 clip_cfg: Optional[ClipVisionConfig] = None):
         self.device = resolve_device(device)
         self.dit_params = dit_params
         self.dit_cfg = dit_cfg
+        self.dit_params2 = dit_params2
+        self.clip_params = clip_params
+        self.clip_cfg = clip_cfg or ClipVisionConfig()
         self.base_model_type = base_model_type
         self.t5_params = t5_params
         self.t5_cfg = t5_cfg or T5Config()
@@ -368,7 +394,8 @@ class WanPipeline:
             return None
         if sampling.cache_type == "tea":
             coeffs = caches.teacache_coefficients(
-                self.base_model_type, False, width * height)
+                self.base_model_type, self.dit_cfg.i2v_cross_attn,
+                width * height)
             # the time embedding of each step in fp32, one t at a time
             e_list = [time_embedding_vec(
                 self.dit_params, self.dit_cfg,
@@ -407,14 +434,22 @@ class WanPipeline:
         gen.manual_seed(seed)
         return torch.randn(shape, generator=gen, device=self.device)
 
+    def expert(self, idx: int):
+        """(params, config) of expert idx: 0 the only or the high-noise
+        one, 1 Wan2.2's low-noise one; both share one config."""
+        return (self.dit_params2 if idx == 1 else self.dit_params,
+                self.dit_cfg)
+
     def denoise(self, latents, context, context_null,
-                sampling: SamplingConfig, overlap_latents=None,
-                seed: int = 0, enable_riflex: bool = False, width: int = 0,
+                sampling: SamplingConfig, y=None, clip_fea=None,
+                overlap_latents=None, seed: int = 0,
+                enable_riflex: bool = False, width: int = 0,
                 height: int = 0, noise: Optional[NoiseFn] = None):
-        """Run every guidance phase; returns the final latents (fp32).
-        overlap_latents: a sliding window's pinned prefix; its per-step
-        noise comes from noise("overlap", seed + 1000 + start, ...) for
-        each phase starting at step `start`."""
+        """Run every guidance phase, each on its expert; returns the final
+        latents (fp32).  y [1, 20, F, H, W], clip_fea [1, 257, 1280]: the
+        i2v conditioning.  overlap_latents: a sliding window's pinned
+        prefix; its per-step noise comes from noise("overlap", seed + 1000
+        + start, ...) for each phase starting at step `start`."""
         noise = noise or self.noise
         schedule = make_schedule(sampling.solver, sampling.steps,
                                  sampling.shift,
@@ -422,7 +457,8 @@ class WanPipeline:
         skip = (self.skip_schedule(sampling, schedule, width or 832,
                                    height or 480)
                 if sampling.cache_type else None)
-        segments = plan_phases(schedule.timesteps, sampling, False)
+        segments = plan_phases(schedule.timesteps, sampling,
+                               self.dit_params2 is not None)
         rope_cos, rope_sin = self._rope(latents.shape, enable_riflex)
         latents = latents.to(self.device, torch.float32)
         carry = (latents, init_solver_state(schedule, latents),
@@ -431,17 +467,22 @@ class WanPipeline:
         context_null = context_null.to(self.device)
         if overlap_latents is not None:
             overlap_latents = overlap_latents.to(self.device, torch.float32)
+        if y is not None:
+            y = y.to(self.device, torch.float32)
+        if clip_fea is not None:
+            clip_fea = clip_fea.to(self.device, torch.float32)
         backend = self.resolved_backend(latents.shape)
-        for start, end, g, _ in segments:
+        for start, end, g, idx in segments:
+            params, cfg = self.expert(idx)
             ov_noise = None
             if overlap_latents is not None:
                 ov_noise = noise("overlap", seed + 1000 + start,
                                  (end - start, *overlap_latents.shape)
                                  ).to(self.device, torch.float32)
-            carry = denoise_segment(self.dit_params, self.dit_cfg, schedule,
-                                    carry, context, context_null, sampling,
-                                    g, rope_cos, rope_sin, start, end,
-                                    attn_backend=backend,
+            carry = denoise_segment(params, cfg, schedule, carry, context,
+                                    context_null, sampling, g, rope_cos,
+                                    rope_sin, start, end, y=y,
+                                    clip_fea=clip_fea, attn_backend=backend,
                                     skip_schedule=skip,
                                     overlap_latents=overlap_latents,
                                     overlap_noise=ov_noise)
@@ -459,15 +500,59 @@ class WanPipeline:
             return vae_decode_chunked(self.vae_params, self.vae_cfg, z)
         return vae_decode(self.vae_params, self.vae_cfg, z)
 
+    def encode_video(self, frames):
+        """VAE encode [T, H, W, 3] in [-1, 1], T = 1 + 4k -> latents [1, 16,
+        f_lat, h, w], frame-chunked (first frame, then chunks of 4)."""
+        video = torch.as_tensor(frames).to(self.device, torch.float32)[None]
+        lat = vae_encode_chunked(self.vae_params, self.vae_cfg, video)
+        return lat.permute(0, 4, 1, 2, 3)
+
+    # -- image-to-video conditioning ---------------------------------------
+
+    def build_i2v_conditioning(self, image_start, frame_num: int,
+                               height: int, width: int):
+        """y = [mask(4) || latents(16)] of the clip [image, zeros...] and
+        the CLIP image tokens (None without a CLIP tower).  image_start:
+        [H, W, 3], uint8 (read as x / 127.5 - 1) or float in [-1, 1];
+        resized (antialiased bicubic) to height x width where it differs.
+        The mask is 1 on the first pixel frame, that frame repeated 4x and
+        folded into the latent time grid.  Returns (y [1, 20, f_lat, h,
+        w] fp32, clip_fea [1, 257, 1280] fp32 or None)."""
+        st, sh, sw = self.vae_stride
+        f_lat = (frame_num - 1) // st + 1
+        lat_h, lat_w = height // sh, width // sw
+        img = image_pixels(image_start).to(self.device)
+        if tuple(img.shape[:2]) != (height, width):
+            img = resize_bicubic(img, height, width)
+        clip = torch.cat([img[None], img.new_zeros((frame_num - 1, height,
+                                                    width, 3))])
+        lat_y = self.encode_video(clip)
+        del clip
+        msk = np.zeros((frame_num, lat_h, lat_w), np.float32)
+        msk[0] = 1.0
+        msk = np.concatenate([np.repeat(msk[:1], st, axis=0), msk[1:]])
+        msk = msk.reshape(f_lat, st, lat_h, lat_w).transpose(1, 0, 2, 3)
+        y = torch.cat([torch.from_numpy(np.ascontiguousarray(msk))
+                       .to(self.device)[None], lat_y], dim=1)
+        clip_fea = None
+        if self.clip_params is not None:
+            pixels = preprocess_image(img, self.clip_cfg.image_size)
+            clip_fea = clip_vision_encode(self.clip_params, self.clip_cfg,
+                                          pixels).float()
+        return y, clip_fea
+
     # -- end-to-end ---------------------------------------------------------
 
     def generate(self, prompt: str, n_prompt: str = "",
                  width: int = 832, height: int = 480, frame_num: int = 81,
                  sampling: SamplingConfig = SamplingConfig(), seed: int = 0,
-                 context=None, context_null=None,
-                 return_latents: bool = False):
-        """T2V generation.  Returns video [T, H, W, 3] fp32 in [-1, 1] on
-        the pipeline's device (or the latents if return_latents)."""
+                 context=None, context_null=None, image_start=None,
+                 i2v_cond=None, return_latents: bool = False):
+        """T2V / I2V generation.  image_start: [H, W, 3] (uint8, or float
+        in [-1, 1]) selects the i2v conditioning; i2v_cond: a prebuilt
+        (y, clip_fea) pair instead.  Returns video [T, H, W, 3] fp32 in
+        [-1, 1] on the pipeline's device (or the latents if
+        return_latents)."""
         any_guidance = (sampling.guide_scale != 1.0
                         or (sampling.guide_phases >= 2
                             and sampling.guide2_scale != 1.0)
@@ -480,9 +565,16 @@ class WanPipeline:
                 [n_prompt or DEFAULT_NEGATIVE_PROMPT])
         if context_null is None:
             context_null = context
+        y = clip_fea = None
+        if i2v_cond is not None:
+            y, clip_fea = i2v_cond
+        elif image_start is not None:
+            y, clip_fea = self.build_i2v_conditioning(image_start, frame_num,
+                                                      height, width)
         latents = self.noise("latents", seed,
                              self.latent_shape(frame_num, height, width))
-        x = self.denoise(latents, context, context_null, sampling,
+        x = self.denoise(latents, context, context_null, sampling, y=y,
+                         clip_fea=clip_fea,
                          enable_riflex=sampling.enable_riflex, width=width,
                          height=height)
         if return_latents:
@@ -495,6 +587,7 @@ class WanPipeline:
                          overlap: int = 5, discard: int = 0,
                          sampling: SamplingConfig = SamplingConfig(),
                          seed: int = 0, context=None, context_null=None,
+                         source_frames=None,
                          noise: Optional[NoiseFn] = None) -> np.ndarray:
         """Sliding-window long-video generation (windows.py planning).
         prompt may hold one line per window with /duration /overlap
@@ -502,8 +595,12 @@ class WanPipeline:
         window's last latent frames (re-noised each step); the decoded
         windows are cross-faded over their overlap.  Window k's initial
         latents come from noise("latents", seed + k, ...).  Returns
-        [T, H, W, 3] fp32 on the host.  (The JAX package's continue-video
-        mode, `source_frames`, needs the VAE encode: ROADMAP Queue 1.)"""
+        [T, H, W, 3] fp32 on the host.
+
+        source_frames: [T, H, W, 3] in [-1, 1], continue-video: its last
+        max(st + 1, (overlap - 1) // st * st + 1) frames are VAE-encoded
+        and pinned as the first window's overlap; the result is the
+        continuation only (the caller stitches it onto the source)."""
         from ...windows import plan_windows, latent_overlap, stitch_windows
         noise = noise or self.noise
         st = self.vae_stride[0]
@@ -516,6 +613,9 @@ class WanPipeline:
                 [n_prompt or DEFAULT_NEGATIVE_PROMPT])
         segments, overlaps = [], []
         prev_latents = None
+        if source_frames is not None:
+            ov_px = max(st + 1, (overlap - 1) // st * st + 1)
+            prev_latents = self.encode_video(source_frames[-ov_px:])
         ctx_cache = {}
         for k, plan in enumerate(plans):
             if context is not None:
@@ -527,8 +627,11 @@ class WanPipeline:
                 ctx = ctx_cache[plan.prompt]
                 ctxn = context_null if context_null is not None else ctx
             overlap_latents = None
-            if k > 0 and plan.overlap > 0 and not plan.new_shot:
-                ov_lat = min(latent_overlap(plan.overlap, st),
+            eff_overlap = plan.overlap if k > 0 else (
+                overlap if prev_latents is not None else 0)
+            if eff_overlap > 0 and prev_latents is not None \
+                    and not plan.new_shot:
+                ov_lat = min(latent_overlap(eff_overlap, st),
                              prev_latents.shape[2])
                 overlap_latents = prev_latents[:, :, -ov_lat:]
             latents = noise("latents", seed + k,
@@ -543,3 +646,13 @@ class WanPipeline:
             segments.append(frames.cpu().numpy())
             overlaps.append(plan.overlap if not plan.new_shot else 0)
         return stitch_windows(segments, overlaps)
+
+
+def image_pixels(image) -> torch.Tensor:
+    """An image [H, W, 3] as fp32 in [-1, 1]: uint8 pixels map through
+    x / 127.5 - 1, a float image is taken as already in [-1, 1]."""
+    t = torch.as_tensor(np.asarray(image) if not isinstance(
+        image, torch.Tensor) else image)
+    if t.dtype == torch.uint8:
+        return t.float() / 127.5 - 1.0
+    return t.float()

@@ -113,17 +113,20 @@ def _attnblock(p, x):
 
 
 def _down2d(p, x):
-    """ZeroPad2d(0, 1, 0, 1) + 3x3 stride-2 conv, per frame."""
-    b, _, t = x.shape[:3]
-    y = F.pad(_frames(x), (0, 1, 0, 1))
-    y = conv2d(y, p["conv"]["w"], p["conv"]["b"], stride=2, padding=0)
-    return _unframes(y, b, t)
+    """ZeroPad2d(0, 1, 0, 1) + 3x3 stride-2 conv, per frame, run as a
+    conv3d with a (1, 3, 3) kernel (see `_up2d`: an fp32 conv2d with TF32
+    off may draw a workspace of tens of GB from cuDNN)."""
+    y = F.pad(x, (0, 1, 0, 1))
+    return F.conv3d(y, p["conv"]["w"][:, :, None], p["conv"]["b"],
+                    stride=(1, 2, 2))
 
 
 def _down3d(p, x):
     """Spatial downsample, then first-frame passthrough + stride-2 causal
     time conv over windows (x0,x1,x2), (x2,x3,x4), ..."""
     x = _down2d(p, x)
+    if x.shape[2] < 3:          # a single frame: no window
+        return x[:, :, :1]
     rest = causal_conv3d(x, p["time_conv"]["w"], p["time_conv"]["b"],
                          stride=(2, 1, 1), time_pad=0)
     return torch.cat([x[:, :, :1], rest], dim=2)

@@ -1,6 +1,6 @@
 """GenerationService: settings dict -> video or image files.
 
-Counterpart of wan2gp_tpu/runtime/service.py for the Wan t2v and Krea 2
+Counterpart of wan2gp_tpu/runtime/service.py for the Wan t2v/i2v and Krea 2
 text-to-image paths: model resolution and a pipeline cache, settings
 merge, resolution alignment, family dispatch (models whose definition has
 `image_outputs` go through the handler's `generate_image` and are saved as
@@ -100,10 +100,17 @@ class GenerationService:
                 attn_backend=self.attn_backend,
                 init_random=self.init_random_weights, device=self.device)
             if self.quantize:
+                # one expert after the other: each float weight goes as it
+                # is quantized, so two bf16 14B experts never meet a full
+                # quantized copy
+                aq = activation_mode(self.quantize)
                 pipe.dit_params = quantize_dit_params(pipe.dit_params,
                                                       self.quantize)
-                pipe.dit_cfg = dataclasses.replace(
-                    pipe.dit_cfg, act_quant=activation_mode(self.quantize))
+                pipe.dit_cfg = dataclasses.replace(pipe.dit_cfg,
+                                                   act_quant=aq)
+                if getattr(pipe, "dit_params2", None) is not None:
+                    pipe.dit_params2 = quantize_dit_params(
+                        pipe.dit_params2, self.quantize)
             self._pipelines[model_type] = pipe
         return pipe
 
@@ -188,9 +195,15 @@ class GenerationService:
 
 
 def _clean_settings(settings: Dict[str, Any]) -> Dict[str, Any]:
+    """The settings to embed in an output: no private keys, nothing that
+    JSON cannot hold (an `image_start` array, a list of them)."""
     return {k: v for k, v in settings.items()
             if not k.startswith("_") and _jsonable(v)}
 
 
 def _jsonable(v):
-    return isinstance(v, (str, int, float, bool, list, dict, type(None)))
+    if isinstance(v, (list, tuple)):
+        return all(_jsonable(x) for x in v)
+    if isinstance(v, dict):
+        return all(isinstance(k, str) and _jsonable(x) for k, x in v.items())
+    return isinstance(v, (str, int, float, bool, type(None)))
