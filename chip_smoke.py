@@ -34,7 +34,10 @@ the repository).  Phases, each printing one JSON line:
             kv blocks do not line up (block_kv 64 and 192, S ending in the
             first tile of the last block), at block_q 64 and 192, D 64,
             with a q block of count 0 that must write zeros (Sol: and lse
-            -1e30).
+            -1e30).  Dense flash also at the 5B's 24 heads (B 2, ragged L
+            = 1,000, S = 512).  The Wan2.2 VAE decode at full width (random
+            weights) against the same decode on the CPU for one small tile
+            (2 x 4 x 4 latents): max abs err <= 1e-3.
 3. dit      a small DiT forward on the card, through the kernels, against
             the same forward on the CPU through the plain versions: Wan
             with bf16, int8 and int8a8 weights and dense attention (48
@@ -68,7 +71,9 @@ the repository).  Phases, each printing one JSON line:
             (F)'s flash shapes (14B at 832x480, CFG batch 2: self, text
             cross S = 512, image cross S = 257) and (G)'s (the 14B
             self-attention at 1280x720 at batch 2, W8 at the 14B linears
-            and cross k/v), each with its launches per forward.
+            and cross k/v) and (I)'s (the 5B's self- and cross-attention
+            at B 2 over 27,280 tokens, 24 heads; W8 at its four linear
+            shapes), each with its launches per forward.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
@@ -110,7 +115,18 @@ the repository).  Phases, each printing one JSON line:
                 phases over 2 UniPC steps: the high-noise expert on the
                 first forward and the low-noise one on the second
                 (asserted), 80 flash and 400 W8 launches a forward, none
-                padded; the 720p frame-chunked encode's seconds and peak.
+                padded; the 720p frame-chunked encode's seconds and peak;
+            (I) ti2v_2_2 (Wan2.2 TI2V 5B: dim 3072, 24 heads, 30 layers,
+                48 latent channels) from its files, as (D): a quanto-int8
+                DiT under the name of the definition's second URL and a
+                Wan2.2 VAE file (written from random weights, the loaded
+                trees equal to them), at 1280x704x121 (31 x 44 x 80
+                latents, 27,280 tokens), UniPC 2 steps, joint CFG,
+                guidance 5, flow_shift 5, dense: 60 flash and 300 W8
+                launches a forward, none padded; the Wan2.2 decode in 28
+                spatial tiles (asserted) of at most 31 x 16 x 16 latents:
+                write, load, step, decode and request seconds and the
+                load, denoise and decode peaks.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -142,6 +158,11 @@ FLASH_MEAN_REL, FLASH_MAX_REL = 2e-2, 2e-1     # of mean|ref|, max|ref|
 LSE_MAX_ABS = 1e-2
 MM_REL_FRO = 1e-2               # int8 / int4 / W8A8 / W4A8 matmuls
 KREA2_TEXT = 64                 # tokens of the random Krea 2 text encoder
+VAE22_MAX_ABS = 1e-3            # Wan2.2 VAE decode, card against CPU (fp32)
+# (I): Wan2.2 TI2V 5B at its definition's 121 frames and the Wan2.2
+# generate.py size for ti2v-5B (1280x720 gives 45 latent rows, which the
+# 2x2 patch does not divide): 31 x 44 x 80 latents, 27,280 tokens
+I_FRAMES, I_W, I_H = 121, 1280, 704
 REPO = os.path.dirname(os.path.abspath(__file__))
 # logs and the (deleted after checking) outputs, beside the built kernels
 OUT = os.path.join(REPO, "wan2gp_tpu_torch", "_build", "chip_smoke")
@@ -268,7 +289,8 @@ TOLERANCE = {"flash_attention": _ATTN_TOL,
              "matmul_w8a8": f"rel_fro<={MM_REL_FRO}, wrong_elements==0",
              "matmul_w4": f"rel_fro<={MM_REL_FRO}",
              "matmul_w4a8": f"rel_fro<={MM_REL_FRO}, wrong_elements==0",
-             "act_quant": "x_q and the bits of sx equal the plain version's"}
+             "act_quant": "x_q and the bits of sx equal the plain version's",
+             "vae22_decode": f"max_abs<={VAE22_MAX_ABS} against the CPU"}
 
 
 def counters():
@@ -311,6 +333,8 @@ def phase_check():
         "krea2_layerwise": (64, 12, 12, 20, 128),
         # the i2v image cross-attention: 257 CLIP tokens, a ragged S
         "image_cross_s257": (2, 1000, 257, 40, 128),
+        # the 5B's 24 heads over a ragged L, at its cross-attention's S
+        "ti2v_5B_n24_l1000_s512": (2, 1000, 512, 24, 128),
     }
     flash = {}
     for name, (b, l, s, n, d) in flash_cases.items():
@@ -465,13 +489,41 @@ def phase_check():
     # the 14B fc2 input, and K past what the one-pass CTA holds (two-pass)
     for m, k in ((151200, 13824), (3, 20000)):
         aq[f"{m}x{k}"] = act_quant_check(a8_rows(randn((m, k), gen)))
+    vae22 = vae22_check()
     emit("check", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
-         matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, tolerance=TOLERANCE)
+         matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, vae22_decode=vae22,
+         tolerance=TOLERANCE)
     return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
             "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8,
             "act_quant": aq}
+
+
+def vae22_check():
+    """The Wan2.2 VAE decode at full width (random weights, fp32, TF32
+    off) on the card against the same decode of the same latents on the
+    CPU: one small tile, 2 latent frames of 4 x 4 cells -> 5 frames of
+    64 x 64."""
+    from wan2gp_tpu_torch.models.wan import vae2_2
+    cfg = vae2_2.Wan22VAEConfig()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = vae2_2.init_wan22_vae(gen, cfg)
+    z = torch.randn((1, 2, 4, 4, cfg.z_dim), generator=gen, device="cuda")
+    got = vae2_2.wan22_vae_decode(params, cfg, z).cpu()
+    t0 = time.perf_counter()
+    ref = vae2_2.wan22_vae_decode(_tree_to(params, "cpu"), cfg, z.cpu())
+    cpu_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    err = float((got - ref).abs().max())
+    out = {"shape": list(got.shape), "max_abs": err,
+           "mean_abs_ref": float(ref.abs().mean()),
+           "clipped_share": float((ref.abs() == 1).float().mean()),
+           "cpu_s": cpu_s}
+    if got.shape != (1, 5, 64, 64, 3) or not err <= VAE22_MAX_ABS:
+        raise AssertionError(f"vae22 decode, card against CPU: {out}")
+    return out
 
 
 def a8_rows(x):
@@ -763,6 +815,8 @@ def dit_krea2():
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -1086,6 +1140,17 @@ G_PER_FORWARD = {"self_14B_720p_b2": 40, "cross_14B_720p": 40,
                  "151200x13824x5120": 40, "1024x5120x5120": 80}
 
 
+# launches per DiT forward of (I) (Wan2.2 5B at 1280x704x121, int8 from its
+# file, CFG batch 2): per layer one self and one cross flash (24 heads); W8
+# on q, k, v, o of the self-attention and q, o of the cross-attention (K =
+# N = 3072), fc1, fc2 at M = 54,560 and the cross k, v at M = 1,024
+I_TOKENS = ((I_FRAMES - 1) // 4 + 1) * (I_H // 32) * (I_W // 32)
+I_PER_FORWARD = {"self_5B": 30, "cross_5B": 30,
+                 f"{2 * I_TOKENS}x3072x3072": 180,
+                 f"{2 * I_TOKENS}x3072x14336": 30,
+                 f"{2 * I_TOKENS}x14336x3072": 30, "1024x3072x3072": 60}
+
+
 def phase_time(tokens: int):
     # W4 and W4A8 at K=N=5120 first, before any other timing, and again in
     # their place below: does the order of the phase move their times?
@@ -1155,6 +1220,15 @@ def phase_time(tokens: int):
         flash[name] = time_flash(name, *shape)
     w8.update({f"{m}x{k}x{n}": time_w8(f"{m}x{k}x{n}", m, k, n)
                for m, k, n in shapes_14b})
+    # (I): the 5B at 1280x704x121, CFG batch 2
+    for name, shape in (("self_5B", (2, I_TOKENS, I_TOKENS, 24, 128)),
+                        ("cross_5B", (2, I_TOKENS, 512, 24, 128))):
+        flash[name] = time_flash(name, *shape)
+    w8.update({f"{m}x{k}x{n}": time_w8(f"{m}x{k}x{n}", m, k, n)
+               for m, k, n in ((2 * I_TOKENS, 3072, 3072),
+                               (2 * I_TOKENS, 3072, 14336),
+                               (2 * I_TOKENS, 14336, 3072),
+                               (1024, 3072, 3072))})
     for table in (flash, sol, w4a8, aq):
         for case, t in table.items():
             if case in C_PER_FORWARD:
@@ -1163,6 +1237,8 @@ def phase_time(tokens: int):
         flash[case]["launches_per_forward_F"] = n
     for case, n in G_PER_FORWARD.items():
         (flash if case in flash else w8)[case]["launches_per_forward_G"] = n
+    for case, n in I_PER_FORWARD.items():
+        (flash if case in flash else w8)[case]["launches_per_forward_I"] = n
     emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
          matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, tolerance=TOLERANCE)
@@ -1253,62 +1329,88 @@ def _flat(tree, path=""):
         yield path, tree
 
 
-def vae_state_dict(p, cfg):
-    """A port VAE tree as the reference's torch-layout state dict: the
-    key names `io.wan_checkpoint.load_wan_vae_params` consumes."""
-    from wan2gp_tpu_torch.models.wan.vae import encoder_plan, decoder_plan
-    sd = {}
+class _VaeSD(dict):
+    """A torch-layout VAE state dict, written from a port VAE tree: the key
+    names `io.wan_checkpoint`'s VAE loaders consume."""
 
-    def conv(pre, c):
-        sd[f"{pre}.weight"], sd[f"{pre}.bias"] = c["w"], c["b"]
+    def conv(self, pre, c):
+        self[f"{pre}.weight"], self[f"{pre}.bias"] = c["w"], c["b"]
 
-    def gamma(key, g, ndim):            # RMS_norm gamma [C, 1, 1(, 1)]
-        sd[key] = g.reshape(-1, *([1] * ndim))
+    def gamma(self, key, g, ndim):      # RMS_norm gamma [C, 1, 1(, 1)]
+        self[key] = g.reshape(-1, *([1] * ndim))
 
-    def res(pre, r):
-        gamma(f"{pre}.residual.0.gamma", r["norm1"], 3)
-        conv(f"{pre}.residual.2", r["conv1"])
-        gamma(f"{pre}.residual.3.gamma", r["norm2"], 3)
-        conv(f"{pre}.residual.6", r["conv2"])
+    def res(self, pre, r):
+        self.gamma(f"{pre}.residual.0.gamma", r["norm1"], 3)
+        self.conv(f"{pre}.residual.2", r["conv1"])
+        self.gamma(f"{pre}.residual.3.gamma", r["norm2"], 3)
+        self.conv(f"{pre}.residual.6", r["conv2"])
         if "shortcut" in r:
-            conv(f"{pre}.shortcut", r["shortcut"])
+            self.conv(f"{pre}.shortcut", r["shortcut"])
 
-    def attn(pre, a):
-        gamma(f"{pre}.norm.gamma", a["norm"], 2)
-        conv(f"{pre}.to_qkv", a["qkv"])
-        conv(f"{pre}.proj", a["proj"])
+    def attn(self, pre, a):
+        self.gamma(f"{pre}.norm.gamma", a["norm"], 2)
+        self.conv(f"{pre}.to_qkv", a["qkv"])
+        self.conv(f"{pre}.proj", a["proj"])
 
-    def tower(plan, prefix, ps):
+    def resample(self, pre, q):
+        self.conv(f"{pre}.resample.1", q["conv"])
+        if "time_conv" in q:
+            self.conv(f"{pre}.time_conv", q["time_conv"])
+
+    def around_towers(self, p):
+        enc, dec = p["encoder"], p["decoder"]
+        self.conv("encoder.conv1", enc["conv1"])
+        for prefix, m in (("encoder.middle", enc["mid"]),
+                          ("decoder.middle", dec["mid"])):
+            self.res(f"{prefix}.0", m[0])
+            self.attn(f"{prefix}.1", m[1])
+            self.res(f"{prefix}.2", m[2])
+        self.gamma("encoder.head.0.gamma", enc["head_norm"], 3)
+        self.conv("encoder.head.2", enc["head_conv"])
+        self.conv("conv1", p["conv1"])
+        self.conv("conv2", p["conv2"])
+        self.conv("decoder.conv1", dec["conv1"])
+        self.gamma("decoder.head.0.gamma", dec["head_norm"], 3)
+        self.conv("decoder.head.2", dec["head_conv"])
+        return dict(self)
+
+
+def vae_state_dict(p, cfg):
+    """A port Wan2.1 VAE tree as the reference's state dict
+    (`load_wan_vae_params`' keys)."""
+    from wan2gp_tpu_torch.models.wan.vae import encoder_plan, decoder_plan
+    sd = _VaeSD()
+    for plan, prefix, ps in (
+            (encoder_plan(cfg), "encoder.downsamples", p["encoder"]["down"]),
+            (decoder_plan(cfg), "decoder.upsamples", p["decoder"]["up"])):
         for j, ((op, _, _), q) in enumerate(zip(plan, ps)):
             pre = f"{prefix}.{j}"
             if op == "res":
-                res(pre, q)
+                sd.res(pre, q)
             elif op == "attn":
-                attn(pre, q)
+                sd.attn(pre, q)
             else:
-                conv(f"{pre}.resample.1", q["conv"])
-                if "time_conv" in q:
-                    conv(f"{pre}.time_conv", q["time_conv"])
+                sd.resample(pre, q)
+    return sd.around_towers(p)
 
-    def mid(prefix, m):
-        res(f"{prefix}.0", m[0])
-        attn(f"{prefix}.1", m[1])
-        res(f"{prefix}.2", m[2])
 
-    enc, dec = p["encoder"], p["decoder"]
-    conv("encoder.conv1", enc["conv1"])
-    tower(encoder_plan(cfg), "encoder.downsamples", enc["down"])
-    mid("encoder.middle", enc["mid"])
-    gamma("encoder.head.0.gamma", enc["head_norm"], 3)
-    conv("encoder.head.2", enc["head_conv"])
-    conv("conv1", p["conv1"])
-    conv("conv2", p["conv2"])
-    conv("decoder.conv1", dec["conv1"])
-    mid("decoder.middle", dec["mid"])
-    tower(decoder_plan(cfg), "decoder.upsamples", dec["up"])
-    gamma("decoder.head.0.gamma", dec["head_norm"], 3)
-    conv("decoder.head.2", dec["head_conv"])
-    return sd
+def vae22_state_dict(p):
+    """A port Wan2.2 VAE tree as the reference's state dict
+    (`load_wan22_vae_params`' keys: stage i's blocks at
+    `{i}.downsamples.{j}` / `{i}.upsamples.{j}`, its resample after
+    them)."""
+    sd = _VaeSD()
+    for prefix, inner, stages in (
+            ("encoder.downsamples", "downsamples", p["encoder"]["down"]),
+            ("decoder.upsamples", "upsamples", p["decoder"]["up"])):
+        for i, stage in enumerate(stages):
+            pre = f"{prefix}.{i}.{inner}"
+            for j, r in enumerate(stage["blocks"]):
+                sd.res(f"{pre}.{j}", r)
+            if "resample" in stage:
+                sd.resample(f"{pre}.{len(stage['blocks'])}",
+                            stage["resample"])
+    return sd.around_towers(p)
 
 
 def phase_service(frames: int):
@@ -1768,6 +1870,117 @@ def phase_service(frames: int):
                 "load_peak_gb": load_peak, "padded_launches": padded,
                 "launches_per_forward": per_forward, **out}
 
+    def run_i():
+        """(I): Wan2.2 TI2V 5B (`ti2v_2_2`) from its files at 1280x704x121.
+        Random weights are written as the quanto-int8 DiT file the
+        definition's second URL names and as a Wan2.2 VAE file; the
+        service loads both through the resolver (quantization "int8",
+        roles transformer and VAE; the loaded trees must equal the written
+        tensors), so W8 runs on the file's int8 weights.  UniPC, 2 steps,
+        joint CFG at guidance 5, flow_shift 5, dense attention; the Wan2.2
+        decode in 4 x 7 spatial tiles of the whole clip."""
+        from wan2gp_tpu_torch.io.downloads import make_checkpoints_resolver
+        from wan2gp_tpu_torch.io.safetensors_reader import save_safetensors
+        from wan2gp_tpu_torch.io.save_quantized import \
+            export_quantized_wan_dit
+        from wan2gp_tpu_torch.models.wan import vae2_2
+        from wan2gp_tpu_torch.models.wan.dit import init_wan_dit
+        ckdir = os.path.join(OUT, "ckpts")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        os.makedirs(ckdir)
+        model_def = svc_mod.GenerationService(
+            init_random_weights=True).registry.get("ti2v_2_2")
+        url = model_def["URLs"][1]
+        if not url.endswith("_5B_quanto_mbf16_int8.safetensors"):
+            raise AssertionError(f"(I): the definition's URLs {model_def}")
+        dit_path = os.path.join(ckdir, os.path.basename(url))
+        vae_path = os.path.join(ckdir, "Wan2.2_VAE.safetensors")
+        cfg = fam.WanFamilyHandler.dit_config("ti2v_2_2")
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        params = init_wan_dit(gen, cfg)
+        vae_cfg = vae2_2.Wan22VAEConfig()
+        gen.manual_seed(14)
+        vae_params = vae2_2.init_wan22_vae(gen, vae_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_quantized_wan_dit(params, dit_path)
+        save_safetensors(vae_path, vae22_state_dict(vae_params))
+        write_s = time.perf_counter() - t0
+        want = {"dit": params, "vae": vae_params}
+        blocks = params["blocks"]
+        for lin in [blocks[a][m] for a in ("self_attn", "cross_attn")
+                    for m in "qkvo"] + list(blocks["ffn"].values()):
+            lin["w_q"], lin["scale"] = Q.quantize_int8(lin.pop("w").float())
+        svc = svc_mod.GenerationService(
+            checkpoints_resolver=make_checkpoints_resolver(
+                [ckdir], quantization="int8", roles=("transformer", "vae")),
+            output_dir=out_dir)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = svc.get_pipeline("ti2v_2_2")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        leaves = 0
+        for name, got in (("dit", pipe.dit_params), ("vae", pipe.vae_params)):
+            a, b = dict(_flat(got)), dict(_flat(want[name]))
+            if sorted(a) != sorted(b):
+                raise AssertionError(
+                    f"(I) {name}: keys {sorted(set(a) ^ set(b))}")
+            for k in a:
+                if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"(I) {name}{k}: not the written "
+                                         "tensor")
+            leaves += len(a)
+        del want, params, vae_params, blocks
+        torch.cuda.empty_cache()
+        tiles = []
+        real_tile = vae2_2.wan22_vae_decode
+
+        def tile(p, c, z):
+            tiles.append(list(z.shape[1:4]))
+            return real_tile(p, c, z)
+        Q.w8_pad_launches = Q.w4_pad_launches = 0
+        Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+        per_forward = {"flash_attention": 60, "matmul_w8": 300}
+        vae2_2.wan22_vae_decode = tile
+        try:
+            out = recorded_request("(I)", lambda: svc.generate({
+                "model_type": "ti2v_2_2", "prompt": "a red fox",
+                "resolution": f"{I_W}x{I_H}", "video_length": I_FRAMES,
+                "num_inference_steps": STEPS, "sample_solver": "unipc",
+                "guidance_scale": 5.0, "flow_shift": 5.0,
+                "attention_mode": "auto", "seed": 7}), [1] * STEPS,
+                per_forward, {}, I_FRAMES, I_H, I_W)
+        finally:
+            vae2_2.wan22_vae_decode = real_tile
+        out.pop("forward_params")
+        lat = [(I_FRAMES - 1) // 4 + 1, I_H // 16, I_W // 16]
+        if len(tiles) != 28 or max(tiles) != [lat[0], 16, 16]:
+            raise AssertionError(f"(I): decode tiles {tiles}")
+        padded = (Q.w8_pad_launches + Q.w4_pad_launches
+                  + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
+        if padded:
+            raise AssertionError(f"(I): {padded} matmul launches padded")
+        svc.release_model()
+        del svc, pipe
+        files = {os.path.basename(p): os.path.getsize(p)
+                 for p in (dit_path, vae_path)}
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        return {"label": "(I) Wan2.2 TI2V 5B 1280x704x121 from its files: "
+                         "quanto-int8 DiT (W8 as loaded), Wan2.2 VAE, "
+                         "tiled decode",
+                "latents": [cfg.out_dim, *lat], "tokens": I_TOKENS,
+                "steps": STEPS, "solver": "unipc", "guidance_scale": 5.0,
+                "flow_shift": 5.0, "files_bytes": files, "write_s": write_s,
+                "load_s": load_s, "load_peak_gb": load_peak,
+                "leaves_equal": leaves, "decode_tiles": len(tiles),
+                "tile_latents": sorted({tuple(t) for t in tiles}),
+                "step_s": out["denoise_s"] / STEPS,
+                "padded_launches": padded,
+                "launches_per_forward": per_forward, **out}
+
     def run_krea2(n_req, size):
         """n_req krea2_raw requests (guidance 3.5: CFG as batch 2) at all
         28 layers.  Per request of STEPS steps: 28 masked self-attentions
@@ -1868,6 +2081,7 @@ def phase_service(frames: int):
             {"flash_attention": 120}, settings={"image_start": png})
         results["14B_i2v_2_2_G"] = run_g(png)
         os.remove(png)
+        results["5B_ti2v_I"] = run_i()
     finally:
         media.save_video, media.save_image = real_save, real_save_image
         pipe_mod.wan_dit_forward = real_forward

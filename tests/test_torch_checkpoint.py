@@ -177,8 +177,12 @@ def test_safetensors_files_cross_read(tmp_path):
         for k, v in jst.load_safetensors(p).items():
             np.testing.assert_array_equal(np.asarray(v, np.float64),
                                           tensors[k].astype(np.float64))
-    with pytest.raises(NotImplementedError, match="gguf"):
-        st.load_weights(str(tmp_path / "m.gguf"))
+    # a .gguf path goes to the GGUF reader (tests/test_torch_gguf.py)
+    from tests.test_gguf import _gguf_bytes
+    gguf = tmp_path / "m.gguf"
+    gguf.write_bytes(_gguf_bytes([("f32", [5, 3], 0, w.tobytes())]))
+    assert torch.equal(st.load_weights(str(gguf))["f32"],
+                       torch.from_numpy(w))
 
 
 def test_scaled_fp8_and_w4a8_dequantize_as_jax(tmp_path):

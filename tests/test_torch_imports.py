@@ -38,6 +38,7 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.models.wan.t5",
     "wan2gp_tpu_torch.models.wan.clip_vision",
     "wan2gp_tpu_torch.models.wan.vae_scan",
+    "wan2gp_tpu_torch.models.wan.vae2_2",
     "wan2gp_tpu_torch.ops.attention",
     "wan2gp_tpu_torch.ops.sparse_attention",
     "wan2gp_tpu_torch.ops.sol_attention",
@@ -51,6 +52,7 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.io.wan_checkpoint",
     "wan2gp_tpu_torch.io.save_quantized",
     "wan2gp_tpu_torch.io.downloads",
+    "wan2gp_tpu_torch.io.gguf_reader",
 )
 
 _PROBE = r"""
@@ -116,7 +118,8 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
     from wan2gp_tpu_torch import resolve_device
     from wan2gp_tpu_torch.families.krea2 import Krea2FamilyHandler
     from wan2gp_tpu_torch.families.wan import WanFamilyHandler
-    from wan2gp_tpu_torch.io.wan_checkpoint import load_wan_vae_params
+    from wan2gp_tpu_torch.io.wan_checkpoint import (load_wan_vae_params,
+                                                    load_wan22_vae_params)
     from wan2gp_tpu_torch.models.krea2.dit import Krea2Config
     from wan2gp_tpu_torch.models.krea2.pipeline import Krea2Pipeline
     from wan2gp_tpu_torch.models.wan.dit import WanDiTConfig
@@ -135,10 +138,13 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
             "t2v_1.3B", {}, init_random=True),
         "i2v load_model": lambda: WanFamilyHandler.load_model(
             "i2v", {}, init_random=True),
+        "ti2v load_model": lambda: WanFamilyHandler.load_model(
+            "ti2v_2_2", {}, init_random=True),
         "Krea2Pipeline": lambda: Krea2Pipeline({}, Krea2Config()),
         "krea2 load_model": lambda: Krea2FamilyHandler.load_model(
             "krea2_raw", {}, init_random=True),
         "load_wan_vae_params": lambda: load_wan_vae_params({}, None),
+        "load_wan22_vae_params": lambda: load_wan22_vae_params({}, None),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

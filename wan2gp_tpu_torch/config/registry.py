@@ -2,8 +2,9 @@
 
 Reads the built-in `defaults/<model_type>.json` files, each holding
 {"model": {...}, **settings}; "model.architecture" names the base model
-type that picks the family handler.  Finetune overlays and URL
-resolution (checkpoint loading) are not ported yet.
+type that picks the family handler; "URLs" / "URLs2" may name another
+model type, whose files the model then shares.  Finetune overlays are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -36,6 +37,22 @@ class ModelRegistry:
                                 or {}), **model_def}
             model_def["settings"] = settings
             self.models_def[model_type] = model_def
+        for model_def in self.models_def.values():
+            for prop in ("URLs", "URLs2"):
+                if prop in model_def:
+                    model_def[prop] = self._borrowed(model_def, prop, ())
+
+    def _borrowed(self, model_def, prop, stack):
+        """The value of prop, following a model type it names instead of
+        a URL list."""
+        value = model_def.get(prop, [])
+        if isinstance(value, str) and not value.startswith(("http", "/",
+                                                              ".")):
+            if value in stack:
+                raise ValueError(f"circular {prop} reference via {value}")
+            return self._borrowed(self.models_def[value], prop,
+                                  stack + (value,))
+        return value
 
     def model_types(self) -> List[str]:
         return list(self.models_def)

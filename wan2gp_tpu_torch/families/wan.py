@@ -3,8 +3,10 @@
 Counterpart of wan2gp_tpu/families/wan.py for `t2v_1.3B` (dim 1536, 12
 heads, 30 layers), `t2v` and `i2v` (14B: dim 5120, 40 heads, 40 layers;
 i2v with 36 input channels and the CLIP image branch) and Wan2.2's
-two-expert `t2v_2_2` and `i2v_2_2`: random weights or checkpoint files
-(torch-layout safetensors, quanto-int8 included), plain, image-started,
+two-expert `t2v_2_2` and `i2v_2_2`, and Wan2.2's `ti2v_2_2` (the 5B:
+dim 3072, 24 heads, 30 layers, 48 latent channels on the Wan2.2 VAE of
+stride (4, 16, 16)): random weights or checkpoint files (torch-layout
+safetensors, quanto-int8 included, or GGUF), plain, image-started,
 sliding-window or continue-video generation.  The other Wan variants are
 not ported yet.
 """
@@ -20,6 +22,7 @@ from ..device import resolve_device
 from ..models.wan.clip_vision import ClipVisionConfig, init_clip_vision
 from ..models.wan.dit import WanDiTConfig, init_wan_dit
 from ..models.wan.vae import WanVAEConfig, init_wan_vae
+from ..models.wan.vae2_2 import Wan22VAEConfig, init_wan22_vae
 from ..models.wan.t5 import T5Config
 from ..models.wan.pipeline import WanPipeline, SamplingConfig
 
@@ -35,6 +38,9 @@ _ARCH: Dict[str, Dict[str, Any]] = {
     "i2v_2_2": dict(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
                     model_type="t2v", in_dim=36, vae_stride=(4, 8, 8),
                     experts=2),
+    "ti2v_2_2": dict(dim=3072, ffn_dim=14336, num_heads=24, num_layers=30,
+                     model_type="t2v", in_dim=48, out_dim=48,
+                     vae_stride=(4, 16, 16)),
 }
 
 # settings that select a generation path this port does not have yet
@@ -55,6 +61,7 @@ class WanFamilyHandler:
         arch = _ARCH[base_model_type]
         return {"vae_stride": arch["vae_stride"],
                 "i2v_class": arch["model_type"] == "i2v",
+                "wan_5B_class": base_model_type == "ti2v_2_2",
                 "image_outputs": False,
                 "multiple_submodels": arch.get("experts", 1) > 1,
                 "sliding_window": True,
@@ -85,7 +92,8 @@ class WanFamilyHandler:
     def query_model_files(base_model_type: str,
                           model_def: Dict[str, Any]) -> List[Dict[str, Any]]:
         """The checkpoint roles of a t2v or i2v model: Wan2.2's second
-        expert is "transformer2", from the definition's URLs2."""
+        expert is "transformer2", from the definition's URLs2; the 5B's
+        VAE is Wan2.2's."""
         base = "https://huggingface.co/DeepBeepMeep/Wan2.1/resolve/main/"
         files = [{"role": "transformer", "urls": model_def.get("URLs", [])}]
         if model_def.get("URLs2"):
@@ -94,7 +102,9 @@ class WanFamilyHandler:
         return files + [
             {"role": "text_encoder", "urls": [
                 base + "models_t5_umt5-xxl-enc-bf16.safetensors"]},
-            {"role": "vae", "urls": [base + "Wan2.1_VAE.safetensors"]},
+            {"role": "vae", "urls": [base + (
+                "Wan2.2_VAE.safetensors" if _is_22_vae(base_model_type)
+                else "Wan2.1_VAE.safetensors")]},
         ]
 
     @classmethod
@@ -116,7 +126,8 @@ class WanFamilyHandler:
         dev = resolve_device(device)
         arch = _ARCH[base_model_type]
         dit_cfg = cls.dit_config(base_model_type, dtype)
-        vae_cfg = WanVAEConfig()
+        is_22 = _is_22_vae(base_model_type)
+        vae_cfg = Wan22VAEConfig() if is_22 else WanVAEConfig()
         t5_cfg = T5Config()
         two = arch.get("experts", 1) > 1
         dit_params2 = clip_params = clip_cfg = None
@@ -127,7 +138,8 @@ class WanFamilyHandler:
             gen.manual_seed(seed)
             dit_params = init_wan_dit(gen, dit_cfg, dtype)
             gen.manual_seed(seed + 1)
-            vae_params = init_wan_vae(gen, vae_cfg)
+            vae_params = (init_wan22_vae if is_22 else init_wan_vae)(
+                gen, vae_cfg)
             if two:
                 gen.manual_seed(seed + 2)
                 dit_params2 = init_wan_dit(gen, dit_cfg, dtype)
@@ -148,7 +160,7 @@ class WanFamilyHandler:
             from ..io.safetensors_reader import load_weights
             from ..io.wan_checkpoint import (
                 normalize_wan_sd, load_wan_dit_params, load_t5_params,
-                load_wan_vae_params)
+                load_wan_vae_params, load_wan22_vae_params)
             if two and not checkpoints.get("transformer2"):
                 raise ValueError(f"{base_model_type} has two experts: pass "
                                  "checkpoints['transformer2'] too")
@@ -172,8 +184,16 @@ class WanFamilyHandler:
                     device=dev)
             vae_params = None
             if checkpoints.get("vae"):
-                vae_params, _ = load_wan_vae_params(
-                    load_weights(checkpoints["vae"]), vae_cfg, device=dev)
+                sd = load_weights(checkpoints["vae"])
+                if is_22:
+                    vae_params, left = load_wan22_vae_params(sd, vae_cfg,
+                                                             device=dev)
+                    if left:
+                        raise ValueError(f"unconsumed Wan2.2 VAE keys: "
+                                         f"{left[:8]}")
+                else:
+                    vae_params, _ = load_wan_vae_params(sd, vae_cfg,
+                                                        device=dev)
         return WanPipeline(dit_params, dit_cfg, t5_params=t5_params,
                            t5_cfg=t5_cfg, vae_params=vae_params,
                            vae_cfg=vae_cfg, tokenizer=tokenizer,
@@ -193,8 +213,11 @@ class WanFamilyHandler:
         `video_source` (an AVI path) is continued by `video_length` frames
         and the result stitched onto it.  An i2v-class model (DiT in_dim
         above the VAE's latent channels) needs `image_start`; neither a
-        video source nor sliding windows take one.  Returns {"video": [T, H, W, 3]
-        float in [-1, 1] on the host, "fps": int}."""
+        video source nor sliding windows take one.  The 5B (`ti2v_2_2`)
+        takes no image_start, and every model needs a latent grid that its
+        DiT's patch divides: both raise a ValueError before any work.
+        Returns {"video": [T, H, W, 3] float in [-1, 1] on the host, "fps":
+        int}."""
         from ..utils import media
         from ..windows import stitch_windows
         for key in _UNPORTED_INPUTS:
@@ -202,9 +225,16 @@ class WanFamilyHandler:
                 raise NotImplementedError(
                     f"setting {key!r} selects a Wan variant that is not "
                     "ported yet (ROADMAP Queue 1)")
+        _check_grid(pipe, width, height)
         ims = merged.get("image_start")
         if isinstance(ims, (list, tuple)):
             ims = ims[0] if ims else None
+        if ims is not None and pipe.base_model_type == "ti2v_2_2":
+            raise ValueError(
+                "ti2v_2_2 takes no image_start: in the JAX package the 5B "
+                "concatenates the image conditioning (4 mask + 48 latent "
+                "channels) onto its 48 noise channels, 100 channels for a "
+                "patch embedding of 48, so it runs text-to-video only")
         if isinstance(ims, str):
             ims = media.read_image(ims)
         window = int(merged.get("sliding_window_size", 0) or 0)
@@ -247,6 +277,30 @@ class WanFamilyHandler:
                 **common), "fps": fps}
         return {"video": pipe.generate(image_start=ims, **common)
                 .cpu().numpy(), "fps": fps}
+
+
+def _is_22_vae(base_model_type: str) -> bool:
+    return _ARCH[base_model_type]["vae_stride"] == (4, 16, 16)
+
+
+def _check_grid(pipe, width: int, height: int):
+    """Raises unless the DiT's patch divides the latent grid of width x
+    height (at stride 16 and patch 2, a multiple of 32 pixels), naming the
+    nearest size that it does (ties go down; never below one cell)."""
+    _, sh, sw = pipe.vae_stride
+    _, ph, pw = pipe.dit_cfg.patch_size
+    if not ((height // sh) % ph or (width // sw) % pw):
+        return
+
+    def nearest(v, cell):
+        lo = max(cell, v // cell * cell)
+        return lo if v - lo <= lo + cell - v else lo + cell
+
+    raise ValueError(
+        f"{width}x{height} gives a latent grid of {height // sh}x"
+        f"{width // sw} cells, which the DiT's {ph}x{pw} patch does not "
+        f"divide; the nearest size that it does is "
+        f"{nearest(width, sw * pw)}x{nearest(height, sh * ph)}")
 
 
 def umt5_tokenizer(text_encoder_path: str):

@@ -75,13 +75,12 @@ class SafetensorsFile:
 
 
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
-    """Extension-dispatching loader: .safetensors (mmap).  Scaled-FP8,
-    bnb-NF4 and asym-W4A8 checkpoints are dequantized on load
-    (quant_formats.py)."""
+    """Extension-dispatching loader: .safetensors (mmap) or .gguf (parsed
+    and dequantized to fp32, gguf_reader.py).  Scaled-FP8, bnb-NF4 and
+    asym-W4A8 checkpoints are dequantized on load (quant_formats.py)."""
     if path.endswith(".gguf"):
-        raise NotImplementedError(
-            "GGUF checkpoints are not ported yet (ROADMAP Queue 1: "
-            "io/gguf_reader.py)")
+        from .gguf_reader import load_gguf
+        return {k: torch.from_numpy(v) for k, v in load_gguf(path).items()}
     from .quant_formats import normalize_quant_formats
     return normalize_quant_formats(
         normalize_scaled_fp8(load_safetensors(path)))

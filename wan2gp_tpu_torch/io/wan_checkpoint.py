@@ -9,7 +9,8 @@ vae.py) onto the shared tree layout:
     consumes as loaded;
   - blocks stacked along a leading layer axis;
   - VAE convolutions keep PyTorch's [out, in, k...] layout (the port's
-    VAE tree is the JAX one up to that layout, `convert.py`).
+    VAE trees, Wan2.1's and Wan2.2's, are the JAX ones up to that layout,
+    `convert.py`).
 Prefix/key normalization mirrors WanModel.preprocess_sd_with_dtype
 (strip "model.diffusion_model.", drop vae.* keys).  Each loader returns
 (tree, leftover keys); every leaf is a fresh tensor on `device` (cuda
@@ -18,8 +19,8 @@ unless the caller asks for another device).
 The i2v image branch (`cross_attn.{k_img,v_img,norm_k_img}` and
 `img_emb.proj.*`) loads as the JAX loader loads it.  The other variant
 branches (VACE, FantasyTalking, ShotPlan) are not ported: their keys stay
-leftovers, which `families/wan.py` refuses.  Wan2.2's VAE and the HF T5
-encoder are ROADMAP Queue 1 items.
+leftovers, which `families/wan.py` refuses.  The HF T5 encoder is a
+ROADMAP Queue 1 item.
 """
 from __future__ import annotations
 
@@ -188,6 +189,66 @@ def load_t5_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
 # VAE (vae.py key space)
 # ---------------------------------------------------------------------------
 
+def _conv(r, prefix):
+    return {"w": r.vec(f"{prefix}.weight"), "b": r.vec(f"{prefix}.bias")}
+
+
+def _gamma(r, key):
+    return r.vec(key, (-1,))
+
+
+def _res(r, pre):
+    p = {"norm1": _gamma(r, f"{pre}.residual.0.gamma"),
+         "conv1": _conv(r, f"{pre}.residual.2"),
+         "norm2": _gamma(r, f"{pre}.residual.3.gamma"),
+         "conv2": _conv(r, f"{pre}.residual.6")}
+    if r.has(f"{pre}.shortcut.weight"):
+        p["shortcut"] = _conv(r, f"{pre}.shortcut")
+    return p
+
+
+def _attn(r, pre):
+    return {"norm": _gamma(r, f"{pre}.norm.gamma"),
+            "qkv": _conv(r, f"{pre}.to_qkv"),
+            "proj": _conv(r, f"{pre}.proj")}
+
+
+def _resample(r, pre, has_time):
+    """[ZeroPad2d, Conv2d] (down) / [Upsample, Conv2d] (up): the
+    convolution is index 1."""
+    p = {"conv": _conv(r, f"{pre}.resample.1")}
+    if has_time:
+        p["time_conv"] = _conv(r, f"{pre}.time_conv")
+    return p
+
+
+def _mid(r, prefix):
+    return [_res(r, f"{prefix}.0"), _attn(r, f"{prefix}.1"),
+            _res(r, f"{prefix}.2")]
+
+
+def _vae_tree(r, down, up):
+    """The tree both VAEs share around their towers."""
+    return {
+        "encoder": {
+            "conv1": _conv(r, "encoder.conv1"),
+            "down": down,
+            "mid": _mid(r, "encoder.middle"),
+            "head_norm": _gamma(r, "encoder.head.0.gamma"),
+            "head_conv": _conv(r, "encoder.head.2"),
+        },
+        "conv1": _conv(r, "conv1"),
+        "conv2": _conv(r, "conv2"),
+        "decoder": {
+            "conv1": _conv(r, "decoder.conv1"),
+            "mid": _mid(r, "decoder.middle"),
+            "up": up,
+            "head_norm": _gamma(r, "decoder.head.0.gamma"),
+            "head_conv": _conv(r, "decoder.head.2"),
+        },
+    }
+
+
 def load_wan_vae_params(sd: Dict[str, Any], cfg, device=None):
     """cfg: WanVAEConfig.  Torch module order (vae.py:322-478):
     encoder.downsamples / decoder.upsamples are flat Sequentials whose
@@ -196,61 +257,47 @@ def load_wan_vae_params(sd: Dict[str, Any], cfg, device=None):
     from ..models.wan.vae import encoder_plan, decoder_plan
     r = _Reader(sd, device)
 
-    def conv(prefix):
-        return {"w": r.vec(f"{prefix}.weight"), "b": r.vec(f"{prefix}.bias")}
-
-    def gamma(key):
-        return r.vec(key, (-1,))
-
-    def res(pre):
-        p = {"norm1": gamma(f"{pre}.residual.0.gamma"),
-             "conv1": conv(f"{pre}.residual.2"),
-             "norm2": gamma(f"{pre}.residual.3.gamma"),
-             "conv2": conv(f"{pre}.residual.6")}
-        if r.has(f"{pre}.shortcut.weight"):
-            p["shortcut"] = conv(f"{pre}.shortcut")
-        return p
-
-    def attn(pre):
-        return {"norm": gamma(f"{pre}.norm.gamma"),
-                "qkv": conv(f"{pre}.to_qkv"), "proj": conv(f"{pre}.proj")}
-
     def tower(plan, prefix):
         out = []
         for j, (op, _, _) in enumerate(plan):
             pre = f"{prefix}.{j}"
             if op == "res":
-                out.append(res(pre))
+                out.append(_res(r, pre))
             elif op == "attn":
-                out.append(attn(pre))
+                out.append(_attn(r, pre))
             else:
-                # [ZeroPad2d, Conv2d] (down) / [Upsample, Conv2d] (up):
-                # the convolution is index 1
-                p = {"conv": conv(f"{pre}.resample.1")}
-                if op in ("down3d", "up3d"):
-                    p["time_conv"] = conv(f"{pre}.time_conv")
-                out.append(p)
+                out.append(_resample(r, pre, op in ("down3d", "up3d")))
         return out
 
-    def mid(prefix):
-        return [res(f"{prefix}.0"), attn(f"{prefix}.1"), res(f"{prefix}.2")]
+    down = tower(encoder_plan(cfg), "encoder.downsamples")
+    up = tower(decoder_plan(cfg), "decoder.upsamples")
+    return _vae_tree(r, down, up), r.leftover()
 
-    p = {
-        "encoder": {
-            "conv1": conv("encoder.conv1"),
-            "down": tower(encoder_plan(cfg), "encoder.downsamples"),
-            "mid": mid("encoder.middle"),
-            "head_norm": gamma("encoder.head.0.gamma"),
-            "head_conv": conv("encoder.head.2"),
-        },
-        "conv1": conv("conv1"),
-        "conv2": conv("conv2"),
-        "decoder": {
-            "conv1": conv("decoder.conv1"),
-            "mid": mid("decoder.middle"),
-            "up": tower(decoder_plan(cfg), "decoder.upsamples"),
-            "head_norm": gamma("decoder.head.0.gamma"),
-            "head_conv": conv("decoder.head.2"),
-        },
-    }
-    return p, r.leftover()
+
+def load_wan22_vae_params(sd: Dict[str, Any], cfg, device=None):
+    """cfg: Wan22VAEConfig.  The Wan2.2 key space (vae2_2.py): stage i of
+    encoder.downsamples / decoder.upsamples holds its residual blocks at
+    `{i}.downsamples.{j}` / `{i}.upsamples.{j}` and its resample after
+    them; the shortcut paths around the stages have no parameters.
+    Returns (tree, keys it did not consume)."""
+    r = _Reader(sd, device)
+    n = len(cfg.dim_mult)
+
+    def stages(prefix, inner, nblocks, tflags):
+        out = []
+        for i in range(n):
+            pre = f"{prefix}.{i}.{inner}"
+            p = {"blocks": [_res(r, f"{pre}.{j}") for j in range(nblocks)]}
+            if i != n - 1:
+                p["resample"] = _resample(
+                    r, f"{pre}.{nblocks}",
+                    tflags[i] if i < len(tflags) else False)
+            out.append(p)
+        return out
+
+    t_down = tuple(cfg.temporal_downsample)
+    down = stages("encoder.downsamples", "downsamples", cfg.num_res_blocks,
+                  t_down)
+    up = stages("decoder.upsamples", "upsamples", cfg.num_res_blocks + 1,
+                t_down[::-1])
+    return _vae_tree(r, down, up), r.leftover()

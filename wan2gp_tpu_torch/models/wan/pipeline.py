@@ -15,7 +15,8 @@ continue-video pins the encoded tail of a source video the same way.
 Wan2.2's two experts run the guidance phases that `plan_phases` gives
 each (the high-noise expert first).  Image-to-video concatenates the
 conditioning y = mask(4) || VAE latents(16) of [image, zeros...] to the
-latents, and (Wan2.1 i2v) adds CLIP image tokens.
+latents, and (Wan2.1 i2v) adds CLIP image tokens.  Wan2.2's 5B runs its
+own VAE (48 channels, stride 16; `vae2_2.py`), decoded in spatial tiles.
 
 Not ported yet (ROADMAP Queue 1): the VACE conditioning, the other i2v
 variants (first-last frame, SVI) and the variant generators.
@@ -37,7 +38,10 @@ from ...schedulers import Schedule, make_schedule, init_solver_state, \
 from ...ops.rope import build_rope_3d
 from .dit import WanDiTConfig, wan_dit_forward, time_embedding_vec
 from .vae import WanVAEConfig, vae_decode
-from .vae_scan import vae_decode_chunked, vae_encode_chunked
+from .vae2_2 import (Wan22VAEConfig, wan22_vae_decode,
+                     wan22_vae_decode_tiled, wan22_vae_encode)
+from .vae_scan import (vae_decode_chunked, vae_decode_spatial_tiled,
+                       vae_encode_chunked)
 from .t5 import T5Config, t5_encode
 from .clip_vision import (ClipVisionConfig, clip_vision_encode,
                           preprocess_image, resize_bicubic)
@@ -310,11 +314,11 @@ class WanPipeline:
     """End-to-end Wan T2V / I2V: holds params + configs on one device.
     dit_params2: Wan2.2's low-noise expert (same architecture and config
     as dit_params); clip_params / clip_cfg: the CLIP vision tower of
-    Wan2.1 i2v."""
+    Wan2.1 i2v; vae_cfg: a WanVAEConfig, or a Wan22VAEConfig (the 5B)."""
 
     def __init__(self, dit_params, dit_cfg: WanDiTConfig,
                  t5_params=None, t5_cfg: Optional[T5Config] = None,
-                 vae_params=None, vae_cfg: Optional[WanVAEConfig] = None,
+                 vae_params=None, vae_cfg=None,
                  tokenizer=None, vae_stride=(4, 8, 8),
                  attn_backend: str = "auto",
                  base_model_type: str = "t2v_1.3B", device=None,
@@ -492,19 +496,34 @@ class WanPipeline:
             x[:, :, :overlap_latents.shape[2]] = overlap_latents
         return x
 
-    def decode(self, latents_bcfhw, mode: str = "auto"):
-        """VAE decode [B, C, F, H, W] -> [B, T, H, W, 3]; "auto" takes the
-        frame-chunked decode beyond 4 latent frames."""
+    def decode(self, latents_bcfhw, mode: str = "auto", tile_size: int = 0):
+        """VAE decode [B, C, F, H, W] -> [B, T, H, W, 3].  Wan2.1: "auto"
+        takes the frame-chunked decode beyond 4 latent frames; tile_size >
+        0 decodes spatial tiles of that many pixels (each frame-chunked).
+        Wan2.2: spatial tiles of tile_size (256 by default) beyond 32 x 32
+        latent cells or when tile_size > 0, else the whole clip."""
         z = latents_bcfhw.permute(0, 2, 3, 4, 1)
+        if isinstance(self.vae_cfg, Wan22VAEConfig):
+            if tile_size > 0 or z.shape[2] * z.shape[3] > 32 * 32:
+                return wan22_vae_decode_tiled(self.vae_params, self.vae_cfg,
+                                              z, tile_size=tile_size or 256)
+            return wan22_vae_decode(self.vae_params, self.vae_cfg, z)
+        if tile_size > 0:
+            return vae_decode_spatial_tiled(self.vae_params, self.vae_cfg, z,
+                                            tile_size=tile_size)
         if mode == "chunked" or (mode == "auto" and z.shape[1] > 4):
             return vae_decode_chunked(self.vae_params, self.vae_cfg, z)
         return vae_decode(self.vae_params, self.vae_cfg, z)
 
     def encode_video(self, frames):
-        """VAE encode [T, H, W, 3] in [-1, 1], T = 1 + 4k -> latents [1, 16,
-        f_lat, h, w], frame-chunked (first frame, then chunks of 4)."""
+        """VAE encode [T, H, W, 3] in [-1, 1], T = 1 + 4k -> latents [1, z,
+        f_lat, h, w]: Wan2.1 frame-chunked (first frame, then chunks of 4),
+        Wan2.2 the whole clip."""
         video = torch.as_tensor(frames).to(self.device, torch.float32)[None]
-        lat = vae_encode_chunked(self.vae_params, self.vae_cfg, video)
+        if isinstance(self.vae_cfg, Wan22VAEConfig):
+            lat = wan22_vae_encode(self.vae_params, self.vae_cfg, video)
+        else:
+            lat = vae_encode_chunked(self.vae_params, self.vae_cfg, video)
         return lat.permute(0, 4, 1, 2, 3)
 
     # -- image-to-video conditioning ---------------------------------------
@@ -517,7 +536,17 @@ class WanPipeline:
         resized (antialiased bicubic) to height x width where it differs.
         The mask is 1 on the first pixel frame, that frame repeated 4x and
         folded into the latent time grid.  Returns (y [1, 20, f_lat, h,
-        w] fp32, clip_fea [1, 257, 1280] fp32 or None)."""
+        w] fp32, clip_fea [1, 257, 1280] fp32 or None).  A Wan2.2 VAE
+        under a DiT that takes only its noise channels (in_dim == out_dim,
+        the 5B) raises: the JAX package's 5B has no image conditioning
+        (its y would make the DiT's input 100 channels wide, not 48)."""
+        if (isinstance(self.vae_cfg, Wan22VAEConfig)
+                and self.dit_cfg.in_dim == self.dit_cfg.out_dim):
+            raise ValueError(
+                f"{self.base_model_type!r} takes no image conditioning: its "
+                f"DiT reads {self.dit_cfg.in_dim} channels, the noise alone "
+                f"(the JAX package would concatenate 4 mask + "
+                f"{self.vae_cfg.z_dim} image channels onto them)")
         st, sh, sw = self.vae_stride
         f_lat = (frame_num - 1) // st + 1
         lat_h, lat_w = height // sh, width // sw

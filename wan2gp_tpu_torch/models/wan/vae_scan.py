@@ -1,4 +1,5 @@
-"""Memory-bounded Wan VAE decode and encode, a chunk of frames at a time.
+"""Memory-bounded Wan VAE decode and encode: a chunk of frames at a time,
+or a spatial tile at a time.
 
 `vae_decode_chunked` is the counterpart of
 wan2gp_tpu/models/wan/vae_scan.py::vae_decode_chunked: one latent frame
@@ -14,6 +15,11 @@ frame.  At 1280x720x81 one fp32 activation of the whole clip is 28.7 GB
 at the first level; a chunk's is 1.4 GB.
 
 Both equal their full-sequence forms up to fp32 summation order.
+
+`vae_decode_spatial_tiled` (and, through `tile_and_blend`, the Wan2.2
+VAE's tiled decode) decodes overlapping spatial tiles of the latents and
+blends their seams linearly (`blend_v`, `blend_h`), as the JAX package's
+`vae_decode_spatial_tiled` does.
 """
 from __future__ import annotations
 
@@ -175,3 +181,77 @@ def vae_encode_chunked(params, cfg: WanVAEConfig, video):
         mean, std = _stats(x)
         mu = (x[:, :cfg.z_dim] - mean) / std
         return mu.permute(0, 2, 3, 4, 1)
+
+
+# ---------------------------------------------------------------------------
+# Spatial tiling with seam blending
+# ---------------------------------------------------------------------------
+
+def _ramp(extent, like, axis):
+    shape = [1] * like.ndim
+    shape[axis] = extent
+    return (torch.arange(extent, dtype=like.dtype, device=like.device)
+            / extent).reshape(shape)
+
+
+def blend_v(top, tile, extent: int):
+    """Linear vertical seam blend, [B, T, H, W, C]: the first `extent`
+    rows of `tile` ramp from the last `extent` rows of `top`.  Returns a
+    new tensor."""
+    extent = min(top.shape[2], tile.shape[2], int(extent))
+    if extent <= 0:
+        return tile
+    w = _ramp(extent, tile, 2)
+    out = tile.clone()
+    out[:, :, :extent] = tile[:, :, :extent] * w + top[:, :, -extent:] * (
+        1.0 - w)
+    return out
+
+
+def blend_h(left, tile, extent: int):
+    """Linear horizontal seam blend (the columns, as `blend_v` the rows)."""
+    extent = min(left.shape[3], tile.shape[3], int(extent))
+    if extent <= 0:
+        return tile
+    w = _ramp(extent, tile, 3)
+    out = tile.clone()
+    out[:, :, :, :extent] = (tile[:, :, :, :extent] * w
+                             + left[:, :, :, -extent:] * (1.0 - w))
+    return out
+
+
+def tile_and_blend(decode_fn, latents, tile_size: int, stride: int):
+    """latents [B, T_lat, h, w, C] decoded in latent tiles of tile_size /
+    stride cells on a grid of stride 0.75 tile (decode_fn: latents ->
+    pixels [B, T, H, W, 3], spatial stride `stride`); seams blended over
+    tile_size / 4 pixels, each tile cropped to tile_size - tile_size / 4
+    before stitching.  Latents within one tile decode whole."""
+    tl = tile_size // stride
+    step = int(tl * 0.75)
+    blend = int(tile_size * 0.25)
+    keep = tile_size - blend
+    h, w = latents.shape[2], latents.shape[3]
+    if h <= tl and w <= tl:
+        return decode_fn(latents)
+    rows = [[decode_fn(latents[:, :, i:i + tl, j:j + tl])
+             for j in range(0, w, step)] for i in range(0, h, step)]
+    out_rows = []
+    for i, row in enumerate(rows):
+        out_row = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = blend_v(rows[i - 1][j], tile, blend)
+            if j > 0:
+                tile = blend_h(row[j - 1], tile, blend)
+            out_row.append(tile[:, :, :keep, :keep])
+        out_rows.append(torch.cat(out_row, dim=3))
+    return torch.cat(out_rows, dim=2)
+
+
+def vae_decode_spatial_tiled(params, cfg: WanVAEConfig, latents,
+                             tile_size: int = 256, decode_fn=None):
+    """Spatially tiled Wan2.1 decode: latent tiles of tile_size / 8 cells
+    (`tile_and_blend`), each through `vae_decode_chunked` (or
+    decode_fn).  latents: [B, T_lat, h, w, 16] normalized."""
+    dec = decode_fn or (lambda z: vae_decode_chunked(params, cfg, z))
+    return tile_and_blend(dec, latents, tile_size, stride=8)
