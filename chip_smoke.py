@@ -35,7 +35,10 @@ the repository).  Phases, each printing one JSON line:
             first tile of the last block), at block_q 64 and 192, D 64,
             with a q block of count 0 that must write zeros (Sol: and lse
             -1e30).  Dense flash also at the 5B's 24 heads (B 2, ragged L
-            = 1,000, S = 512).  The Wan2.2 VAE decode at full width (random
+            = 1,000, S = 512) and at Multitalk's audio cross-attention
+            (1,560 tokens a latent frame over 32 audio tokens, k and v the
+            strided halves of one projection); W8 (and W8A8) at the audio
+            kv projection, 1,344 x 768 x 10,240.  The Wan2.2 VAE decode at full width (random
             weights) against the same decode on the CPU for one small tile
             (2 x 4 x 4 latents): max abs err <= 1e-3.
 3. dit      a small DiT forward on the card, through the kernels, against
@@ -44,9 +47,11 @@ the repository).  Phases, each printing one JSON line:
             tokens), int4 weights with the radial mask and W4A8 with Sol
             (1,024 tokens, so both engage); a Wan i2v forward (in_dim 36
             with y, 257 CLIP tokens through the image cross-attention: 3
-            flash launches a layer); Krea 2 at head_dim 128 (its masked
-            self-attention and text refiner): max abs err <= 3e-2 *
-            max|ref|.
+            flash launches a layer); a VACE + audio forward in bf16 and
+            int8 (2 layers, 1 VACE block, audio of 32 tokens of 768 a
+            latent frame: 8 flash and 37 W8 launches); Krea 2 at head_dim
+            128 (its masked self-attention and text refiner): max abs err
+            <= 3e-2 * max|ref|.
 4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
             the kernel's output there is held to the plain version in fp32
@@ -73,7 +78,10 @@ the repository).  Phases, each printing one JSON line:
             self-attention at 1280x720 at batch 2, W8 at the 14B linears
             and cross k/v) and (I)'s (the 5B's self- and cross-attention
             at B 2 over 27,280 tokens, 24 heads; W8 at its four linear
-            shapes), each with its launches per forward.
+            shapes) and (J)'s (the audio cross-attention at 42 x 1,560
+            tokens over 32 with strided k/v; W8 at the 14B linears at
+            M = 65,520 and at the audio kv projection), each with its
+            launches per forward.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
@@ -126,7 +134,22 @@ the repository).  Phases, each printing one JSON line:
                 launches a forward, none padded; the Wan2.2 decode in 28
                 spatial tiles (asserted) of at most 31 x 16 x 16 latents:
                 write, load, step, decode and request seconds and the
-                load, denoise and decode peaks.
+                load, denoise and decode peaks;
+            (J) vace_multitalk_14B (14B, 40 layers, 20 VACE blocks, the
+                multitalk module's audio cross-attention in every block)
+                at 832x480x81 through WanPipeline.generate_multitalk with a
+                VACE context: the DiT random and quantized int8 in
+                process, the multitalk module (bf16) and a wav2vec2-base
+                (fp32) written as files from random weights and read back
+                by their loaders (the read-back tensors equal to the
+                written ones); a 16 kHz WAV of 81 / 25 s through wav2vec2,
+                a control video with a half-frame mask through
+                build_vace_conditioning, 2 UniPC steps at guidance 1 and
+                audio guidance 4 (one batch-2 forward a step: 160 flash and
+                740 W8 launches, none padded), the Wan2.1 decode: init,
+                write, read, quantize, wav2vec2, encode, step, decode and
+                request seconds and the load, encode, denoise and decode
+                peaks.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -347,12 +370,20 @@ def phase_check():
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     flash["strided_qkv"] = flash_check(
         "strided_qkv", q, k, v, A.flash_attention(q, k, v, _scale(q)))
+    # Multitalk's audio cross-attention: each latent frame's tokens over
+    # its 32 audio tokens, k and v the two halves of one kv projection
+    q, k, v = audio_qkv(6, 1560, gen)
+    flash["audio_cross_strided_s32"] = flash_check(
+        "audio_cross_strided_s32", q, k, v,
+        A.flash_attention(q, k, v, _scale(q)))
 
     w8_cases = {"qkvo_1536x1536": (4096, 1536, 1536),
                 "fc1_1536x8960": (4096, 1536, 8960),
                 "fc2_8960x1536": (4096, 8960, 1536),
                 "ragged_m": (333, 1536, 1536),
-                "ragged_mnk": (77, 100, 51)}
+                "ragged_mnk": (77, 100, 51),
+                # Multitalk's audio kv projection: 42 frames x 32 tokens
+                "audio_kv_768x10240": (1344, 768, 10240)}
     w8 = {}
     for name, (m, k, n) in w8_cases.items():
         x = randn((m, k), gen)
@@ -587,6 +618,16 @@ def _scale(q):
     return 1.0 / math.sqrt(q.shape[-1])
 
 
+def audio_qkv(frames, tokens, gen, n=40, d=128, s=32):
+    """q [frames, tokens, n, d] and the k, v halves of one [frames, s,
+    2 n d] tensor viewed as [frames, s, n, d] (strided, as Multitalk's
+    audio cross-attention hands them to the kernel)."""
+    q = randn((frames, tokens, n, d), gen)
+    kv = randn((frames, s, 2 * n * d), gen)
+    k, v = (t.reshape(frames, s, n, d) for t in kv.chunk(2, dim=-1))
+    return q, k, v
+
+
 def flash_check(name, q, k, v, got):
     """The kernel's output `got` against the plain version in fp32 from the
     same bf16 inputs; raises past the limits."""
@@ -724,6 +765,7 @@ def phase_dit():
         if not (out[mode]["finite"] and err <= 3e-2 * ref_max):
             raise AssertionError(f"small DiT forward ({mode}): {out[mode]}")
     out["i2v"] = dit_i2v()
+    out["vace_audio"] = dit_vace_audio()
     out["krea2"] = dit_krea2()
     emit("dit", tolerance="max_abs<=3e-2*max|ref|", **out)
 
@@ -767,6 +809,69 @@ def dit_i2v():
             and launched == 3 * cfg.num_layers):
         raise AssertionError(f"small i2v DiT forward: {out}, want "
                              f"{3 * cfg.num_layers} flash launches")
+    return out
+
+
+def dit_vace_audio():
+    """A small vace_multitalk forward (2 layers, so 1 VACE block; audio
+    cross-attention over 32 tokens of 768 a latent frame) in bf16 and
+    int8, card against CPU.  The card's forward launches the flash kernel
+    3 times a main layer (self, text, audio) and twice a VACE block, and
+    (int8) W8 10 times a main layer, 3 times a layer for the audio (q, kv,
+    o) and 11 times a VACE block (with after_proj)."""
+    from wan2gp_tpu_torch.models.wan import dit
+    from wan2gp_tpu_torch.models.wan.multitalk import \
+        init_multitalk_audio_attn
+    from wan2gp_tpu_torch.ops import attention as A, quant as Q
+    from wan2gp_tpu_torch.ops.rope import build_rope_3d
+    from wan2gp_tpu_torch.runtime.service import quantize_dit_params
+    cfg = dit.WanDiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2,
+                           text_len=16, vace=True)
+    rng = np.random.default_rng(4)
+    grid = (3, 4, 4)
+    lat = torch.from_numpy(rng.standard_normal(
+        (2, 16, grid[0], 2 * grid[1], 2 * grid[2]), dtype=np.float32))
+    vctx = torch.from_numpy(rng.standard_normal(
+        (1, 96, grid[0], 2 * grid[1], 2 * grid[2]), dtype=np.float32))
+    audio = torch.from_numpy(rng.standard_normal((2, grid[0], 32, 768),
+                                                 dtype=np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 16, 4096),
+                                               dtype=np.float32))
+    t = torch.tensor([900.0, 250.0])
+    want = {"flash_attention": 3 * 2 + 2,
+            "matmul_w8": 10 * 2 + 3 * 2 + 11}
+    out = {"config": "dim 256, 2 heads of 128, 2 layers (1 VACE block), "
+                     "audio 3 frames x 32 tokens of 768",
+           "tokens": int(np.prod(grid))}
+    for mode in ("bf16", "int8"):
+        p = dit.init_wan_dit(torch.Generator().manual_seed(5), cfg)
+        p["audio_attn_blocks"] = init_multitalk_audio_attn(
+            torch.Generator().manual_seed(6), cfg, cfg.num_layers)
+        if mode == "int8":
+            p = quantize_dit_params(p, "int8")
+        res = {}
+        for dev in ("cpu", "cuda"):
+            pd = _tree_to(p, dev)
+            cos, sin = build_rope_3d(grid, head_dim=cfg.head_dim, device=dev)
+            before = A.launches, Q.launches
+            res[dev] = dit.wan_dit_forward(
+                pd, cfg, lat.to(dev), t.to(dev), ctx.to(dev), cos, sin,
+                vace_context=vctx.to(dev), vace_scale=0.8,
+                audio_tokens=audio.to(dev)).float().cpu()
+            launched = {"flash_attention": A.launches - before[0],
+                        "matmul_w8": Q.launches - before[1]}
+        ref_max = res["cpu"].abs().max().item()
+        err = (res["cuda"] - res["cpu"]).abs().max().item()
+        out[mode] = {"max_abs": err, "ref_max": ref_max,
+                     "launches": launched,
+                     "finite": bool(torch.isfinite(res["cuda"]).all())}
+        ok_launches = (launched == want if mode == "int8" else
+                       launched["flash_attention"] == want["flash_attention"]
+                       and launched["matmul_w8"] == 0)
+        if not (out[mode]["finite"] and err <= 3e-2 * ref_max
+                and ok_launches):
+            raise AssertionError(f"small VACE + audio DiT forward ({mode}): "
+                                 f"{out[mode]}, want {want}")
     return out
 
 
@@ -841,6 +946,30 @@ def time_flash(name, b, l, s, n, d):
     return {"shape": [b, l, s, n, d], "ms": ms, "plain_ms": plain_ms,
             **library, "bound_ms": bound_ms, "bound_by": by,
             **rates(flops, ms, bound_ms), "err": err}
+
+
+def time_flash_audio(frames, tokens, n=40, d=128, s=32):
+    """Multitalk's audio cross-attention: q [frames, tokens, n, d] over
+    the strided k, v halves of one [frames, s, 2 n d] projection, as the
+    DiT hands them over; the yardstick's SDPA takes contiguous copies."""
+    from wan2gp_tpu_torch.ops import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = audio_qkv(frames, tokens, gen, n, d, s)
+    scale = _scale(q)
+    err = flash_check("audio_cross", q, k, v,
+                      A.flash_attention(q, k, v, scale))
+    ms = cuda_ms(lambda: A.flash_attention(q, k, v, scale), 20)
+    plain_ms = cuda_ms(lambda: A.flash_attention_ref(q, k, v, scale), 1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library = library_sdpa(sdpa_ms(qt, kt, vt, 20, scale=scale),
+                           " (on contiguous copies of k and v)")
+    del qt, kt, vt
+    b, l = frames, tokens
+    flops = 4.0 * b * n * l * s * d
+    bound_ms, by = bound(flops, 2.0 * (2 * b * l * n * d + 2 * b * s * n * d))
+    return {"shape": [b, l, s, n, d], "kv_strides": list(k.stride()),
+            "ms": ms, "plain_ms": plain_ms, **library, "bound_ms": bound_ms,
+            "bound_by": by, **rates(flops, ms, bound_ms), "err": err}
 
 
 def time_kvmask(name, b, l, n, d, valid):
@@ -1149,6 +1278,19 @@ I_PER_FORWARD = {"self_5B": 30, "cross_5B": 30,
                  f"{2 * I_TOKENS}x3072x3072": 180,
                  f"{2 * I_TOKENS}x3072x14336": 30,
                  f"{2 * I_TOKENS}x14336x3072": 30, "1024x3072x3072": 60}
+# launches per DiT forward of (J) (vace_multitalk_14B at 832x480x81, int8,
+# the two audio-CFG branches as batch 2): per main block a self, a text
+# cross and an audio cross flash, per VACE block (20) a self and a text
+# cross; W8 at M = 65,520 on self q, k, v, o and cross q, o of the 60
+# blocks, the 40 audio q, o and the 20 after_proj; fc1, fc2 of the 60
+# blocks; cross k, v at M = 1,024; the audio kv at M = 42 x 32
+J_TOKENS = 21 * 30 * 52
+J_PER_FORWARD = {"self_14B_480p": 60, "cross_14B_480p": 60,
+                 "audio_cross_J": 40,
+                 f"{2 * J_TOKENS}x5120x5120": 6 * 60 + 2 * 40 + 20,
+                 f"{2 * J_TOKENS}x5120x13824": 60,
+                 f"{2 * J_TOKENS}x13824x5120": 60,
+                 "1024x5120x5120": 2 * 60, "1344x768x10240": 40}
 
 
 def phase_time(tokens: int):
@@ -1229,6 +1371,15 @@ def phase_time(tokens: int):
                                (2 * I_TOKENS, 3072, 14336),
                                (2 * I_TOKENS, 14336, 3072),
                                (1024, 3072, 3072))})
+    # (J): the audio cross-attention (42 latent-frame items of 1,560
+    # tokens over 32 audio tokens) and W8 at the 14B linears at 480p and at
+    # the audio kv projection (K = 768)
+    flash["audio_cross_J"] = time_flash_audio(2 * 21, 30 * 52)
+    w8.update({f"{m}x{k}x{n}": time_w8(f"{m}x{k}x{n}", m, k, n)
+               for m, k, n in ((2 * J_TOKENS, 5120, 5120),
+                               (2 * J_TOKENS, 5120, 13824),
+                               (2 * J_TOKENS, 13824, 5120),
+                               (1344, 768, 10240))})
     for table in (flash, sol, w4a8, aq):
         for case, t in table.items():
             if case in C_PER_FORWARD:
@@ -1239,6 +1390,8 @@ def phase_time(tokens: int):
         (flash if case in flash else w8)[case]["launches_per_forward_G"] = n
     for case, n in I_PER_FORWARD.items():
         (flash if case in flash else w8)[case]["launches_per_forward_I"] = n
+    for case, n in J_PER_FORWARD.items():
+        (flash if case in flash else w8)[case]["launches_per_forward_J"] = n
     emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
          matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, tolerance=TOLERANCE)
@@ -1463,11 +1616,13 @@ def phase_service(frames: int):
     real_denoise, real_decode = WanPipeline.denoise, WanPipeline.decode
     real_encode, real_clip = (WanPipeline.encode_video,
                               pipe_mod.clip_vision_encode)
+    real_multitalk = pipe_mod.multitalk_denoise
     real_krea2_denoise = krea2_pipe.krea2_denoise
     WanPipeline.denoise = timed("denoise", real_denoise)
     WanPipeline.decode = timed("decode", real_decode)
     WanPipeline.encode_video = timed("encode", real_encode)
     pipe_mod.clip_vision_encode = timed("clip", real_clip)
+    pipe_mod.multitalk_denoise = timed("denoise", real_multitalk)
     krea2_pipe.krea2_denoise = timed("denoise", real_krea2_denoise)
     out_dir = os.path.join(OUT, "outputs")
 
@@ -1981,6 +2136,155 @@ def phase_service(frames: int):
                 "padded_launches": padded,
                 "launches_per_forward": per_forward, **out}
 
+    def run_j():
+        """(J): vace_multitalk_14B (Wan2.1 14B with VACE and the multitalk
+        module) at 832x480x81, through WanPipeline.generate_multitalk with
+        a VACE context (the JAX handler never passes one).  The DiT, with
+        its 20 VACE blocks, is random and quantized int8 in process; the
+        multitalk module (reference key names, bf16) and a wav2vec2-base
+        (HF key names, fp32) are written from random weights under
+        `ckpts`, read back by their loaders and placed in the pipeline as
+        load_model places them.  A 16 kHz WAV of 81 / 25 s is read and
+        turned into features by wav2vec2; a control video with a
+        half-frame mask becomes the VACE context; 2 UniPC steps at
+        guidance 1 and audio guidance 4 (the definition's 10 steps cut to
+        STEPS), the two audio-CFG branches as one batch-2 forward a step;
+        the Wan2.1 decode."""
+        from wan2gp_tpu_torch.io.safetensors_reader import (
+            load_weights, save_safetensors)
+        from wan2gp_tpu_torch.models.wan import multitalk as mt
+        from wan2gp_tpu_torch.models.wan.pipeline import SamplingConfig
+        ckdir = os.path.join(OUT, "ckpts")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        os.makedirs(ckdir)
+        model_def = svc_mod.GenerationService(
+            init_random_weights=True).registry.get("vace_multitalk_14B")
+        defaults = model_def["settings"]
+        if (defaults["guidance_scale"], defaults["num_inference_steps"],
+                defaults["resolution"], defaults["video_length"]) != (
+                    1, 10, "832x480", 81):
+            raise AssertionError(f"(J): the definition {defaults}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = fam.WanFamilyHandler.load_model(
+            "vace_multitalk_14B", model_def, init_random=True, seed=21)
+        cfg = pipe.dit_cfg
+        # the module (load_model's random one) and wav2vec2 as files
+        module_sd = mt.multitalk_module_state_dict(
+            pipe.audio_proj_params, pipe.dit_params.pop("audio_attn_blocks"))
+        pipe.audio_proj_params = None
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        w2v_cfg = mt.Wav2Vec2Config()
+        w2v_sd = mt.wav2vec2_state_dict(mt.init_wav2vec2(gen, w2v_cfg))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        module_path = os.path.join(
+            ckdir, "Wan2.1_multitalk_14B_mbf16.safetensors")
+        w2v_path = os.path.join(ckdir, "chinese-wav2vec2-base",
+                                "model.safetensors")
+        os.makedirs(os.path.dirname(w2v_path))
+        t0 = time.perf_counter()
+        save_safetensors(module_path, module_sd)
+        save_safetensors(w2v_path, w2v_sd)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ap, ap_cfg, blocks = mt.load_multitalk_module_params(
+            load_weights(module_path), cfg.num_layers, torch.bfloat16)
+        w2v = mt.load_wav2vec2_params(load_weights(w2v_path), w2v_cfg)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        leaves = 0
+        again = {**mt.multitalk_module_state_dict(ap, blocks),
+                 **{"w2v/" + k: v for k, v in
+                    mt.wav2vec2_state_dict(w2v).items()}}
+        for k, v in {**module_sd, **{"w2v/" + k: v for k, v in
+                                     w2v_sd.items()}}.items():
+            if again[k].dtype != v.dtype or not torch.equal(again[k], v):
+                raise AssertionError(f"(J) {k}: not the written tensor")
+            leaves += 1
+        if len(again) != leaves:
+            raise AssertionError(f"(J): {len(again)} tensors read back, "
+                                 f"{leaves} written")
+        del module_sd, w2v_sd, again
+        pipe.dit_params["audio_attn_blocks"] = blocks
+        pipe.audio_proj_params, pipe.audio_proj_cfg = ap, ap_cfg
+        pipe.wav2vec = (w2v, w2v_cfg)
+        t0 = time.perf_counter()
+        pipe.dit_params = svc_mod.quantize_dit_params(pipe.dit_params,
+                                                      "int8")
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        del blocks
+        torch.cuda.empty_cache()
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        weights_gb = sum(t.numel() * t.element_size()
+                         for t in _leaves(pipe.dit_params)) / 1e9
+        # the audio: a 16 kHz WAV of 81 / 25 s, as the handler reads it
+        frames, h, w, fps = 81, 480, 832, 25
+        tt = np.arange(frames * 16000 // fps) / 16000
+        wav = media.save_audio((0.3 * np.sin(2 * np.pi * (200 + 300 * tt)
+                                             * tt)).astype(np.float32),
+                               os.path.join(ckdir, "voice.wav"))
+        # the control video: a moving gradient, the mask its right half
+        yy, xx = torch.meshgrid(torch.linspace(-1, 1, h, device="cuda"),
+                                torch.linspace(-1, 1, w, device="cuda"),
+                                indexing="ij")
+        ph = torch.arange(frames, device="cuda")[:, None, None] / frames
+        control = torch.stack([torch.sin(3 * xx + 6 * ph), yy.expand_as(
+            torch.sin(3 * xx + 6 * ph)), torch.cos(2 * yy - 6 * ph)], -1)
+        masks = (xx > 0).float().expand(frames, h, w)
+        sampling = SamplingConfig(solver="unipc", steps=STEPS, shift=5.0,
+                                  guide_scale=1.0)
+        extra = {}
+
+        def request():
+            t0 = time.perf_counter()
+            pcm, rate = media.read_wav(wav)
+            mono = pcm.astype(np.float32).mean(axis=1) / 32767.0
+            mono = (mono - mono.mean()) / (mono.std() + 1e-7)
+            emb = mt.wav2vec2_extract(
+                w2v, w2v_cfg, torch.from_numpy(mono[None]).cuda(), frames)
+            torch.cuda.synchronize()
+            extra["wav2vec_s"] = time.perf_counter() - t0
+            extra["audio_features"] = list(emb.shape)
+            extra["sample_rate"] = rate
+            vctx, refs = pipe.build_vace_conditioning(control, masks)
+            extra["vace_context"] = list(vctx.shape)
+            return pipe.generate_multitalk(
+                "a person talking", emb[0], width=w, height=h,
+                frame_num=frames, sampling=sampling, seed=9,
+                audio_guide_scale=4.0, vace_context=vctx)
+        per_forward = {"flash_attention": 160, "matmul_w8": 740}
+        Q.w8_pad_launches = Q.w4_pad_launches = 0
+        Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+        out = recorded_request("(J)", request, [1] * STEPS, per_forward, {},
+                               frames, h, w)
+        out.pop("forward_params")
+        padded = (Q.w8_pad_launches + Q.w4_pad_launches
+                  + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
+        if padded:
+            raise AssertionError(f"(J): {padded} matmul launches padded")
+        if (extra["audio_features"] != [1, frames, 12, 768]
+                or extra["vace_context"] != [1, 96, 21, 60, 104]):
+            raise AssertionError(f"(J): {extra}")
+        files = {os.path.relpath(p, ckdir): os.path.getsize(p)
+                 for p in (module_path, w2v_path)}
+        del pipe, w2v, ap
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        return {"label": "(J) vace_multitalk_14B 832x480x81: VACE (half-"
+                         "frame mask) + audio (wav2vec2 from a WAV), int8, "
+                         "guidance 1, audio guidance 4",
+                "layers": cfg.num_layers, "vace_blocks": len(cfg.vace_layers),
+                "steps": STEPS, "solver": "unipc", "init_s": init_s,
+                "write_s": write_s, "read_s": read_s,
+                "quantize_s": quantize_s, "files_bytes": files,
+                "leaves_equal": leaves, "load_peak_gb": load_peak,
+                "dit_weights_gb": weights_gb, **extra,
+                "step_s": out["denoise_s"] / STEPS,
+                "padded_launches": padded,
+                "launches_per_forward": per_forward, **out}
+
     def run_krea2(n_req, size):
         """n_req krea2_raw requests (guidance 3.5: CFG as batch 2) at all
         28 layers.  Per request of STEPS steps: 28 masked self-attentions
@@ -2082,12 +2386,14 @@ def phase_service(frames: int):
         results["14B_i2v_2_2_G"] = run_g(png)
         os.remove(png)
         results["5B_ti2v_I"] = run_i()
+        results["14B_vace_multitalk_J"] = run_j()
     finally:
         media.save_video, media.save_image = real_save, real_save_image
         pipe_mod.wan_dit_forward = real_forward
         WanPipeline.denoise, WanPipeline.decode = real_denoise, real_decode
         WanPipeline.encode_video = real_encode
         pipe_mod.clip_vision_encode = real_clip
+        pipe_mod.multitalk_denoise = real_multitalk
         krea2_pipe.krea2_denoise = real_krea2_denoise
     emit("service", frames=frames, latent_frames=(frames - 1) // 4 + 1,
          steps=STEPS, guidance_scale=5.0, solver="unipc",

@@ -122,3 +122,52 @@ def test_locator_finds_files_on_disk_and_raises_for_missing(tmp_path):
         str(a / "idx.safetensors.index.json")) == [
         os.path.join(str(a), "s1.safetensors"),
         os.path.join(str(a), "s2.safetensors")]
+
+
+# (row, its DiT's model_type, width x height, the port's MagCache table)
+_MAG_ROWS = [("t2v_1.3B", "t2v", (832, 480), "t2v_1.3B"),
+             ("vace_1.3B", "t2v", (832, 480), "t2v_1.3B"),
+             ("t2v", "t2v", (1280, 720), "t2v_14B"),
+             ("vace_multitalk_14B", "t2v", (832, 480), "t2v_14B"),
+             ("i2v", "i2v", (832, 480), "i2v_480p"),
+             ("i2v", "i2v", (1280, 720), "i2v_720p"),
+             ("t2v_2_2", "t2v", (1280, 720), "t2v_2_2_moe"),
+             ("i2v_2_2", "t2v", (1280, 720), "i2v_2_2"),
+             ("ti2v_2_2", "t2v", (1280, 704), "ti2v_5B_t2v")]
+
+
+@pytest.mark.parametrize("row,model_type,size,table", _MAG_ROWS)
+def test_magcache_takes_each_rows_own_table(row, model_type, size, table):
+    """The port's MagCache plan for a row comes from that row's table
+    (Wan2.1 i2v by resolution); the JAX lookup, pinned beside it, falls
+    back to t2v_1.3B / t2v_14B wherever the base type is not a key:
+    i2v, t2v_2_2 and ti2v_2_2 run on the t2v_14B ratios there."""
+    import jax.numpy as jnp
+    from wan2gp_tpu.models.wan import dit as jdit, pipeline as jpipe
+    from wan2gp_tpu.schedulers import make_schedule as jmake_schedule
+    from wan2gp_tpu_torch.models.wan import dit, pipeline as ppipe
+    from wan2gp_tpu_torch.schedulers import make_schedule
+    assert caches.magcache_table(row, model_type == "i2v",
+                                 size[0] * size[1]) == table
+    s = dict(steps=20, cache_type="mag", cache_speed_factor=2.0)
+    pipe = ppipe.WanPipeline({}, dit.WanDiTConfig(model_type=model_type),
+                             base_model_type=row, device="cpu")
+    got = pipe.skip_schedule(ppipe.SamplingConfig(**s),
+                             make_schedule("unipc", 20, 5.0), *size)
+    ratios = caches.magcache_interp_ratios(caches.MAGCACHE_DEF_RATIOS[table],
+                                           20)
+    want = caches.magcache_schedule(
+        ratios, caches.magcache_auto_threshold(ratios, 2.0), branches=2)
+    np.testing.assert_array_equal(got, want)
+    jp = jpipe.WanPipeline({}, jdit.WanDiTConfig(
+        model_type=model_type, compute_dtype=jnp.float32),
+        base_model_type=row)
+    jplan = jp.skip_schedule(jpipe.SamplingConfig(**s),
+                             jmake_schedule("unipc", 20, 5.0), *size)
+    jtable = row if row in jcaches.MAGCACHE_DEF_RATIOS else (
+        "t2v_1.3B" if "1.3B" in row else "t2v_14B")
+    jratios = jcaches.magcache_interp_ratios(
+        jcaches.MAGCACHE_DEF_RATIOS[jtable], 20)
+    np.testing.assert_array_equal(jplan, jcaches.magcache_schedule(
+        jratios, jcaches.magcache_auto_threshold(jratios, 2.0), branches=2))
+    assert (jtable == table) == (row not in ("i2v", "t2v_2_2", "ti2v_2_2"))

@@ -369,3 +369,29 @@ def test_cli_runs_from_a_checkpoints_directory(ckpt_dir, tmp_path):
     assert cli.main(["--checkpoints-dir", str(ckpt_dir), *argv]) == 1
     with pytest.raises(FileNotFoundError, match="umt5"):
         svc.get_pipeline("t2v_1.3B")
+
+
+@pytest.mark.parametrize("role,file", [("text_encoder", T5_FILE),
+                                       ("vae", "Wan2.1_VAE.safetensors")])
+def test_load_model_refuses_leftover_keys(ckpt_dir, role, file):
+    """A UMT5 or Wan2.1 VAE file with a key its loader does not consume
+    raises a ValueError naming it, as the DiT and Wan2.2 VAE files do
+    (the JAX handler drops those leftovers); loaders alone still return
+    them, as JAX's do."""
+    from wan2gp_tpu_torch.families.wan import WanFamilyHandler
+    path = str(ckpt_dir / file)
+    sd = st.load_safetensors(path)
+    sd["stray.weight"] = torch.zeros(2)
+    st.save_safetensors(path, sd)
+    ckpts = {"transformer": str(ckpt_dir / DIT_BF16), role: path}
+    with pytest.raises(ValueError, match=f"unconsumed {{}}.*stray".format(
+            "text_encoder" if role == "text_encoder" else "Wan2.1 VAE")):
+        WanFamilyHandler.load_model("t2v_1.3B", {}, checkpoints=ckpts,
+                                    device="cpu")
+    if role == "vae":
+        cfg = vae.WanVAEConfig(dim=8, num_res_blocks=1)
+        _, left = ck.load_wan_vae_params(sd, cfg, device="cpu")
+        _, jleft = jck.load_wan_vae_params(
+            {k: v.numpy() for k, v in sd.items()},
+            jvae.WanVAEConfig(dim=8, num_res_blocks=1))
+        assert left == jleft == ["stray.weight"]

@@ -12,6 +12,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from wan2gp_tpu.models.wan import dit as jdit
@@ -54,16 +55,29 @@ def _inputs(b=1, f=2):
     return lat, ctx, ctxn
 
 
-def _fwd(lat, t, ctx, j=None, p=None):
-    """The same forward in both packages; j / p: the JAX / port extras."""
+@functools.lru_cache(maxsize=None)
+def _jax_fbc_forward(threshold):
+    """JAX's forward with the first-block cache, jitted for a threshold
+    (eagerly each of its ops compiles on first use)."""
+    return jax.jit(functools.partial(jdit.wan_dit_forward, cfg=JCFG,
+                                     attn_backend="xla",
+                                     fbc_threshold=threshold))
+
+
+def _fwd(lat, t, ctx, j=None, p=None, jax_forward=None):
+    """The same forward in both packages; j / p: the JAX / port extras;
+    jax_forward: a jitted JAX forward of the config to call instead."""
     jkw, pkw = j or {}, p or {}
     jp, pipe = _pipes()
     grid = (lat.shape[2], 2, 2)
     jcos, jsin = jp._rope(lat.shape)
     cos, sin = build_rope_3d(grid, head_dim=CFG.head_dim)
-    ref = jdit.wan_dit_forward(jp.dit_params, JCFG, jnp.asarray(lat),
-                               jnp.asarray(t), jnp.asarray(ctx), jcos, jsin,
-                               attn_backend="xla", **jkw)
+    if jax_forward is None:
+        jax_forward = functools.partial(jdit.wan_dit_forward, cfg=JCFG,
+                                        attn_backend="xla")
+    ref = jax_forward(jp.dit_params, latents=jnp.asarray(lat),
+                      t=jnp.asarray(t), context=jnp.asarray(ctx),
+                      rope_cos=jcos, rope_sin=jsin, **jkw)
     got = dit.wan_dit_forward(pipe.dit_params, CFG, torch.from_numpy(lat),
                               torch.from_numpy(t), torch.from_numpy(ctx),
                               cos, sin, **pkw)
@@ -110,10 +124,9 @@ def test_forward_first_block_cache_matches_jax():
     for x, allow, thr in ((lat, False, 0.08), (lat, True, 0.08),
                           (lat2, True, 1e-3)):
         (got, st_t), (ref, st_j) = _fwd(
-            x, t, ctx,
-            j={"fbc_state": (*state_j[:2], jnp.asarray(allow)),
-               "fbc_threshold": thr},
-            p={"fbc_state": (*state_t[:2], allow), "fbc_threshold": thr})
+            x, t, ctx, j={"fbc_state": (*state_j[:2], jnp.asarray(allow))},
+            p={"fbc_state": (*state_t[:2], allow), "fbc_threshold": thr},
+            jax_forward=_jax_fbc_forward(thr))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
         for a, b in zip(st_t, st_j):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)

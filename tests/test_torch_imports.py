@@ -39,6 +39,7 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.models.wan.clip_vision",
     "wan2gp_tpu_torch.models.wan.vae_scan",
     "wan2gp_tpu_torch.models.wan.vae2_2",
+    "wan2gp_tpu_torch.models.wan.multitalk",
     "wan2gp_tpu_torch.ops.attention",
     "wan2gp_tpu_torch.ops.sparse_attention",
     "wan2gp_tpu_torch.ops.sol_attention",
@@ -123,6 +124,8 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
     from wan2gp_tpu_torch.models.krea2.dit import Krea2Config
     from wan2gp_tpu_torch.models.krea2.pipeline import Krea2Pipeline
     from wan2gp_tpu_torch.models.wan.dit import WanDiTConfig
+    from wan2gp_tpu_torch.models.wan.multitalk import (
+        load_multitalk_module_params, load_wav2vec2_params)
     from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
     from wan2gp_tpu_torch.runtime import api, cli
     from wan2gp_tpu_torch.runtime.service import GenerationService
@@ -140,6 +143,11 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
             "i2v", {}, init_random=True),
         "ti2v load_model": lambda: WanFamilyHandler.load_model(
             "ti2v_2_2", {}, init_random=True),
+        "vace_multitalk load_model": lambda: WanFamilyHandler.load_model(
+            "vace_multitalk_14B", {}, init_random=True),
+        "load_wav2vec2_params": lambda: load_wav2vec2_params({}),
+        "load_multitalk_module_params":
+            lambda: load_multitalk_module_params({}, 1),
         "Krea2Pipeline": lambda: Krea2Pipeline({}, Krea2Config()),
         "krea2 load_model": lambda: Krea2FamilyHandler.load_model(
             "krea2_raw", {}, init_random=True),

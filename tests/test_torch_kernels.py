@@ -65,11 +65,15 @@ def test_flash_kernel_matches_plain(gen, b, l, s, n, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["packed_qkv_d128", "packed_qkv_d64",
-                                    "heads_first"])
+                                    "heads_first", "audio_kv_halves"])
 def test_flash_kernel_reads_strided_views(gen, layout):
     if layout == "heads_first":          # [B, N, L, D] storage, transposed
         q, k, v = (_randn((2, 3, 600, 128), gen).transpose(1, 2)
                    for _ in range(3))
+    elif layout == "audio_kv_halves":    # Multitalk: one [F, 32, 2 N D] kv
+        q = _randn((6, 1560, 4, 128), gen)
+        k, v = (t.reshape(6, 32, 4, 128) for t in _randn(
+            (6, 32, 2 * 4 * 128), gen).chunk(2, dim=-1))
     else:
         qkv = _randn((2, 777, 3, 4, 128 if layout.endswith("128") else 64),
                      gen)
@@ -107,7 +111,8 @@ def _cpu_layout(t):
     ("contiguous", True), ("packed_qkv", True), ("heads_first", True),
     ("size1_dims_any_stride", True), ("offset_4_elements", False),
     ("stride_not_multiple_of_8", False), ("d_strided", False),
-    ("d96", False), ("shape_mismatch", False), ("empty", False)])
+    ("d96", False), ("shape_mismatch", False), ("empty", False),
+    ("audio_kv_halves", True)])
 def test_flash_layout_rules_on_cpu_tensors(case, ok):
     """The wrapper's checks as a pure function of shapes, strides and byte
     offsets: what the kernel's TMA maps can and cannot take."""
@@ -135,6 +140,9 @@ def test_flash_layout_rules_on_cpu_tensors(case, ok):
         v = torch.empty((2, 51, 3, 128), dtype=torch.bfloat16)
     elif case == "empty":
         k = v = torch.empty((2, 0, 3, 128), dtype=torch.bfloat16)
+    elif case == "audio_kv_halves":     # bases 0 and 768 bytes apart
+        k, v = (t.reshape(2, 50, 3, 128) for t in torch.empty(
+            (2, 50, 2 * 3 * 128), dtype=torch.bfloat16).chunk(2, dim=-1))
     shapes, strides, offsets = zip(*(_cpu_layout(t) for t in (q, k, v)))
     err = attention.flash_layout_error(shapes, strides, offsets)
     assert (err is None) == ok, err
@@ -357,7 +365,8 @@ def test_w4_and_w4a8_kernels_match_plain(gen, m, k, n):
     ("w8", 1000, 1536, 8960),       # 1.3B fc1 width, M not a tile multiple
     ("w4", 1000, 5120, 13824),      # 14B fc1 width
     ("w8", 1024, 1536, 1536),       # 1.3B cross k/v: the narrow variant
-    ("w4", 1024, 5120, 5120)])      # 14B cross k/v
+    ("w4", 1024, 5120, 5120),       # 14B cross k/v
+    ("w8", 1344, 768, 10240)])      # Multitalk's audio kv (K = 768)
 def test_weight_only_kernels_at_main_path_widths(gen, kernel, m, k, n):
     x = _randn((m, k), gen)
     w = torch.randn((k, n), generator=gen, device="cuda")

@@ -260,3 +260,22 @@ def test_quantize_params_tree_and_unported_modes():
         quant.matmul_w8a8_ref(x, wq, sc), rtol=0, atol=0)
     with pytest.raises(ValueError):
         quantize_dit_params(tree(), "int2")
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4", "int8a8", "int4a8"])
+def test_quantize_that_quantizes_nothing_raises(mode):
+    """Below K, N = 256 no block linear qualifies: the port raises where
+    the JAX function returns the tree as it was (pinned)."""
+    import jax.numpy as jnp
+    from wan2gp_tpu.runtime.service import quantize_dit_params as jquantize
+    from wan2gp_tpu_torch.runtime.service import quantize_dit_params
+    narrow = {"blocks": {"fc": {"w": torch.randn(2, 128, 512),
+                                "b": torch.zeros(2, 512)}}}
+    with pytest.raises(ValueError, match="nothing would be quantized"):
+        quantize_dit_params(narrow, mode)
+    # the "a8" modes store weights as int8 / int4 do (JAX's also set a
+    # process-wide activation mode, so they are not called here)
+    jtree = {"blocks": {"fc": {"w": jnp.zeros((2, 128, 512))}}}
+    assert list(jquantize(jtree, mode[:4])["blocks"]["fc"]) == ["w"]
+    wide = {"blocks": {"fc": {"w": torch.randn(2, 256, 512)}}}
+    assert "w" not in quantize_dit_params(wide, mode)["blocks"]["fc"]

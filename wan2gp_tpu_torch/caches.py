@@ -106,6 +106,22 @@ def teacache_auto_threshold(e_list, coefficients, speed_factor: float,
 # MagCache
 # ---------------------------------------------------------------------------
 
+def magcache_table(base_model_type: str, is_i2v: bool, pixels: int) -> str:
+    """The name of the MAGCACHE_DEF_RATIOS table a Wan row calibrates
+    with: Wan2.2's A14B rows and the 5B their own, Wan2.1 i2v by
+    resolution (as `teacache_coefficients`), the 1.3B rows t2v_1.3B and
+    every other 14B row t2v_14B.  (The JAX package keys on the base model
+    type with t2v_1.3B / t2v_14B as the fallback, so i2v, t2v_2_2 and
+    ti2v_2_2 run on the t2v_14B ratios there.)"""
+    own = {"t2v_2_2": "t2v_2_2_moe", "i2v_2_2": "i2v_2_2",
+           "ti2v_2_2": "ti2v_5B_t2v"}
+    if base_model_type in own:
+        return own[base_model_type]
+    if is_i2v:
+        return "i2v_720p" if pixels >= 1280 * 720 else "i2v_480p"
+    return "t2v_1.3B" if "1.3B" in base_model_type else "t2v_14B"
+
+
 def magcache_interp_ratios(def_mag_ratios: Sequence[float],
                            num_steps: int) -> np.ndarray:
     """Prepend [1,1] and nearest-interpolate the (cond, uncond) pairs to the

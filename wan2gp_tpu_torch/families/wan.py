@@ -3,12 +3,17 @@
 Counterpart of wan2gp_tpu/families/wan.py for `t2v_1.3B` (dim 1536, 12
 heads, 30 layers), `t2v` and `i2v` (14B: dim 5120, 40 heads, 40 layers;
 i2v with 36 input channels and the CLIP image branch) and Wan2.2's
-two-expert `t2v_2_2` and `i2v_2_2`, and Wan2.2's `ti2v_2_2` (the 5B:
-dim 3072, 24 heads, 30 layers, 48 latent channels on the Wan2.2 VAE of
-stride (4, 16, 16)): random weights or checkpoint files (torch-layout
-safetensors, quanto-int8 included, or GGUF), plain, image-started,
-sliding-window or continue-video generation.  The other Wan variants are
-not ported yet.
+two-expert `t2v_2_2` and `i2v_2_2`, Wan2.2's `ti2v_2_2` (the 5B: dim
+3072, 24 heads, 30 layers, 48 latent channels on the Wan2.2 VAE of stride
+(4, 16, 16)), the VACE rows `vace_1.3B` and `vace_14B` and
+`vace_multitalk_14B` (VACE and the Multitalk audio module on the 14B):
+random weights or checkpoint files (torch-layout safetensors, quanto-int8
+included, or GGUF), plain, image-started, sliding-window, continue-video
+or audio-driven generation (an `audio_guide` WAV through wav2vec2, or
+features given as `_audio_emb`).  A control video drives VACE through the
+pipeline (`WanPipeline.generate_vace`, `generate_multitalk(vace_context=
+...)`), not through these settings.  The other Wan variants are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -41,11 +46,21 @@ _ARCH: Dict[str, Dict[str, Any]] = {
     "ti2v_2_2": dict(dim=3072, ffn_dim=14336, num_heads=24, num_layers=30,
                      model_type="t2v", in_dim=48, out_dim=48,
                      vae_stride=(4, 16, 16)),
+    "vace_1.3B": dict(dim=1536, ffn_dim=8960, num_heads=12, num_layers=30,
+                      model_type="t2v", vae_stride=(4, 8, 8), vace=True),
+    "vace_14B": dict(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40,
+                     model_type="t2v", vae_stride=(4, 8, 8), vace=True),
+    "vace_multitalk_14B": dict(dim=5120, ffn_dim=13824, num_heads=40,
+                               num_layers=40, model_type="t2v",
+                               vae_stride=(4, 8, 8), vace=True,
+                               multitalk=True),
 }
 
 # settings that select a generation path this port does not have yet
-_UNPORTED_INPUTS = ("image_end", "image_refs", "video_guide", "audio_guide",
-                    "custom_guide")
+_UNPORTED_INPUTS = ("image_end", "image_refs", "custom_guide")
+# the audio features' frame rate when the settings name no fps (the rate
+# multitalk's windows are cut at)
+MULTITALK_FPS = 25
 
 
 class WanFamilyHandler:
@@ -62,6 +77,8 @@ class WanFamilyHandler:
         return {"vae_stride": arch["vae_stride"],
                 "i2v_class": arch["model_type"] == "i2v",
                 "wan_5B_class": base_model_type == "ti2v_2_2",
+                "vace_class": arch.get("vace", False),
+                "multitalk_class": arch.get("multitalk", False),
                 "image_outputs": False,
                 "multiple_submodels": arch.get("experts", 1) > 1,
                 "sliding_window": True,
@@ -85,20 +102,28 @@ class WanFamilyHandler:
             dim=arch["dim"], ffn_dim=arch["ffn_dim"],
             num_heads=arch["num_heads"], num_layers=arch["num_layers"],
             in_dim=arch.get("in_dim", 16), out_dim=arch.get("out_dim", 16),
-            model_type=arch["model_type"],
+            model_type=arch["model_type"], vace=arch.get("vace", False),
             text_dim=arch.get("text_dim", 4096), compute_dtype=dtype)
 
     @staticmethod
     def query_model_files(base_model_type: str,
                           model_def: Dict[str, Any]) -> List[Dict[str, Any]]:
-        """The checkpoint roles of a t2v or i2v model: Wan2.2's second
-        expert is "transformer2", from the definition's URLs2; the 5B's
-        VAE is Wan2.2's."""
+        """The checkpoint roles of a Wan model: Wan2.2's second expert is
+        "transformer2", from the definition's URLs2; the 5B's VAE is
+        Wan2.2's; a Multitalk row adds its audio module ("multitalk") and
+        wav2vec2 ("wav2vec", found in its `chinese-wav2vec2-base` folder,
+        `subdir`)."""
         base = "https://huggingface.co/DeepBeepMeep/Wan2.1/resolve/main/"
         files = [{"role": "transformer", "urls": model_def.get("URLs", [])}]
         if model_def.get("URLs2"):
             files.append({"role": "transformer2",
                           "urls": model_def["URLs2"]})
+        if _ARCH[base_model_type].get("multitalk"):
+            files.append({"role": "multitalk", "urls": [
+                base + "Wan2.1_multitalk_14B_mbf16.safetensors"]})
+            files.append({"role": "wav2vec", "subdir": "chinese-wav2vec2-base",
+                          "urls": [base + "chinese-wav2vec2-base/"
+                                   "model.safetensors"]})
         return files + [
             {"role": "text_encoder", "urls": [
                 base + "models_t5_umt5-xxl-enc-bf16.safetensors"]},
@@ -114,15 +139,22 @@ class WanFamilyHandler:
                    init_random: bool = False, seed: int = 0,
                    device=None) -> WanPipeline:
         """checkpoints: {"transformer": path, "transformer2": path,
-        "text_encoder": path, "vae": path}; the text encoder and the VAE
-        are optional (without the text encoder, prompts are embedded by
-        their hash); the text encoder's tokenizer is read from the UMT5
-        tokenizer files in its folder, and their absence raises.  A model
-        with two experts needs "transformer2".  init_random builds random
-        weights from `seed` on `device` instead (expert 2 from seed + 2,
-        the CLIP tower of model_type "i2v" from seed + 3).  A transformer
-        key that the loader does not consume raises, and so does an i2v
-        model from files: the CLIP checkpoint has no loader yet."""
+        "text_encoder": path, "vae": path, "multitalk": path, "wav2vec":
+        path}; the text encoder and the VAE are optional (without the text
+        encoder, prompts are embedded by their hash); the text encoder's
+        tokenizer is read from the UMT5 tokenizer files in its folder, and
+        their absence raises.  A model with two experts needs
+        "transformer2".  A Multitalk row takes its audio module from
+        "multitalk" (the DiT's audio_attn_blocks and the audio projection)
+        and wav2vec2 from "wav2vec" (read only with the module); without
+        them it has no audio branch.  init_random builds random weights
+        from `seed` on `device` instead (expert 2 from seed + 2, the CLIP
+        tower of model_type "i2v" from seed + 3; a Multitalk row's audio
+        cross-attention from seed + 2 and its audio projection from seed +
+        3, without wav2vec2, as in the JAX package).  A key that a loader
+        does not consume raises a ValueError naming the first ones, and an
+        i2v model from files raises: the CLIP checkpoint has no loader
+        yet."""
         dev = resolve_device(device)
         arch = _ARCH[base_model_type]
         dit_cfg = cls.dit_config(base_model_type, dtype)
@@ -131,6 +163,7 @@ class WanFamilyHandler:
         t5_cfg = T5Config()
         two = arch.get("experts", 1) > 1
         dit_params2 = clip_params = clip_cfg = None
+        audio = {}              # the pipeline's Multitalk attributes
         if dit_cfg.i2v_cross_attn:
             clip_cfg = ClipVisionConfig(compute_dtype=dtype)
         if init_random:
@@ -146,6 +179,17 @@ class WanFamilyHandler:
             if clip_cfg is not None:
                 gen.manual_seed(seed + 3)
                 clip_params = init_clip_vision(gen, clip_cfg, dtype)
+            if arch.get("multitalk"):
+                from ..models.wan.multitalk import (
+                    AudioProjConfig, init_audio_proj,
+                    init_multitalk_audio_attn)
+                gen.manual_seed(seed + 2)
+                dit_params["audio_attn_blocks"] = init_multitalk_audio_attn(
+                    gen, dit_cfg, dit_cfg.num_layers, dtype=dtype)
+                gen.manual_seed(seed + 3)
+                ap_cfg = AudioProjConfig()
+                audio = {"audio_proj_cfg": ap_cfg,
+                         "audio_proj_params": init_audio_proj(gen, ap_cfg)}
             t5_params = tokenizer = None
         else:
             if clip_cfg is not None:
@@ -169,8 +213,7 @@ class WanFamilyHandler:
                 sd = normalize_wan_sd(load_weights(checkpoints[role]))
                 params, left = load_wan_dit_params(sd, dit_cfg, dtype,
                                                    device=dev)
-                if left:
-                    raise ValueError(f"unconsumed {role} keys: {left[:8]}")
+                _refuse_leftovers(role, left)
                 return params
 
             dit_params = load_dit("transformer")
@@ -179,21 +222,32 @@ class WanFamilyHandler:
             t5_params = tokenizer = None
             if checkpoints.get("text_encoder"):
                 tokenizer = umt5_tokenizer(checkpoints["text_encoder"])
-                t5_params, _ = load_t5_params(
+                t5_params, left = load_t5_params(
                     load_weights(checkpoints["text_encoder"]), t5_cfg, dtype,
                     device=dev)
+                _refuse_leftovers("text_encoder", left)
             vae_params = None
             if checkpoints.get("vae"):
                 sd = load_weights(checkpoints["vae"])
-                if is_22:
-                    vae_params, left = load_wan22_vae_params(sd, vae_cfg,
-                                                             device=dev)
-                    if left:
-                        raise ValueError(f"unconsumed Wan2.2 VAE keys: "
-                                         f"{left[:8]}")
-                else:
-                    vae_params, _ = load_wan_vae_params(sd, vae_cfg,
-                                                        device=dev)
+                vae_params, left = (
+                    load_wan22_vae_params if is_22 else load_wan_vae_params)(
+                    sd, vae_cfg, device=dev)
+                _refuse_leftovers("Wan2.2 VAE" if is_22 else "Wan2.1 VAE",
+                                  left)
+            if arch.get("multitalk") and checkpoints.get("multitalk"):
+                from ..models.wan.multitalk import (
+                    Wav2Vec2Config, load_multitalk_module_params,
+                    load_wav2vec2_params)
+                ap, ap_cfg, dit_params["audio_attn_blocks"] = \
+                    load_multitalk_module_params(
+                        load_weights(checkpoints["multitalk"]),
+                        dit_cfg.num_layers, dtype, device=dev)
+                audio = {"audio_proj_params": ap, "audio_proj_cfg": ap_cfg}
+                if checkpoints.get("wav2vec"):
+                    w2v_cfg = Wav2Vec2Config()
+                    audio["wav2vec"] = (load_wav2vec2_params(
+                        load_weights(checkpoints["wav2vec"]), w2v_cfg,
+                        device=dev), w2v_cfg)
         return WanPipeline(dit_params, dit_cfg, t5_params=t5_params,
                            t5_cfg=t5_cfg, vae_params=vae_params,
                            vae_cfg=vae_cfg, tokenizer=tokenizer,
@@ -201,7 +255,7 @@ class WanFamilyHandler:
                            attn_backend=attn_backend,
                            base_model_type=base_model_type, device=dev,
                            dit_params2=dit_params2, clip_params=clip_params,
-                           clip_cfg=clip_cfg)
+                           clip_cfg=clip_cfg, **audio)
 
     @classmethod
     def generate_video(cls, pipe, merged: Dict[str, Any], width: int,
@@ -216,8 +270,13 @@ class WanFamilyHandler:
         video source nor sliding windows take one.  The 5B (`ti2v_2_2`)
         takes no image_start, and every model needs a latent grid that its
         DiT's patch divides: both raise a ValueError before any work.
-        Returns {"video": [T, H, W, 3] float in [-1, 1] on the host, "fps":
-        int}."""
+        A Multitalk row with `_audio_emb` ([T_frames, 12, 768] features) or
+        `audio_guide` (a 16 kHz PCM16 WAV, read, mixed to mono, normalized
+        and put through the loaded wav2vec2 at `fps`, 25 by default)
+        generates from the audio (`_generate_audio`).  Returns {"video":
+        [T, H, W, 3] float in [-1, 1] on the host, "fps": int}, and for an
+        audio request also "audio" (the WAV's int16 samples, or
+        `_audio_wave`) and "audio_sample_rate"."""
         from ..utils import media
         from ..windows import stitch_windows
         for key in _UNPORTED_INPUTS:
@@ -225,7 +284,16 @@ class WanFamilyHandler:
                 raise NotImplementedError(
                     f"setting {key!r} selects a Wan variant that is not "
                     "ported yet (ROADMAP Queue 1)")
+        if merged.get("video_guide"):
+            raise ValueError(
+                "video_guide is not read by the Wan handler (the JAX "
+                "handler drops it): a VACE control video goes through "
+                "WanPipeline.generate_vace or generate_multitalk("
+                "vace_context=WanPipeline.build_vace_conditioning(...))")
         _check_grid(pipe, width, height)
+        if merged.get("_audio_emb") is not None or merged.get("audio_guide"):
+            return cls._generate_audio(pipe, merged, width, height,
+                                       frame_num, seed)
         ims = merged.get("image_start")
         if isinstance(ims, (list, tuple)):
             ims = ims[0] if ims else None
@@ -277,6 +345,63 @@ class WanFamilyHandler:
                 **common), "fps": fps}
         return {"video": pipe.generate(image_start=ims, **common)
                 .cpu().numpy(), "fps": fps}
+
+    @staticmethod
+    def _generate_audio(pipe, merged: Dict[str, Any], width: int,
+                        height: int, frame_num: int, seed: int):
+        """A Multitalk request: raises a ValueError where the JAX handler
+        would drop the audio and run plain text-to-video (a model without
+        the multitalk module, an `audio_guide` without wav2vec2 weights)
+        or feed wav2vec2 a WAV at another rate than its 16 kHz."""
+        from ..models.wan.multitalk import wav2vec2_extract
+        from ..utils import media
+        if not (_ARCH[pipe.base_model_type].get("multitalk")
+                and pipe.audio_proj_params is not None):
+            raise ValueError(
+                f"{pipe.base_model_type!r} has no multitalk audio module: "
+                "audio_guide / _audio_emb need a Multitalk row loaded with "
+                "its module")
+        fps = int(merged.get("fps") or MULTITALK_FPS)
+        audio_emb = merged.get("_audio_emb")
+        wave = merged.get("_audio_wave")
+        if audio_emb is None:
+            if pipe.wav2vec is None:
+                raise ValueError(
+                    "audio_guide needs wav2vec2 weights (the 'wav2vec' "
+                    "checkpoint), or the features as _audio_emb")
+            pcm, rate = media.read_wav(merged["audio_guide"])
+            if rate != 16000:
+                raise ValueError(
+                    f"{merged['audio_guide']}: wav2vec2 takes 16 kHz audio, "
+                    f"the file is at {rate} Hz")
+            mono = pcm.astype(np.float32).mean(axis=1) / 32767.0
+            mono = (mono - mono.mean()) / (mono.std() + 1e-7)
+            n_frames = max(frame_num, int(len(mono) / rate * fps))
+            w2v_params, w2v_cfg = pipe.wav2vec
+            audio_emb = wav2vec2_extract(
+                w2v_params, w2v_cfg,
+                torch.from_numpy(mono[None]).to(pipe.device), n_frames)[0]
+            if wave is None:
+                wave = pcm
+        elif wave is None and merged.get("audio_guide"):
+            wave = media.read_wav(merged["audio_guide"])[0]
+        video = pipe.generate_multitalk(
+            prompt=merged.get("prompt", ""),
+            audio_emb=audio_emb, n_prompt=merged.get("negative_prompt", ""),
+            width=width, height=height, frame_num=frame_num,
+            sampling=sampling_from_settings(merged), seed=seed,
+            audio_guide_scale=float(merged.get("audio_guidance_scale", 4.0)),
+            context=merged.get("_context"),
+            context_null=merged.get("_context_null"))
+        return {"video": video.cpu().numpy(), "audio": wave,
+                "audio_sample_rate": 16000, "fps": fps}
+
+
+def _refuse_leftovers(role: str, left):
+    """A loader's unconsumed keys raise: a wrong or partly foreign file
+    would otherwise load without a word."""
+    if left:
+        raise ValueError(f"unconsumed {role} keys: {list(left)[:8]}")
 
 
 def _is_22_vae(base_model_type: str) -> bool:

@@ -93,8 +93,10 @@ def make_checkpoints_resolver(roots: Optional[List[str]] = None,
                               dtype_policy: str = "bf16",
                               roles: Optional[Sequence[str]] = None):
     """checkpoints_resolver for GenerationService: locates the file of
-    every role a handler declares through query_model_files; a missing
-    file raises.  roles: resolve only these (None: every declared role);
+    every role a handler declares through query_model_files (under the
+    spec's `subdir` of a root where it names one: wav2vec2's
+    `model.safetensors` sits in its own folder; the JAX resolver looks for
+    every file at a root's top); a missing file raises.  roles: resolve only these (None: every declared role);
     the handler then loads the model without the others."""
     locator = FileLocator(roots)
 
@@ -105,7 +107,7 @@ def make_checkpoints_resolver(roots: Optional[List[str]] = None,
             if not urls or (roles is not None and spec["role"] not in roles):
                 continue
             url = pick_checkpoint_url(urls, quantization, dtype_policy)
-            out[spec["role"]] = locator.ensure(url)
+            out[spec["role"]] = locator.ensure(url, spec.get("subdir", ""))
         return out
 
     return resolve

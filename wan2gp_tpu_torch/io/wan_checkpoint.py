@@ -17,9 +17,11 @@ Prefix/key normalization mirrors WanModel.preprocess_sd_with_dtype
 unless the caller asks for another device).
 
 The i2v image branch (`cross_attn.{k_img,v_img,norm_k_img}` and
-`img_emb.proj.*`) loads as the JAX loader loads it.  The other variant
-branches (VACE, FantasyTalking, ShotPlan) are not ported: their keys stay
-leftovers, which `families/wan.py` refuses.  The HF T5 encoder is a
+`img_emb.proj.*`) and the VACE branch (`vace_patch_embedding`,
+`vace_blocks.N.*` with their `after_proj`, and `vace_blocks.0.before_proj`
+as `vace_before_proj`) load as the JAX loader loads them.  The other
+variant branches (FantasyTalking, ShotPlan) are not ported: their keys
+stay leftovers, which `families/wan.py` refuses.  The HF T5 encoder is a
 ROADMAP Queue 1 item.
 """
 from __future__ import annotations
@@ -112,8 +114,8 @@ def load_wan_dit_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
                            "fc2": r.lin("time_embedding.2", torch.float32)}
     p["time_projection"] = r.lin("time_projection.1", torch.float32)
 
-    def attn(i, name):
-        pre = f"blocks.{i}.{name}"
+    def attn(pre, name):
+        pre = f"{pre}.{name}"
         a = {k: r.lin(f"{pre}.{k}", dtype) for k in ("q", "k", "v", "o")}
         a["norm_q"] = r.vec(f"{pre}.norm_q.weight")
         a["norm_k"] = r.vec(f"{pre}.norm_k.weight")
@@ -123,25 +125,42 @@ def load_wan_dit_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
             a["norm_k_img"] = r.vec(f"{pre}.norm_k_img.weight")
         return a
 
-    def block(i):
-        mod_key = (f"blocks.{i}.modulation"
-                   if r.has(f"blocks.{i}.modulation")
-                   else f"blocks.{i}.modulation.weight")
+    def block(pre):
+        mod_key = (f"{pre}.modulation" if r.has(f"{pre}.modulation")
+                   else f"{pre}.modulation.weight")
         return {
-            "self_attn": attn(i, "self_attn"),
-            "cross_attn": attn(i, "cross_attn"),
-            "norm3": {"w": r.vec(f"blocks.{i}.norm3.weight"),
-                      "b": r.vec(f"blocks.{i}.norm3.bias")},
-            "ffn": {"fc1": r.lin(f"blocks.{i}.ffn.0", dtype),
-                    "fc2": r.lin(f"blocks.{i}.ffn.2", dtype)},
+            "self_attn": attn(pre, "self_attn"),
+            "cross_attn": attn(pre, "cross_attn"),
+            "norm3": {"w": r.vec(f"{pre}.norm3.weight"),
+                      "b": r.vec(f"{pre}.norm3.bias")},
+            "ffn": {"fc1": r.lin(f"{pre}.ffn.0", dtype),
+                    "fc2": r.lin(f"{pre}.ffn.2", dtype)},
             "modulation": r.vec(mod_key, (6, -1)),
         }
 
-    p["blocks"] = _stack([block(i) for i in range(cfg.num_layers)])
+    p["blocks"] = _stack([block(f"blocks.{i}")
+                          for i in range(cfg.num_layers)])
     head_mod_key = ("head.modulation" if r.has("head.modulation")
                     else "head.modulation.weight")
     p["head"] = {"head": r.lin("head.head", torch.float32),
                  "modulation": r.vec(head_mod_key, (2, -1))}
+    if r.has("vace_patch_embedding.weight"):
+        vw = torch.as_tensor(r.sd.pop("vace_patch_embedding.weight")).float()
+        p["vace_patch_embedding"] = {
+            "w": vw.reshape(vw.shape[0], -1).t().to(r.device, copy=True)
+            .contiguous(),
+            "b": r.vec("vace_patch_embedding.bias"),
+        }
+        n_vace = len({k.split(".")[1] for k in r.sd
+                      if k.startswith("vace_blocks.")})
+
+        def vace_block(i):
+            b = block(f"vace_blocks.{i}")
+            b["after_proj"] = r.lin(f"vace_blocks.{i}.after_proj", dtype)
+            return b
+
+        p["vace_before_proj"] = r.lin("vace_blocks.0.before_proj", dtype)
+        p["vace_blocks"] = _stack([vace_block(i) for i in range(n_vace)])
     if r.has("img_emb.proj.1.weight"):
         p["img_emb"] = {
             "norm1": {"w": r.vec("img_emb.proj.0.weight"),

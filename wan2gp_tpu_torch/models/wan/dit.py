@@ -14,8 +14,13 @@ The residual stream and modulation math are fp32, matmuls run in
 Hooks of the denoise loop: NAG (a second text cross-attention against
 `context_neg`, combined by `_nag_combine`), the TeaCache/MagCache skip
 (`skip_state`, decided on the host) and the first-block cache
-(`fbc_state`, one host read a forward).  The other variant hooks of the
-JAX module (VACE, audio, ...) are not ported yet (ROADMAP Queue 1).
+(`fbc_state`, one host read a forward).  Two conditioning branches: VACE
+(`vace_context`: a control stream of its own blocks, one beside every
+second main block, each adding its `after_proj` output after main block
+2i) and Multitalk (`audio_tokens`: a per-latent-frame audio
+cross-attention after the text one, from `audio_attn_blocks`).  The other
+variant hooks of the JAX module (FantasyTalking, StandIn, Lynx, ...) are
+not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -47,11 +52,17 @@ class WanDiTConfig:
     text_len: int = 512
     eps: float = 1e-6
     model_type: str = "t2v"          # "t2v" | "i2v" (CLIP image branch)
+    vace: bool = False               # VACE control branch (even layers)
+    vace_in_dim: int = 96
     compute_dtype: Any = torch.bfloat16
     residual_dtype: Any = torch.float32
     # activations of the quantized block linears: "bf16" (compute dtype) or
     # "int8" (per-row dynamic int8, W4A8); set by the service's quantize
     act_quant: str = "bf16"
+
+    @property
+    def vace_layers(self):
+        return tuple(range(0, self.num_layers, 2)) if self.vace else ()
 
     @property
     def head_dim(self):
@@ -95,7 +106,10 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
                  dtype=torch.bfloat16) -> Dict[str, Any]:
     """Random DiT params on the generator's device.  model_type "i2v" adds
     the image cross-attention (k_img, v_img, norm_k_img) and `img_emb`
-    (LN(1280) -> 1280x1280 -> GELU -> 1280xdim -> LN)."""
+    (LN(1280) -> 1280x1280 -> GELU -> 1280xdim -> LN); `cfg.vace` the
+    VACE branch: `vace_patch_embedding`, `vace_before_proj` and one
+    block per VACE layer (`vace_blocks`, stacked, each with its
+    `after_proj`)."""
     if cfg.model_type not in ("t2v", "i2v"):
         raise NotImplementedError(
             f"model_type {cfg.model_type!r} is not ported yet (ROADMAP "
@@ -105,7 +119,7 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
     pt, ph, pw = cfg.patch_size
     patch_in = cfg.in_dim * pt * ph * pw
 
-    def attn(cross=False):
+    def attn(n, cross=False):
         p = {"q": _linear(gen, n, d, d, dtype),
              "k": _linear(gen, n, d, d, dtype),
              "v": _linear(gen, n, d, d, dtype),
@@ -118,16 +132,19 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
             p["norm_k_img"] = torch.ones((n, d), device=dev)
         return p
 
-    blocks = {
-        "self_attn": attn(),
-        "cross_attn": attn(cross=True),
-        "norm3": {"w": torch.ones((n, d), device=dev),
-                  "b": torch.zeros((n, d), device=dev)},
-        "ffn": {"fc1": _linear(gen, n, d, cfg.ffn_dim, dtype),
-                "fc2": _linear(gen, n, cfg.ffn_dim, d, dtype)},
-        "modulation": _normal(gen, (n, 6, d), 1.0 / math.sqrt(d),
-                              torch.float32),
-    }
+    def blocks(n):
+        return {
+            "self_attn": attn(n),
+            "cross_attn": attn(n, cross=True),
+            "norm3": {"w": torch.ones((n, d), device=dev),
+                      "b": torch.zeros((n, d), device=dev)},
+            "ffn": {"fc1": _linear(gen, n, d, cfg.ffn_dim, dtype),
+                    "fc2": _linear(gen, n, cfg.ffn_dim, d, dtype)},
+            "modulation": _normal(gen, (n, 6, d), 1.0 / math.sqrt(d),
+                                  torch.float32),
+        }
+
+    main = blocks(n)        # drawn first, as before the VACE branch
     f32 = torch.float32
     params = {
         "patch_embedding": _linear(gen, None, patch_in, d, f32),
@@ -140,12 +157,20 @@ def init_wan_dit(gen: torch.Generator, cfg: WanDiTConfig,
             "fc2": _linear(gen, None, d, d, f32, std=0.02),
         },
         "time_projection": _linear(gen, None, d, 6 * d, f32),
-        "blocks": blocks,
+        "blocks": main,
         "head": {
             "head": _linear(gen, None, d, cfg.out_dim * pt * ph * pw, f32),
             "modulation": _normal(gen, (2, d), 1.0 / math.sqrt(d), f32),
         },
     }
+    if cfg.vace:
+        n_vace = len(cfg.vace_layers)
+        params["vace_patch_embedding"] = _linear(
+            gen, None, cfg.vace_in_dim * pt * ph * pw, d, f32)
+        params["vace_blocks"] = blocks(n_vace)
+        params["vace_blocks"]["after_proj"] = _linear(gen, n_vace, d, d,
+                                                      dtype)
+        params["vace_before_proj"] = _linear(gen, None, d, d, dtype)
     if cfg.i2v_cross_attn:
         params["img_emb"] = {
             "norm1": {"w": torch.ones((1280,), device=dev),
@@ -282,12 +307,34 @@ def _ffn(p, y, cfg):
     return _dense(h, p["fc2"], cdt, aq)
 
 
+def _audio_cross_attention(ap, x, audio_ctx, n_frames, cfg, attn_backend):
+    """Multitalk's per-latent-frame audio cross-attention.  x [B, L, C]
+    with L = n_frames * S tokens, frame-major; audio_ctx [B, n_frames, Na,
+    Da].  The query input goes through the affine LayerNorm `norm_x`; each
+    latent frame's S tokens attend to its Na audio tokens, whose k and v
+    are the two halves of one `kv` linear."""
+    cdt, aq = cfg.compute_dtype, cfg.act_quant
+    b, l, c = x.shape
+    s = l // n_frames
+    y = layer_norm(x.float(), ap["norm_x"]["w"], ap["norm_x"]["b"],
+                   eps=cfg.eps)
+    q = _dense(y.reshape(b * n_frames, s, c).to(cdt), ap["q"], cdt, aq)
+    kv_in = audio_ctx.reshape(b * n_frames, *audio_ctx.shape[2:]).to(cdt)
+    k, v = _dense(kv_in, ap["kv"], cdt, aq).chunk(2, dim=-1)
+    o = attention(_heads(q, cfg.num_heads), _heads(k, cfg.num_heads),
+                  _heads(v, cfg.num_heads), backend=attn_backend)
+    o = _dense(o.reshape(b * n_frames, s, c), ap["o"], cdt, aq)
+    return o.reshape(b, l, c)
+
+
 def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend,
-           context_neg=None, nag=None, context_img=None):
+           context_neg=None, nag=None, context_img=None, audio=None):
     """One WanAttentionBlock.  x [B, L, C] in residual_dtype; e6 fp32
     [B, T_mod, 6, C] broadcast over tokens; nag = (scale, tau, alpha) with
     the embedded `context_neg` for NAG; context_img: the projected CLIP
-    tokens of the image cross-attention (i2v)."""
+    tokens of the image cross-attention (i2v); audio = (the layer's
+    audio-attention params, audio context, latent frames): Multitalk's
+    audio cross-attention after the text one."""
     rdt, cdt = cfg.residual_dtype, cfg.compute_dtype
     e = e6 + bp["modulation"].float()[None, None]
     b, l, c = x.shape
@@ -310,6 +357,10 @@ def _block(bp, x, e6, context, rope_cos, rope_sin, cfg, attn_backend,
                                       attn_backend, context_neg=context_neg,
                                       nag=nag, context_img=context_img
                                       ).float()).to(rdt)
+    if audio is not None:
+        ap, audio_ctx, n_frames = audio
+        x = (x.float() + _audio_cross_attention(
+            ap, x, audio_ctx, n_frames, cfg, attn_backend).float()).to(rdt)
 
     xr = x.reshape(b, t_mod, l // t_mod, c)
     y = modulated_layer_norm(xr, emod(3), emod(4), eps=cfg.eps,
@@ -330,7 +381,8 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
                     rope_cos, rope_sin, clip_fea=None, y=None,
                     attn_backend: str = "auto", skip_state=None,
                     context_neg=None, nag=None, fbc_state=None,
-                    fbc_threshold: float = 0.08):
+                    fbc_threshold: float = 0.08, vace_context=None,
+                    vace_scale: float = 1.0, audio_tokens=None):
     """latents [B, C, F, H, W]; t [B] or [B, F_lat] (0..1000); context
     [B, text_len, text_dim].  Returns the velocity [B, C_out, F, H, W]
     in fp32.
@@ -348,7 +400,19 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
     cache; runs block 0, then either the other blocks or the cached tail
     residual, whichever the rel-L1 of block 0's output against the cached
     signature picks (one host read); returns (out, (signature,
-    tail_residual))."""
+    tail_residual)).
+
+    vace_context [B or 1, vace_in_dim, F, H, W]: the VACE control
+    latents (`WanPipeline.build_vace_conditioning`), patch-embedded, put
+    through `vace_before_proj` and added to the patch-embedded latents;
+    VACE block i runs on that stream (in residual_dtype) before main
+    block 2i, whose output gets its `after_proj` output times vace_scale;
+    main block 2i + 1 gets nothing.  It needs a DiT with the VACE branch
+    and an even layer count.  audio_tokens [B, F, Na, Da]: Multitalk's
+    projected audio context of each latent frame, read by the audio
+    cross-attention of every main block (`audio_attn_blocks`; a DiT
+    without them ignores the tokens, as the JAX module does).  Neither
+    combines with the first-block cache."""
     b = latents.shape[0]
     pt, ph, pw = cfg.patch_size
     grid = (latents.shape[2] // pt, latents.shape[3] // ph,
@@ -385,10 +449,51 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
         ctx_img = layer_norm(h.float(), ie["norm2"]["w"], ie["norm2"]["b"],
                              out_dtype=cdt)
 
+    use_audio = audio_tokens is not None and "audio_attn_blocks" in params
+    audio_ctx = audio_tokens.to(cdt) if use_audio else None
+
     def block(i, x):
+        audio = ((layer_params(params["audio_attn_blocks"], i), audio_ctx,
+                  grid[0]) if use_audio else None)
         return _block(layer_params(params["blocks"], i), x, e6, ctx,
                       rope_cos, rope_sin, cfg, attn_backend,
-                      context_neg=ctx_neg, nag=nag, context_img=ctx_img)
+                      context_neg=ctx_neg, nag=nag, context_img=ctx_img,
+                      audio=audio)
+
+    vace_on = vace_context is not None
+    if vace_on:
+        if not cfg.vace or "vace_blocks" not in params:
+            raise ValueError("vace_context given to a DiT without the VACE "
+                             "branch (WanDiTConfig.vace and vace_blocks)")
+        if cfg.num_layers % 2:
+            raise ValueError("the VACE branch runs beside every second "
+                             "layer: it needs an even number of layers")
+        c_embed = _dense(patchify(vace_context.float(), cfg.patch_size),
+                         params["vace_patch_embedding"], torch.float32)
+        c_embed = _dense(c_embed.to(cdt),
+                         params["vace_before_proj"]).float()
+    if fbc_state is not None and (vace_on or use_audio):
+        raise ValueError("the first-block cache does not combine with "
+                         "VACE or audio conditioning")
+
+    stream = {}             # the VACE stream between its blocks
+
+    def layer(i, x):
+        """Main block i; with VACE, on even i the VACE block i // 2 runs
+        first on the control stream (c0 = c_embed + x at i = 0), and its
+        after_proj output, times vace_scale, is added to block i's."""
+        if not vace_on or i % 2:
+            return block(i, x)
+        if i == 0:
+            stream["c"] = (c_embed.expand_as(x) + x).to(cfg.residual_dtype)
+        vbp = layer_params(params["vace_blocks"], i // 2)
+        stream["c"] = _block(vbp, stream["c"], e6, ctx, rope_cos, rope_sin,
+                             cfg, attn_backend, context_img=ctx_img
+                             ).to(cfg.residual_dtype)
+        hint = _dense(stream["c"].to(cdt), vbp["after_proj"], cdt,
+                      cfg.act_quant) * vace_scale
+        out = block(i, x)
+        return out + hint.to(out.dtype)
 
     # the loops rebind x in this frame, so each block's input is freed as
     # the next block runs (a helper taking x would pin the stack's input:
@@ -412,17 +517,18 @@ def wan_dit_forward(params, cfg: WanDiTConfig, latents, t, context,
         new_fbc = (sig, new_tail)
     elif skip_state is None:
         for i in range(cfg.num_layers):
-            x = block(i, x)
+            x = layer(i, x)
     else:
         should_calc, prev_residual = skip_state
         if should_calc:
             x0 = x
             for i in range(cfg.num_layers):
-                x = block(i, x)
+                x = layer(i, x)
             new_residual = (x - x0).to(prev_residual.dtype)
         else:
             x = x + prev_residual.to(x.dtype)
             new_residual = prev_residual
+    stream.clear()
 
     hp = params["head"]
     eh = e_head[:, :, None, :] + hp["modulation"].float()[None, None]

@@ -18,8 +18,13 @@ conditioning y = mask(4) || VAE latents(16) of [image, zeros...] to the
 latents, and (Wan2.1 i2v) adds CLIP image tokens.  Wan2.2's 5B runs its
 own VAE (48 channels, stride 16; `vae2_2.py`), decoded in spatial tiles.
 
-Not ported yet (ROADMAP Queue 1): the VACE conditioning, the other i2v
-variants (first-last frame, SVI) and the variant generators.
+VACE (`build_vace_conditioning`, `generate_vace`) adds a control video's
+latents and masks as a second stream of the DiT; Multitalk
+(`generate_multitalk`, `multitalk_denoise`) adds per-frame audio tokens
+with an audio guidance of its own, on a VACE context or none.
+
+Not ported yet (ROADMAP Queue 1): the other i2v variants (first-last
+frame, SVI), the i2v-class audio rows and the other variant generators.
 """
 from __future__ import annotations
 
@@ -144,10 +149,13 @@ def denoise_segment(dit_params, dit_cfg: WanDiTConfig, schedule: Schedule,
                     y=None, clip_fea=None,
                     attn_backend: str = "auto", skip_schedule=None,
                     overlap_latents=None, overlap_sigma_scale: float = 1.0,
-                    overlap_noise=None):
+                    overlap_noise=None, vace_context=None,
+                    vace_scale: float = 1.0):
     """Steps [step_start, step_end).  carry = (x, solver_state, apg_buf),
     threaded across segments; returns it updated.  y, clip_fea: the i2v
     conditioning of one sample (doubled here for joint CFG).
+    vace_context: the VACE control latents of one sample, which the DiT
+    broadcasts over the CFG batch (as the JAX package passes them).
 
     skip_schedule: the host's bool[N] calc plan (TeaCache/MagCache).
     overlap_latents [B, C, F_ov, H, W]: sliding-window prefix latents,
@@ -176,7 +184,8 @@ def denoise_segment(dit_params, dit_cfg: WanDiTConfig, schedule: Schedule,
             attn_backend=attn_backend, skip_schedule=skip_schedule,
             overlap_latents=overlap_latents,
             overlap_sigma_scale=overlap_sigma_scale,
-            overlap_noise=overlap_noise, nag=nag)
+            overlap_noise=overlap_noise, nag=nag, vace_context=vace_context,
+            vace_scale=vace_scale)
 
     ctx = torch.cat([context, context_null]) if any_guidance else context
     if any_guidance:
@@ -222,7 +231,9 @@ def denoise_segment(dit_params, dit_cfg: WanDiTConfig, schedule: Schedule,
                               attn_backend=attn_backend,
                               skip_state=skip_state, context_neg=ctx_neg,
                               nag=nag, fbc_state=fbc_state,
-                              fbc_threshold=fbc_threshold)
+                              fbc_threshold=fbc_threshold,
+                              vace_context=vace_context,
+                              vace_scale=vace_scale)
         if use_skip or use_fbc:
             v, residual = out
         else:
@@ -262,7 +273,8 @@ def _denoise_segment_seqcfg(dit_params, dit_cfg: WanDiTConfig,
                             attn_backend: str = "auto",
                             skip_schedule=None, overlap_latents=None,
                             overlap_sigma_scale: float = 1.0,
-                            overlap_noise=None, nag=None):
+                            overlap_noise=None, nag=None, vace_context=None,
+                            vace_scale: float = 1.0):
     """Sequential CFG: 2 (end - start) micro-steps of one batch-1 DiT
     forward each, the cond branch on even and the uncond branch on odd
     micro-steps; guidance and the solver apply on odd ones.  Each branch
@@ -294,7 +306,8 @@ def _denoise_segment_seqcfg(dit_params, dit_cfg: WanDiTConfig,
                               rope_cos, rope_sin, clip_fea=clip_fea, y=y,
                               attn_backend=attn_backend,
                               skip_state=skip_state, context_neg=ctx_neg,
-                              nag=nag)
+                              nag=nag, vace_context=vace_context,
+                              vace_scale=vace_scale)
         if use_skip:
             v, res2[branch] = out
         else:
@@ -307,6 +320,67 @@ def _denoise_segment_seqcfg(dit_params, dit_cfg: WanDiTConfig,
     return x, sstate, apg_buf
 
 
+def multitalk_denoise(dit_params, dit_cfg: WanDiTConfig,
+                      schedule: Schedule, latents, context, context_null,
+                      audio_tokens, audio_tokens_zero, guide_scale: float,
+                      audio_guide_scale: float, rope_cos, rope_sin,
+                      vace_context=None, vace_scale: float = 1.0,
+                      attn_backend: str = "auto", host_loop: bool = False,
+                      joint_pass: bool = True):
+    """Multitalk's audio-CFG denoise loop.  Branches:
+      guide_scale == 1 (vace_multitalk_14B's definition):
+        [cond (text, audio), drop_audio (text, silence)],
+        pred = drop_audio + g_a (cond - drop_audio);
+      otherwise:
+        [cond (text, audio), drop_text (null, audio), uncond (null,
+        silence)],
+        pred = uncond + g (cond - drop_text) + g_a (drop_text - uncond).
+    audio_tokens [1, F_lat, Na, Da]: the projected audio context;
+    audio_tokens_zero: the projection of silent (all-zero) windows.
+    joint_pass runs the branches as one batch per step; otherwise one
+    batch-1 forward per branch (the same math at a fraction of the
+    activations).  vace_context (one sample) is broadcast over the
+    branches by the DiT.  host_loop is the JAX package's choice between
+    its loop forms and changes nothing here.  Returns the final latents
+    (fp32)."""
+    b = latents.shape[0]
+    if guide_scale != 1.0:
+        branches = [(context, audio_tokens), (context_null, audio_tokens),
+                    (context_null, audio_tokens_zero)]
+    else:
+        branches = [(context, audio_tokens), (context, audio_tokens_zero)]
+    if joint_pass:
+        ctx = torch.cat([c for c, _ in branches])
+        aud = torch.cat([a for _, a in branches])
+    x = latents.float()
+    sstate = init_solver_state(schedule, x)
+    for i in range(schedule.num_steps):
+        t = float(schedule.timesteps[i])
+
+        def forward(xb, c, a):
+            tb = torch.full((xb.shape[0],), t, dtype=torch.float32,
+                            device=xb.device)
+            return wan_dit_forward(dit_params, dit_cfg, xb, tb, c, rope_cos,
+                                   rope_sin, attn_backend=attn_backend,
+                                   vace_context=vace_context,
+                                   vace_scale=vace_scale, audio_tokens=a)
+        if joint_pass:
+            v = forward(torch.cat([x] * len(branches)), ctx, aud).split(b)
+        else:
+            v = [forward(x, c, a) for c, a in branches]
+        if guide_scale != 1.0:
+            cond, drop_text, uncond = v
+            pred = (uncond + guide_scale * (cond - drop_text)
+                    + audio_guide_scale * (drop_text - uncond))
+        else:
+            cond, drop_audio = v
+            pred = drop_audio + audio_guide_scale * (cond - drop_audio)
+        del v
+        x, sstate = solver_step(schedule, i, schedule.per_step(i), pred, x,
+                                sstate)
+    return x
+
+
 NoiseFn = Callable[[str, int, tuple], torch.Tensor]
 
 
@@ -314,7 +388,10 @@ class WanPipeline:
     """End-to-end Wan T2V / I2V: holds params + configs on one device.
     dit_params2: Wan2.2's low-noise expert (same architecture and config
     as dit_params); clip_params / clip_cfg: the CLIP vision tower of
-    Wan2.1 i2v; vae_cfg: a WanVAEConfig, or a Wan22VAEConfig (the 5B)."""
+    Wan2.1 i2v; vae_cfg: a WanVAEConfig, or a Wan22VAEConfig (the 5B).
+    A Multitalk model also holds its audio projection (audio_proj_params,
+    audio_proj_cfg) and, when loaded, wav2vec2 as (params, config) in
+    `wav2vec`."""
 
     def __init__(self, dit_params, dit_cfg: WanDiTConfig,
                  t5_params=None, t5_cfg: Optional[T5Config] = None,
@@ -323,7 +400,8 @@ class WanPipeline:
                  attn_backend: str = "auto",
                  base_model_type: str = "t2v_1.3B", device=None,
                  dit_params2=None, clip_params=None,
-                 clip_cfg: Optional[ClipVisionConfig] = None):
+                 clip_cfg: Optional[ClipVisionConfig] = None,
+                 audio_proj_params=None, audio_proj_cfg=None, wav2vec=None):
         self.device = resolve_device(device)
         self.dit_params = dit_params
         self.dit_cfg = dit_cfg
@@ -338,6 +416,9 @@ class WanPipeline:
         self.tokenizer = tokenizer
         self.vae_stride = vae_stride
         self.attn_backend = attn_backend
+        self.audio_proj_params = audio_proj_params
+        self.audio_proj_cfg = audio_proj_cfg
+        self.wav2vec = wav2vec
 
     # -- text ---------------------------------------------------------------
 
@@ -412,11 +493,9 @@ class WanPipeline:
             return caches.teacache_schedule(e_list, coeffs, thresh,
                                             sampling.cache_start_step)
         if sampling.cache_type == "mag":
-            table = caches.MAGCACHE_DEF_RATIOS.get(
-                self.base_model_type,
-                caches.MAGCACHE_DEF_RATIOS["t2v_1.3B"
-                                           if "1.3B" in self.base_model_type
-                                           else "t2v_14B"])
+            table = caches.MAGCACHE_DEF_RATIOS[caches.magcache_table(
+                self.base_model_type, self.dit_cfg.i2v_cross_attn,
+                width * height)]
             ratios = caches.magcache_interp_ratios(table, schedule.num_steps)
             thresh = (sampling.cache_threshold
                       or caches.magcache_auto_threshold(
@@ -448,12 +527,15 @@ class WanPipeline:
                 sampling: SamplingConfig, y=None, clip_fea=None,
                 overlap_latents=None, seed: int = 0,
                 enable_riflex: bool = False, width: int = 0,
-                height: int = 0, noise: Optional[NoiseFn] = None):
+                height: int = 0, noise: Optional[NoiseFn] = None,
+                vace_context=None, vace_scale: float = 1.0):
         """Run every guidance phase, each on its expert; returns the final
         latents (fp32).  y [1, 20, F, H, W], clip_fea [1, 257, 1280]: the
         i2v conditioning.  overlap_latents: a sliding window's pinned
         prefix; its per-step noise comes from noise("overlap", seed + 1000
-        + start, ...) for each phase starting at step `start`."""
+        + start, ...) for each phase starting at step `start`.
+        vace_context [1, 96, F, H, W]: VACE's control latents
+        (`build_vace_conditioning`), scaled by vace_scale in the DiT."""
         noise = noise or self.noise
         schedule = make_schedule(sampling.solver, sampling.steps,
                                  sampling.shift,
@@ -475,6 +557,8 @@ class WanPipeline:
             y = y.to(self.device, torch.float32)
         if clip_fea is not None:
             clip_fea = clip_fea.to(self.device, torch.float32)
+        if vace_context is not None:
+            vace_context = vace_context.to(self.device, torch.float32)
         backend = self.resolved_backend(latents.shape)
         for start, end, g, idx in segments:
             params, cfg = self.expert(idx)
@@ -489,7 +573,9 @@ class WanPipeline:
                                     clip_fea=clip_fea, attn_backend=backend,
                                     skip_schedule=skip,
                                     overlap_latents=overlap_latents,
-                                    overlap_noise=ov_noise)
+                                    overlap_noise=ov_noise,
+                                    vace_context=vace_context,
+                                    vace_scale=vace_scale)
         x = carry[0]
         if overlap_latents is not None:
             x = x.clone()
@@ -569,6 +655,176 @@ class WanPipeline:
             clip_fea = clip_vision_encode(self.clip_params, self.clip_cfg,
                                           pixels).float()
         return y, clip_fea
+
+    # -- VACE control conditioning -----------------------------------------
+
+    def build_vace_conditioning(self, frames, masks=None, ref_images=None,
+                                context_scale: float = 1.0):
+        """VACE's control context (the reference's vace_encode_frames +
+        vace_encode_masks).  frames [T, H, W, 3] in [-1, 1], T = 1 + 4k;
+        masks [T, H, W] in {0, 1} (1: the area to regenerate) or None;
+        ref_images: [H, W, 3] images (resized to H x W, antialiased
+        bicubic, where they differ) prepended in time, each one latent
+        frame with a zero mask.  With masks, the inactive (frames * (1 -
+        m)) and reactive (frames * m) parts are encoded apart; without,
+        the frames and zeros.  The mask is folded 8 x 8 (the VAE's
+        spatial stride) space-to-depth and resized to the latent frames
+        (nearest).  Encodes go through `encode_video` (Wan2.1: frame-
+        chunked; Wan2.2: its own VAE).  Returns (vace_context [1, 2 z +
+        sh * sw, f (+ refs), h, w] fp32, ref_count)."""
+        st, sh, sw = self.vae_stride
+        frames = torch.as_tensor(np.asarray(frames) if not isinstance(
+            frames, torch.Tensor) else frames).to(self.device, torch.float32)
+        t_pix, height, width = frames.shape[:3]
+        h_l, w_l = height // sh, width // sw
+        if masks is None:
+            lat = self.encode_video(frames)
+            lat = torch.cat([lat, torch.zeros_like(lat)], dim=1)
+            msk64 = torch.ones((1, sh * sw, lat.shape[2], h_l, w_l),
+                               device=self.device)
+        else:
+            m = torch.as_tensor(np.asarray(masks) if not isinstance(
+                masks, torch.Tensor) else masks).to(self.device,
+                                                    torch.float32)
+            inactive = self.encode_video(frames * (1 - m[..., None]))
+            reactive = self.encode_video(frames * m[..., None])
+            lat = torch.cat([inactive, reactive], dim=1)
+            del inactive, reactive
+            mm = m[:, :h_l * sh, :w_l * sw].reshape(t_pix, h_l, sh, w_l, sw)
+            mm = mm.permute(2, 4, 0, 1, 3).reshape(sh * sw, t_pix, h_l, w_l)
+            f_lat = lat.shape[2]
+            idx = torch.clamp(torch.arange(f_lat) * t_pix // f_lat, 0,
+                              t_pix - 1).to(self.device)
+            msk64 = mm[:, idx][None]
+        ref_count = 0
+        if ref_images:
+            refs = []
+            for ref in ref_images:
+                r = image_pixels(ref).to(self.device)
+                if tuple(r.shape[:2]) != (height, width):
+                    r = resize_bicubic(r, height, width)
+                rl = self.encode_video(r[None])
+                refs.append(torch.cat([rl, torch.zeros_like(rl)], dim=1))
+            ref_lat = torch.cat(refs, dim=2)
+            ref_count = ref_lat.shape[2]
+            lat = torch.cat([ref_lat, lat], dim=2)
+            msk64 = torch.cat([msk64.new_zeros((*msk64.shape[:2], ref_count,
+                                                *msk64.shape[3:])), msk64],
+                              dim=2)
+        return torch.cat([lat, msk64], dim=1), ref_count
+
+    def generate_vace(self, prompt: str, frames, masks=None,
+                      ref_images=None, n_prompt: str = "",
+                      sampling: SamplingConfig = SamplingConfig(),
+                      seed: int = 0, context=None, context_null=None,
+                      context_scale: float = 1.0,
+                      return_latents: bool = False):
+        """VACE controlled generation from a control video frames [T, H,
+        W, 3] (with masks and reference images as
+        `build_vace_conditioning` takes them): the latents span the
+        control context's frames, references included, which are cut
+        from the result.  Returns [T, H, W, 3] fp32 in [-1, 1] on the
+        pipeline's device (or the latents)."""
+        t_pix, height, width = np.asarray(frames).shape[:3] if not \
+            isinstance(frames, torch.Tensor) else frames.shape[:3]
+        vace_ctx, ref_count = self.build_vace_conditioning(
+            frames, masks, ref_images, context_scale)
+        if context is None:
+            context = self.encode_text([prompt])
+        if context_null is None and sampling.guide_scale != 1.0:
+            context_null = self.encode_text(
+                [n_prompt or DEFAULT_NEGATIVE_PROMPT])
+        if context_null is None:
+            context_null = context
+        lat_shape = (1, self.dit_cfg.out_dim, vace_ctx.shape[2],
+                     height // self.vae_stride[1],
+                     width // self.vae_stride[2])
+        latents = self.noise("latents", seed, lat_shape)
+        x = self.denoise(latents, context, context_null, sampling,
+                         seed=seed, width=width, height=height,
+                         vace_context=vace_ctx, vace_scale=context_scale)
+        if ref_count:
+            x = x[:, :, ref_count:]
+        if return_latents:
+            return x
+        return self.decode(x)[0]
+
+    # -- Multitalk -----------------------------------------------------------
+
+    def generate_multitalk(self, prompt: str, audio_emb, n_prompt: str = "",
+                           width: int = 832, height: int = 480,
+                           frame_num: int = 81,
+                           sampling: SamplingConfig = SamplingConfig(),
+                           seed: int = 0, audio_guide_scale: float = 4.0,
+                           audio_proj_params=None, audio_proj_cfg=None,
+                           vace_context=None, vace_scale: float = 1.0,
+                           context=None, context_null=None,
+                           return_latents: bool = False,
+                           audio_start_idx: int = 0):
+        """Audio-driven generation (the multitalk module on a Wan t2v
+        base; vace_multitalk_14B adds a VACE control context).  audio_emb
+        [T_frames, 12, 768]: wav2vec2's per-video-frame hidden states
+        (`multitalk.wav2vec2_extract`), windowed per latent frame and
+        projected to 32 context tokens a frame; the silent branch takes
+        the projection of zero windows (with the projection's output norm
+        that is its bias, not zeros).  audio_proj_params / _cfg default to
+        the pipeline's.  vace_context [1, C, F_lat, h, w] must span the
+        video's latent frames (no reference frames).  The guidance
+        branches run joint or sequential as sampling.joint_pass says.
+        Returns [T, H, W, 3] fp32 in [-1, 1] on the pipeline's device (or
+        the latents)."""
+        from .multitalk import (AudioProjConfig, audio_proj_forward,
+                                get_window_audio_embeddings)
+        audio_proj_params = audio_proj_params or self.audio_proj_params
+        ap_cfg = audio_proj_cfg or self.audio_proj_cfg or AudioProjConfig()
+        if audio_proj_params is None:
+            raise ValueError("generate_multitalk needs the multitalk "
+                             "module's audio projection (audio_proj_params)")
+        if context is None:
+            context = self.encode_text([prompt])
+        if context_null is None and (sampling.guide_scale != 1.0
+                                     or audio_guide_scale != 1.0):
+            context_null = self.encode_text(
+                [n_prompt or DEFAULT_NEGATIVE_PROMPT])
+        if context_null is None:
+            context_null = context
+        emb = (audio_emb.detach().float().cpu().numpy()
+               if isinstance(audio_emb, torch.Tensor)
+               else np.asarray(audio_emb, np.float32))
+        first, latter = get_window_audio_embeddings(
+            emb, audio_start_idx=audio_start_idx, clip_length=frame_num,
+            audio_window=ap_cfg.seq_len)
+        first = torch.from_numpy(np.ascontiguousarray(first)).to(self.device)
+        latter = torch.from_numpy(np.ascontiguousarray(latter)).to(
+            self.device)
+        tokens = audio_proj_forward(audio_proj_params, ap_cfg, first, latter)
+        tokens_zero = audio_proj_forward(audio_proj_params, ap_cfg,
+                                         torch.zeros_like(first),
+                                         torch.zeros_like(latter))
+        del first, latter
+        lat_shape = self.latent_shape(frame_num, height, width)
+        if vace_context is not None:
+            vace_context = vace_context.to(self.device, torch.float32)
+            if vace_context.shape[2] != lat_shape[2]:
+                raise ValueError(
+                    f"vace_context spans {vace_context.shape[2]} latent "
+                    f"frames, the video {lat_shape[2]}: generate_multitalk "
+                    "takes no reference frames")
+        latents = self.noise("latents", seed, lat_shape)
+        schedule = make_schedule(sampling.solver, sampling.steps,
+                                 sampling.shift,
+                                 solver_order=sampling.solver_order)
+        rope_cos, rope_sin = self._rope(lat_shape, sampling.enable_riflex)
+        x = multitalk_denoise(
+            self.dit_params, self.dit_cfg, schedule, latents,
+            context.to(self.device), context_null.to(self.device), tokens,
+            tokens_zero, sampling.guide_scale, audio_guide_scale, rope_cos,
+            rope_sin, vace_context=vace_context, vace_scale=vace_scale,
+            attn_backend=self.attn_backend, host_loop=sampling.host_loop,
+            joint_pass=sampling.joint_pass)
+        if return_latents:
+            return x
+        return self.decode(x)[0]
 
     # -- end-to-end ---------------------------------------------------------
 

@@ -1,10 +1,11 @@
 """GenerationService: settings dict -> video or image files.
 
-Counterpart of wan2gp_tpu/runtime/service.py for the Wan t2v/i2v and Krea 2
-text-to-image paths: model resolution and a pipeline cache, settings
-merge, resolution alignment, family dispatch (models whose definition has
-`image_outputs` go through the handler's `generate_image` and are saved as
-PNG) and saving with embedded settings.  Settings keys follow
+Counterpart of wan2gp_tpu/runtime/service.py for the Wan t2v/i2v, VACE and
+Multitalk and the Krea 2 text-to-image paths: model resolution and a
+pipeline cache, settings merge, resolution alignment, family dispatch
+(models whose definition has `image_outputs` go through the handler's
+`generate_image` and are saved as PNG) and saving with embedded settings
+(and a handler's `audio` as the AVI's PCM16 stream).  Settings keys follow
 the reference task format (prompt, negative_prompt, resolution "WxH",
 video_length, num_inference_steps, guidance_scale, flow_shift,
 sample_solver, seed, model_type, ...).
@@ -41,15 +42,32 @@ def quantize_dit_params(params, mode: str):
     which store the weights as "int8" / "int4" do; their int8 activations
     are the DiT config's `act_quant` (see `activation_mode`), never a
     process-wide setting.  Each float weight it quantizes is removed from
-    `params`."""
+    `params`.  A tree with no linear that qualifies raises a ValueError
+    (the JAX function returns it unchanged, so the mode asked for would
+    silently not apply)."""
     from ..ops.quant import quantize_params_tree
     bits = {"int8": 8, "quanto_int8": 8, "int8a8": 8, "int4": 4,
             "int4a8": 4}.get(mode)
     if bits is None:
         raise ValueError(f"unknown quantization mode {mode!r} (use 'int8', "
                          "'int4', 'int8a8' or 'int4a8')")
-    return quantize_params_tree(params, predicate=lambda path: "blocks" in path,
-                                bits=bits, min_dim=256)
+    out = quantize_params_tree(params, predicate=lambda path: "blocks" in path,
+                               bits=bits, min_dim=256)
+    if not any(k in ("w_q", "w_q4") for k in _keys(out)):
+        raise ValueError(
+            f"quantize {mode!r}: no block linear has K and N >= 256, so "
+            "nothing would be quantized")
+    return out
+
+
+def _keys(tree):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield k
+            yield from _keys(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _keys(v)
 
 
 def activation_mode(mode: str) -> str:
@@ -159,9 +177,13 @@ class GenerationService:
                                         frame_num, seed)
         path = os.path.join(self.output_dir,
                             f"{model_type}_{stamp}_{seed}.avi")
-        path = media.save_video(np.asarray(result["video"]), path,
-                                fps=int(result.get("fps", 16)),
-                                metadata=_clean_settings(merged))
+        # a waveform in the result (Multitalk: the driving audio) is muxed
+        # into the AVI as its PCM16 stream
+        path = media.save_video(
+            np.asarray(result["video"]), path,
+            fps=int(result.get("fps", 16)), metadata=_clean_settings(merged),
+            audio=result.get("audio"),
+            audio_sample_rate=int(result.get("audio_sample_rate", 16000)))
         return [path]
 
     # -- queue worker ------------------------------------------------------

@@ -1,12 +1,16 @@
-"""Media output: [-1, 1] frames -> uint8 -> AVI or PNG with settings.
+"""Media output: [-1, 1] frames -> uint8 -> AVI or PNG with settings;
+PCM16 audio in WAV files and in the AVI.
 
-Counterpart of `to_uint8`, the AVI path of `save_video` and `save_image` /
+Counterpart of `to_uint8`, `to_pcm16`, the AVI path of `save_video`,
+`save_audio`, `read_wav`, `read_avi_audio` and `save_image` /
 `read_image_metadata` in wan2gp_tpu/utils/media.py.  Videos are the same
-pure-Python RIFF AVI with the settings JSON in an INFO/ICMT chunk; frames
-are MJPEG when PIL imports (as in the JAX package) and uncompressed 24-bit
-`DIB ` frames when it does not.  Images are PNG written with zlib and
-struct (the JAX package needs PIL), with the settings JSON in a tEXt chunk
-under the same `wan2gp` key, so saving needs nothing beyond numpy.
+pure-Python RIFF AVI with the settings JSON in an INFO/ICMT chunk and,
+when a waveform is given, an interleaved PCM16 stream (one `01wb` chunk
+after each frame's); frames are MJPEG when PIL imports (as in the JAX
+package) and uncompressed 24-bit `DIB ` frames when it does not.  Images
+are PNG written with zlib and struct (the JAX package needs PIL), with the
+settings JSON in a tEXt chunk under the same `wan2gp` key, so saving needs
+nothing beyond numpy.
 """
 from __future__ import annotations
 
@@ -28,6 +32,59 @@ def to_uint8(frames: np.ndarray) -> np.ndarray:
         return frames
     f = np.clip(np.asarray(frames, dtype=np.float32), -1.0, 1.0)
     return np.clip(np.round((f + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+
+def to_pcm16(wave: np.ndarray) -> np.ndarray:
+    """float [-1, 1] (or int16) [T] / [T, C] / [C, T] -> int16 [T, C]."""
+    w = np.asarray(wave)
+    if w.ndim == 1:
+        w = w[:, None]
+    elif w.ndim == 2 and w.shape[0] <= 8 < w.shape[1]:
+        w = w.T                       # [C, T] -> [T, C]
+    if w.dtype == np.int16:
+        return w
+    w = np.clip(w.astype(np.float32), -1.0, 1.0)
+    return np.round(w * 32767.0).astype(np.int16)
+
+
+def save_audio(wave: np.ndarray, path: str, sample_rate: int = 16000) -> str:
+    """Write a PCM16 WAV.  wave: [T], [T, C] or [C, T], float [-1, 1] or
+    int16.  Returns the path (its extension made .wav)."""
+    if not path.lower().endswith(".wav"):
+        path = os.path.splitext(path)[0] + ".wav"
+    pcm = to_pcm16(wave)
+    block = 2 * pcm.shape[1]
+    data = pcm.tobytes()
+    fmt = struct.pack("<HHIIHH", 1, pcm.shape[1], sample_rate,
+                      sample_rate * block, block, 16)
+    payload = b"WAVE" + _chunk(b"fmt ", fmt) + _chunk(b"data", data)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(payload)) + payload)
+    return path
+
+
+def read_wav(path: str) -> Tuple[np.ndarray, int]:
+    """A PCM16 WAV -> (int16 [T, C], sample rate).  Raises a ValueError
+    for another file or another sample format."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        raise ValueError(f"{path} is not a WAV file")
+    pos, rate, channels, bits, pcm = 12, 16000, 1, 16, b""
+    while pos + 8 <= len(data):
+        cc = data[pos:pos + 4]
+        sz = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        body = data[pos + 8:pos + 8 + sz]
+        if cc == b"fmt ":
+            fmt, channels, rate = struct.unpack("<HHI", body[:8])
+            bits = struct.unpack("<H", body[14:16])[0]
+            if (fmt, bits) != (1, 16):
+                raise ValueError(f"{path}: only PCM16 WAV files are read, "
+                                 f"got format {fmt} with {bits} bits")
+        elif cc == b"data":
+            pcm = body
+        pos += 8 + sz + (sz % 2)
+    return np.frombuffer(pcm, np.int16).reshape(-1, channels), rate
 
 
 def _jpeg_encoder(quality: int):
@@ -56,13 +113,17 @@ def _dib_bytes(frame: np.ndarray) -> bytes:
 
 def save_video(frames: np.ndarray, path: str, fps: int = 16,
                metadata: Optional[Dict[str, Any]] = None,
-               quality: int = 92) -> str:
+               quality: int = 92, audio: Optional[np.ndarray] = None,
+               audio_sample_rate: int = 16000) -> str:
     """frames: [T, H, W, 3] uint8 or [-1, 1] float; path must end in .avi.
-    Returns the path."""
+    audio: an optional waveform ([T], [T, C] or [C, T], float [-1, 1] or
+    int16) written as an interleaved PCM16 stream.  Returns the path."""
     if not path.lower().endswith(".avi"):
         raise NotImplementedError(
             f"only .avi output is ported so far, got {path!r}")
-    _write_avi(to_uint8(np.asarray(frames)), path, fps, quality, metadata)
+    _write_avi(to_uint8(np.asarray(frames)), path, fps, quality, metadata,
+               None if audio is None else to_pcm16(audio),
+               audio_sample_rate)
     return path
 
 
@@ -76,7 +137,8 @@ def _list(fourcc: bytes, payload: bytes) -> bytes:
 
 
 def _write_avi(frames: np.ndarray, path: str, fps: int, quality: int,
-               metadata: Optional[Dict[str, Any]]):
+               metadata: Optional[Dict[str, Any]],
+               pcm: Optional[np.ndarray] = None, audio_rate: int = 16000):
     t, h, w, _ = frames.shape
     encode = _jpeg_encoder(quality)
     if encode is not None:
@@ -87,7 +149,8 @@ def _write_avi(frames: np.ndarray, path: str, fps: int, quality: int,
         payloads = [_dib_bytes(f) for f in frames]
     max_bytes = max(len(p) for p in payloads)
     avih = struct.pack("<14I", int(1e6 / fps), max_bytes * fps, 0, 0x110,
-                       t, 0, 1, max_bytes, w, h, 0, 0, 0, 0)
+                       t, 0, 1 + (pcm is not None), max_bytes, w, h, 0, 0,
+                       0, 0)
     strh = (b"vids" + handler
             + struct.pack("<IHHIIIIIIII", 0, 0, 0, 0, 1, fps, 0, t,
                           max_bytes, 0, 0)
@@ -95,21 +158,40 @@ def _write_avi(frames: np.ndarray, path: str, fps: int, quality: int,
     size_image = w * h * 3 if encode is not None else len(payloads[0])
     strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, compression,
                        size_image, 0, 0, 0, 0)
-    hdrl = _list(b"hdrl", _chunk(b"avih", avih) + _list(
-        b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)))
+    strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
+    chunk_ids = [chunk_id]
+    if pcm is not None:
+        # the audio split at the frames' boundaries, one chunk after each
+        ta, c = pcm.shape
+        block = 2 * c
+        bounds = np.linspace(0, ta, t + 1).round().astype(int)
+        audio = [pcm[bounds[i]:bounds[i + 1]].tobytes() for i in range(t)]
+        payloads = [p for pair in zip(payloads, audio) for p in pair]
+        chunk_ids.append(b"01wb")
+        strh_a = (b"auds" + b"\x00" * 4
+                  + struct.pack("<IHHIIIIIIII", 0, 0, 0, 0, block,
+                                audio_rate * block, 0, ta, audio_rate * block,
+                                0, block)
+                  + struct.pack("<4H", 0, 0, 0, 0))
+        strf_a = struct.pack("<HHIIHH", 1, c, audio_rate, audio_rate * block,
+                             block, 16)
+        strl += _list(b"strl", _chunk(b"strh", strh_a)
+                      + _chunk(b"strf", strf_a))
+    hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
     info = b""
     if metadata is not None:
         payload = json.dumps({METADATA_KEY: metadata}).encode() + b"\x00"
         info = _list(b"INFO", _chunk(b"ICMT", payload))
-    chunks = [_chunk(chunk_id, p) for p in payloads]
-    index: List[Tuple[int, int]] = []
+    ids = [chunk_ids[i % len(chunk_ids)] for i in range(len(payloads))]
+    chunks = [_chunk(cc, p) for cc, p in zip(ids, payloads)]
+    index: List[Tuple[bytes, int, int]] = []
     offset = 4                              # past the b"movi" list type
-    for p, c in zip(payloads, chunks):
-        index.append((offset, len(p)))
+    for cc, p, c in zip(ids, payloads, chunks):
+        index.append((cc, offset, len(p)))
         offset += len(c)
     movi = b"".join([b"movi"] + chunks)
     idx1 = _chunk(b"idx1", b"".join(
-        chunk_id + struct.pack("<III", 0x10, off, ln) for off, ln in index))
+        cc + struct.pack("<III", 0x10, off, ln) for cc, off, ln in index))
     riff = b"".join([b"AVI ", hdrl, info, _chunk(b"LIST", movi), idx1])
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", len(riff)) + riff)
@@ -147,6 +229,28 @@ def read_avi(path: str) -> np.ndarray:
             frames.append(np.asarray(
                 Image.open(io.BytesIO(payload)).convert("RGB")))
     return np.stack(frames)
+
+
+def read_avi_audio(path: str) -> Optional[Tuple[np.ndarray, int]]:
+    """The interleaved PCM16 stream of an AVI written by `save_video` ->
+    (int16 [T, C], sample rate), or None when it has none."""
+    with open(path, "rb") as f:
+        data = f.read()
+    rate, channels = None, 1
+    pos = 12
+    while pos + 8 <= len(data):
+        size = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        if data[pos:pos + 4] == b"LIST" and data[pos + 8:pos + 12] == b"hdrl":
+            blob = data[pos + 12:pos + 8 + size]
+            i = blob.find(b"auds")
+            j = blob.find(b"strf", i) if i >= 0 else -1
+            if j >= 0:
+                _, channels, rate = struct.unpack("<HHI", blob[j + 8:j + 16])
+        pos += 8 + size + (size % 2)
+    if rate is None:
+        return None
+    pcm = b"".join(p for cc, p in _movi_chunks(data) if cc == b"01wb")
+    return np.frombuffer(pcm, np.int16).reshape(-1, channels), rate
 
 
 def read_video_metadata(path: str) -> Optional[Dict[str, Any]]:
