@@ -38,7 +38,13 @@ the repository).  Phases, each printing one JSON line:
             = 1,000, S = 512) and at Multitalk's audio cross-attention
             (1,560 tokens a latent frame over 32 audio tokens, k and v the
             strided halves of one projection); W8 (and W8A8) at the audio
-            kv projection, 1,344 x 768 x 10,240.  The Wan2.2 VAE decode at full width (random
+            kv projection, 1,344 x 768 x 10,240.  Flash where the TMA
+            maps refuse q, k or v and the wrapper pads D (80, 96) or copies
+            (k, v rows 132 elements apart; q 8 bytes off), each counted as
+            a padded launch.  The fp32 W8 and W4 GEMVs (csrc/wo_gemv.cu):
+            relative Frobenius error <= 1e-5 (only the sum order differs)
+            at (K)'s modulation shapes and at M = 2, 3 with N = 1,001.
+            The Wan2.2 VAE decode at full width (random
             weights) against the same decode on the CPU for one small tile
             (2 x 4 x 4 latents): max abs err <= 1e-3.
 3. dit      a small DiT forward on the card, through the kernels, against
@@ -50,8 +56,10 @@ the repository).  Phases, each printing one JSON line:
             flash launches a layer); a VACE + audio forward in bf16 and
             int8 (2 layers, 1 VACE block, audio of 32 tokens of 768 a
             latent frame: 8 flash and 37 W8 launches); Krea 2 at head_dim
-            128 (its masked self-attention and text refiner): max abs err
-            <= 3e-2 * max|ref|.
+            128 (its masked self-attention and text refiner); a Flux
+            forward at full width with 2 double and 2 single blocks in
+            bf16, int8 and int4 (4 flash; 20 W8 or W4 and 6 fp32 GEMV
+            launches): max abs err <= 3e-2 * max|ref|.
 4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
             the kernel's output there is held to the plain version in fp32
@@ -80,8 +88,13 @@ the repository).  Phases, each printing one JSON line:
             at B 2 over 27,280 tokens, 24 heads; W8 at its four linear
             shapes) and (J)'s (the audio cross-attention at 42 x 1,560
             tokens over 32 with strided k/v; W8 at the 14B linears at
-            M = 65,520 and at the audio kv projection), each with its
-            launches per forward.
+            M = 65,520 and at the audio kv projection) and (K)'s (the
+            joint attention at B1 L = S = 3,856, 24 heads; W8 at every block
+            linear shape, M = 3,600 image, 256 text and 3,856 single-block
+            tokens; the fp32 W8 and W4 GEMVs at M = 1, K = 3072, N = 18,432
+            and 9,216, each launch on another of four weights so that the
+            weight is cold in L2, beside torch.matmul on the fp32 weight),
+            each with its launches per forward.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
@@ -149,7 +162,20 @@ the repository).  Phases, each printing one JSON line:
                 740 W8 launches, none padded), the Wan2.1 decode: init,
                 write, read, quantize, wav2vec2, encode, step, decode and
                 request seconds and the load, encode, denoise and decode
-                peaks.
+                peaks;
+            (K) flux_schnell (Flux.1 schnell 12B: 19 double + 38 single
+                blocks) at the definition's 1280x720 and 10 steps (its file
+                overrides the handler's 4), from files written from random
+                weights (the DiT in bf16 under the definition's first URL,
+                the AE and CLIP-L) and loaded through the resolver (read-back
+                trees equal to the written ones); a full-size random T5
+                v1.1 XXL encodes the prompt's 256 hash ids into the
+                requests' context (t5_s); a bf16 request, the same tree
+                quantized int8 in process and a second request, then a
+                quantize="int4" service loads the file again for 2 steps:
+                57 flash a forward, and 228 W8 + 76 fp32 W8 GEMV (int8) or
+                228 W4 + 76 W4 GEMV (int4), none padded; write, load,
+                quantize, step, decode and request seconds and the peaks.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -175,13 +201,20 @@ import torch.nn.functional as F
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
+PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 STEPS = 2                       # denoise steps per service request
 B_LAYERS = 40                   # depth of the 14B request (B): all 40
 FLASH_MEAN_REL, FLASH_MAX_REL = 2e-2, 2e-1     # of mean|ref|, max|ref|
 LSE_MAX_ABS = 1e-2
 MM_REL_FRO = 1e-2               # int8 / int4 / W8A8 / W4A8 matmuls
+GEMV_REL_FRO = 1e-5             # the fp32 GEMV: only the sum order differs
+FLUX_CHECK_TOKENS = (16, 8, 8)  # text tokens, image token rows, columns
 KREA2_TEXT = 64                 # tokens of the random Krea 2 text encoder
 VAE22_MAX_ABS = 1e-3            # Wan2.2 VAE decode, card against CPU (fp32)
+# (K): flux_schnell at its definition's 1280x720: 45 x 80 image tokens
+# after schnell's 256 T5 tokens
+K_W, K_H, K_TXT = 1280, 720, 256
+K_TOKENS = K_TXT + (K_H // 16) * (K_W // 16)
 # (I): Wan2.2 TI2V 5B at its definition's 121 frames and the Wan2.2
 # generate.py size for ti2v-5B (1280x720 gives 45 latent rows, which the
 # 2x2 patch does not divide): 31 x 44 x 80 latents, 27,280 tokens
@@ -313,6 +346,8 @@ TOLERANCE = {"flash_attention": _ATTN_TOL,
              "matmul_w4": f"rel_fro<={MM_REL_FRO}",
              "matmul_w4a8": f"rel_fro<={MM_REL_FRO}, wrong_elements==0",
              "act_quant": "x_q and the bits of sx equal the plain version's",
+             "matmul_w8_gemv": f"rel_fro<={GEMV_REL_FRO}",
+             "matmul_w4_gemv": f"rel_fro<={GEMV_REL_FRO}",
              "vae22_decode": f"max_abs<={VAE22_MAX_ABS} against the CPU"}
 
 
@@ -329,7 +364,23 @@ def counters():
             "sol_flash": (SOL, "launches"),
             "matmul_w4": (Q, "w4_launches"),
             "matmul_w4a8": (Q, "w4a8_launches"),
-            "act_quant": (Q, "act_quant_launches")}
+            "act_quant": (Q, "act_quant_launches"),
+            "matmul_w8_gemv": (Q, "w8_gemv_launches"),
+            "matmul_w4_gemv": (Q, "w4_gemv_launches")}
+
+
+def reset_pads():
+    """Zero the counts of launches whose operands were padded or copied."""
+    from wan2gp_tpu_torch.ops import attention as A, quant as Q
+    A.flash_pad_launches = 0
+    Q.w8_pad_launches = Q.w4_pad_launches = 0
+    Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+
+
+def read_pads() -> int:
+    from wan2gp_tpu_torch.ops import attention as A, quant as Q
+    return (A.flash_pad_launches + Q.w8_pad_launches + Q.w4_pad_launches
+            + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
 
 
 def reset_counts():
@@ -376,6 +427,26 @@ def phase_check():
     flash["audio_cross_strided_s32"] = flash_check(
         "audio_cross_strided_s32", q, k, v,
         A.flash_attention(q, k, v, _scale(q)))
+    # what the TMA maps refuse, padded or copied by the wrapper: D 80 and
+    # 96 (zero-padded to 128), k and v rows 132 elements apart, q 8 bytes
+    # past an aligned base
+    for name, (b, l, s, n, d) in {
+            "relaid_d80": (1, 500, 300, 3, 80),
+            "relaid_d96": (2, 300, 777, 2, 96),
+            "relaid_kv_stride_132": (2, 400, 300, 3, 128),
+            "relaid_q_offset_8_bytes": (1, 300, 300, 2, 128)}.items():
+        q, k, v = (randn(sh, gen) for sh in
+                   ((b, l, n, d), (b, s, n, d), (b, s, n, d)))
+        if name == "relaid_kv_stride_132":
+            k, v = (randn((b, s, n, 132), gen)[..., :128] for _ in range(2))
+        elif name == "relaid_q_offset_8_bytes":
+            q = randn((q.numel() + 4,), gen)[4:].view(q.shape)
+        pads = A.flash_pad_launches
+        flash[name] = flash_check(name, q, k, v,
+                                  A.flash_attention(q, k, v, _scale(q)))
+        if A.flash_pad_launches != pads + 1:
+            raise AssertionError(f"flash_attention {name}: not counted as "
+                                 f"a padded launch")
 
     w8_cases = {"qkvo_1536x1536": (4096, 1536, 1536),
                 "fc1_1536x8960": (4096, 1536, 8960),
@@ -520,15 +591,49 @@ def phase_check():
     # the 14B fc2 input, and K past what the one-pass CTA holds (two-pass)
     for m, k in ((151200, 13824), (3, 20000)):
         aq[f"{m}x{k}"] = act_quant_check(a8_rows(randn((m, k), gen)))
+    gemv = gemv_checks(gen)
     vae22 = vae22_check()
     emit("check", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
          matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, vae22_decode=vae22,
-         tolerance=TOLERANCE)
+         **gemv, tolerance=TOLERANCE)
     return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
             "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8,
-            "act_quant": aq}
+            "act_quant": aq, **gemv}
+
+
+def _gemv_kernels():
+    """(kernel, quantize, wrapper, plain version) of the two GEMVs."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    return (("matmul_w8_gemv", Q.quantize_int8, Q.matmul_w8,
+             Q.matmul_w8_ref),
+            ("matmul_w4_gemv", Q.quantize_int4, Q.matmul_w4,
+             Q.matmul_w4_ref))
+
+
+def gemv_checks(gen):
+    """The fp32 W8 and W4 GEMVs against their plain versions in fp32: at
+    (K)'s modulation shapes (M = 1, K = 3072, N = 18,432 and 9,216), and at
+    M = 2 and 3 with N = 1,001 (not a multiple of the 1,024-column tile,
+    nor of the 4 columns a thread loads) and, for W4, K = 1,000 < 2 KH."""
+    out = {}
+    for kernel, qfn, fn, ref_fn in _gemv_kernels():
+        counter = counters()[kernel]
+        out[kernel] = {}
+        for name, (m, k, n) in {"double_mod_1x3072x18432": (1, 3072, 18432),
+                                "single_mod_1x3072x9216": (1, 3072, 9216),
+                                "m2_3072x1001": (2, 3072, 1001),
+                                "m3_1000x1001": (3, 1000, 1001)}.items():
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            wq, sc = qfn(torch.randn((k, n), generator=gen, device="cuda"))
+            before = getattr(*counter)
+            got = fn(x, wq, sc)
+            if getattr(*counter) != before + 1 or got.dtype != torch.float32:
+                raise AssertionError(f"{kernel} {name}: not one launch")
+            out[kernel][name] = mm_check(kernel, name, got,
+                                         ref_fn(x, wq, sc), GEMV_REL_FRO)
+    return out
 
 
 def vae22_check():
@@ -673,7 +778,7 @@ def sol_check(name, q, k, got, lse, ref, ref_lse):
     return e
 
 
-def mm_check(kernel, name, got, ref):
+def mm_check(kernel, name, got, ref, limit=MM_REL_FRO):
     """A matmul kernel's output against its fp32 plain version; raises past
     the limit."""
     diff = ref.float()
@@ -681,7 +786,7 @@ def mm_check(kernel, name, got, ref):
     diff.sub_(got.float())
     e = {"rel_fro": diff.norm().item() / ref_norm,
          "max_abs": diff.abs_().max().item()}
-    if not e["rel_fro"] <= MM_REL_FRO:
+    if not e["rel_fro"] <= limit:
         raise AssertionError(f"{kernel} {name}: {e}")
     return e
 
@@ -767,6 +872,7 @@ def phase_dit():
     out["i2v"] = dit_i2v()
     out["vace_audio"] = dit_vace_audio()
     out["krea2"] = dit_krea2()
+    out["flux"] = dit_flux()
     emit("dit", tolerance="max_abs<=3e-2*max|ref|", **out)
 
 
@@ -915,6 +1021,73 @@ def dit_krea2():
         raise AssertionError(f"small Krea 2 forward: {out}, want {want} "
                              f"masked launches")
     return out
+
+
+def dit_flux():
+    """A Flux forward at full width (hidden 3072, 24 heads of 128, MLP
+    12,288, T5 and CLIP widths) with 2 double and 2 single blocks, card
+    against CPU, in bf16 and with int8 and int4 block weights: 4 joint
+    attentions, and when quantized 20 W8 / W4 launches and 6 fp32
+    modulation GEMVs (batch 1)."""
+    from wan2gp_tpu_torch.models.flux import dit as fd
+    from wan2gp_tpu_torch.runtime.service import quantize_dit_params
+    cfg = fd.FluxConfig(depth=2, depth_single_blocks=2)
+    l_txt, h_tok, w_tok = FLUX_CHECK_TOKENS
+    rng = np.random.default_rng(2)
+    img, txt, vec_y = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)) for shape in (
+        (1, h_tok * w_tok, cfg.in_channels), (1, l_txt, cfg.context_in_dim),
+        (1, cfg.vec_in_dim)))
+    t = torch.tensor([0.7])
+    ids = np.concatenate([np.zeros((l_txt, 3)),
+                          fd.make_img_ids(h_tok, w_tok)], axis=0)
+    # drawn and quantized on the card (on the CPU the draw alone takes
+    # 15 s), copied to the CPU for the plain run
+    p = fd.init_flux(torch.Generator(device="cuda").manual_seed(3), cfg)
+    out = {}
+    for mode, want in (("bf16", {"flash_attention": 4}),
+                       ("int8", {"flash_attention": 4, "matmul_w8": 20,
+                                 "matmul_w8_gemv": 6}),
+                       ("int4", {"flash_attention": 4, "matmul_w4": 20,
+                                 "matmul_w4_gemv": 6})):
+        # quantize_dit_params takes each float weight out of its node: it
+        # gets new nodes over the same tensors
+        pm = p if mode == "bf16" else quantize_dit_params(_nodes(p), mode)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            pd = _tree_to(pm, "cpu") if dev == "cpu" else pm
+            cos, sin = fd.rope_from_ids(ids, cfg.axes_dim, cfg.theta,
+                                        device=dev)
+            before = read_counts()
+            res[dev] = fd.flux_forward(pd, cfg, img.to(dev), txt.to(dev),
+                                       vec_y.to(dev), t.to(dev), cos,
+                                       sin).float().cpu()
+            launched = {k: v - before[k] for k, v in read_counts().items()
+                        if v != before[k]}
+            del pd
+        ref_max = res["cpu"].abs().max().item()
+        err = (res["cuda"] - res["cpu"]).abs().max().item()
+        out[mode] = {"tokens": l_txt + h_tok * w_tok, "max_abs": err,
+                     "ref_max": ref_max, "launches": launched,
+                     "finite": bool(torch.isfinite(res["cuda"]).all())}
+        if not (out[mode]["finite"] and err <= 3e-2 * ref_max
+                and launched == want):
+            raise AssertionError(f"small Flux forward ({mode}): "
+                                 f"{out[mode]}, want launches {want}")
+        del pm
+    del p
+    torch.cuda.empty_cache()
+    return {"config": "hidden 3072, 24 heads of 128, mlp 12288, 2 double + "
+                      "2 single blocks, batch 1", **out}
+
+
+def _nodes(tree):
+    """tree's dicts and lists anew, its tensors shared."""
+    if isinstance(tree, dict):
+        return {k: _nodes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_nodes(v) for v in tree]
+    return tree
 
 
 def _tree_to(tree, dev):
@@ -1096,6 +1269,42 @@ def time_w8(name, m, k, n):
             "bound_ms": bound_ms, "bound_by": by,
             **rates(2.0 * m * k * n, ms, bound_ms),
             "over_library": ms / library_ms, "err": err}
+
+
+def time_gemv(kernel, m, k, n):
+    """An fp32 GEMV at one modulation shape, each launch on another of
+    four weights (the four exceed the 50 MB L2, as the forward finds the
+    weight cold), beside torch.matmul on the weight dequantized to fp32
+    beforehand (four copies, taken in turn too)."""
+    import itertools
+    from wan2gp_tpu_torch.ops import quant as Q
+    _, qfn, fn, ref_fn = next(g for g in _gemv_kernels() if g[0] == kernel)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    ws = [qfn(torch.randn((k, n), generator=gen, device="cuda"))
+          for _ in range(4)]
+    name = f"{m}x{k}x{n}"
+    err = mm_check(kernel, name, fn(x, *ws[0]), ref_fn(x, *ws[0]),
+                   GEMV_REL_FRO)
+    it = itertools.cycle(ws)
+    ms = cuda_ms(lambda: fn(x, *next(it)), 200)
+    plain_ms = cuda_ms(lambda: ref_fn(x, *next(it)), 20)
+    deq = [wq.float() * sc if kernel == "matmul_w8_gemv"
+           else Q.unpack_int4(wq, sc, k) for wq, sc in ws]
+    dit = itertools.cycle(deq)
+    library_ms = cuda_ms(lambda: torch.matmul(x, next(dit)), 200)
+    w_bytes = ws[0][0].numel()
+    bound_ms, by = bound(2.0 * m * k * n, 4 * m * k + w_bytes + 4 * n
+                         + 4 * m * n, peak=PEAK_FP32_FLOPS)
+    del ws, deq, dit, it
+    torch.cuda.empty_cache()
+    return {"shape": [m, k, n], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "torch.matmul on an fp32 weight dequantized "
+                            "beforehand (reads 4 bytes per weight)",
+            "bound_ms": bound_ms, "bound_by": by,
+            "bound_share": bound_ms / ms, "over_library": ms / library_ms,
+            "splits": Q.gemv_splits(w_bytes // n, n), "err": err}
 
 
 def _pairs(kv_idx, counts, l, s_len, block_q, block_kv):
@@ -1293,6 +1502,21 @@ J_PER_FORWARD = {"self_14B_480p": 60, "cross_14B_480p": 60,
                  "1024x5120x5120": 2 * 60, "1344x768x10240": 40}
 
 
+# launches per DiT forward of (K) (flux_schnell at 1280x720, batch 1): one
+# joint attention a block (19 double, 38 single); under int8 / int4 the
+# double blocks' qkv, proj, mlp.0, mlp.2 of the image (M = 3,600) and text
+# (M = 256) streams, the single blocks' linear1 and linear2 (M = 3,856),
+# and one fp32 modulation GEMV a stream (K = 3072, N = 18,432 / 9,216)
+K_IMG = K_TOKENS - K_TXT
+K_PER_FORWARD = {"self_flux_K": 57,
+                 **{f"{m}x{k}x{n}": 19 for m in (K_IMG, K_TXT)
+                    for k, n in ((3072, 9216), (3072, 3072), (3072, 12288),
+                                 (12288, 3072))},
+                 f"{K_TOKENS}x3072x21504": 38,
+                 f"{K_TOKENS}x15360x3072": 38,
+                 "1x3072x18432": 38, "1x3072x9216": 38}
+
+
 def phase_time(tokens: int):
     # W4 and W4A8 at K=N=5120 first, before any other timing, and again in
     # their place below: does the order of the phase move their times?
@@ -1380,6 +1604,20 @@ def phase_time(tokens: int):
                                (2 * J_TOKENS, 5120, 13824),
                                (2 * J_TOKENS, 13824, 5120),
                                (1344, 768, 10240))})
+    # (K): the joint attention of Flux at 1280x720 (256 text + 3,600 image
+    # tokens, 24 heads), W8 at its block linears, the two fp32 GEMVs
+    flash["self_flux_K"] = time_flash("self_flux_K", 1, K_TOKENS, K_TOKENS,
+                                      24, 128)
+    w8.update({case: time_w8(case, *map(int, case.split("x")))
+               for case in K_PER_FORWARD if case.count("x") == 2
+               and not case.startswith("1x")})
+    gemv = {kernel: {f"1x3072x{n}": time_gemv(kernel, 1, 3072, n)
+                     for n in (18432, 9216)}
+            for kernel in ("matmul_w8_gemv", "matmul_w4_gemv")}
+    for table in (flash, w8, *gemv.values()):
+        for case, t in table.items():
+            if case in K_PER_FORWARD:
+                t["launches_per_forward_K"] = K_PER_FORWARD[case]
     for table in (flash, sol, w4a8, aq):
         for case, t in table.items():
             if case in C_PER_FORWARD:
@@ -1394,11 +1632,12 @@ def phase_time(tokens: int):
         (flash if case in flash else w8)[case]["launches_per_forward_J"] = n
     emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
-         matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, tolerance=TOLERANCE)
+         matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, **gemv,
+         tolerance=TOLERANCE)
     return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
             "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8,
-            "act_quant": aq}
+            "act_quant": aq, **gemv}
 
 
 # the denoise steps of (C): the fewest at which a TeaCache plan for 1.75x
@@ -1566,6 +1805,197 @@ def vae22_state_dict(p):
     return sd.around_towers(p)
 
 
+def run_k(out_dir, timed, split, seen):
+    """(K): flux_schnell at its definition's 1280x720 and step count, at
+    full width (19 double + 38 single blocks, 11.9 B parameters), from
+    files.  Random weights are written under the reference key names (the
+    DiT as `flux1-schnell_bf16.safetensors` in bf16, the AE and CLIP-L in
+    fp32) and loaded by the service through the resolver, asked for the
+    transformer, VAE and CLIP roles (the loaded DiT and AE equal the
+    written tensors).  T5 v1.1 XXL (4.76 B parameters, random) encodes the
+    prompt's hash ids at schnell's 256 tokens into the requests' `_context`.
+    One request in bf16, then `quantize_dit_params(..., "int8")` on the same
+    tree in process and one more; then a service with quantize="int4" loads
+    the file again for a 2-step request.  Each request's launches are
+    asserted (57 flash a forward; int8: 228 W8 and 76 fp32 W8 GEMVs; int4:
+    228 W4 and 76 W4 GEMVs), none padded."""
+    from wan2gp_tpu_torch.families import flux as ffam
+    from wan2gp_tpu_torch.io import flux_checkpoint as fck
+    from wan2gp_tpu_torch.io.downloads import make_checkpoints_resolver
+    from wan2gp_tpu_torch.io.safetensors_reader import save_safetensors
+    from wan2gp_tpu_torch.models.flux import clip as fclip
+    from wan2gp_tpu_torch.models.flux import dit as fdit
+    from wan2gp_tpu_torch.models.flux import pipeline as fpipe
+    from wan2gp_tpu_torch.models.flux import vae as fvae
+    from wan2gp_tpu_torch.models.wan import t5
+    from wan2gp_tpu_torch.runtime import service as svc_mod
+    from wan2gp_tpu_torch.utils import media
+    handler = ffam.FluxFamilyHandler
+    prompt = "a red fox in the snow, photograph"
+    out = {}
+    # T5 v1.1 XXL at full size from random weights: the requests' context
+    tcfg = t5.T5Config(**handler.T5_CFG_KW)
+    t0 = time.perf_counter()
+    tp = t5.init_t5_encoder(torch.Generator(device="cuda").manual_seed(21),
+                            tcfg)
+    torch.cuda.synchronize()
+    out["t5_init_s"] = time.perf_counter() - t0
+    out["t5_params"] = sum(v.numel() for v in _leaves(tp))
+    ids, mask = ffam._tokenizer(None, tcfg.vocab_size)(
+        [prompt], handler.text_seq_len("flux_schnell"))
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    t5.t5_encode(tp, tcfg, ids, mask)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx = t5.t5_encode(tp, tcfg, ids, mask).float()
+    torch.cuda.synchronize()
+    out["t5_s"] = time.perf_counter() - t0
+    if tuple(ctx.shape) != (1, K_TXT, 4096) or not torch.isfinite(ctx).all():
+        raise AssertionError(f"(K) T5: {tuple(ctx.shape)}")
+    del tp
+    torch.cuda.empty_cache()
+
+    ckdir = os.path.join(OUT, "ckpts")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    model_def = svc_mod.GenerationService(
+        init_random_weights=True).registry.get("flux_schnell")
+    if not model_def["URLs"][0].endswith("/flux1-schnell_bf16.safetensors"):
+        raise AssertionError(f"(K): the definition's URLs {model_def}")
+    paths = {role: os.path.join(ckdir, name) for role, name in (
+        ("transformer", "flux1-schnell_bf16.safetensors"),
+        ("vae", "flux_vae.safetensors"),
+        ("clip", "clip_vit_large_patch14.safetensors"))}
+    cfg = handler.dit_config("flux_schnell")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    t0 = time.perf_counter()
+    params = fdit.init_flux(gen, cfg)
+    vcfg = fvae.FluxVAEConfig()
+    gen.manual_seed(23)
+    vp = fvae.init_flux_vae(gen, vcfg)
+    ccfg = fclip.ClipTextConfig()
+    gen.manual_seed(24)
+    cp = fclip.init_clip_text(gen, ccfg)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["dit_params"] = sum(v.numel() for v in _leaves(params))
+    t0 = time.perf_counter()
+    # a BFL file holds every tensor in bf16
+    sd = {k: v.to(torch.bfloat16)
+          for k, v in fck.flux_state_dict(params, cfg).items()}
+    save_safetensors(paths["transformer"], sd)
+    del sd
+    save_safetensors(paths["vae"], fck.flux_vae_state_dict(vp))
+    save_safetensors(paths["clip"], fck.clip_text_state_dict(cp, ccfg))
+    out["write_s"] = time.perf_counter() - t0
+    out["files_bytes"] = {os.path.basename(p): os.path.getsize(p)
+                          for p in paths.values()}
+    del cp
+    torch.cuda.empty_cache()
+    resolver = make_checkpoints_resolver(
+        [ckdir], roles=("transformer", "vae", "clip"))
+    svc = svc_mod.GenerationService(checkpoints_resolver=resolver,
+                                    output_dir=out_dir)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = svc.get_pipeline("flux_schnell")
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    leaves = 0
+    for name, got, want in (("dit", pipe.dit_params, params),
+                            ("vae", pipe.vae_params, vp)):
+        a, b = dict(_flat(got)), dict(_flat(want))
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"(K) {name}: keys {sorted(set(a) ^ set(b))}")
+        for k in a:
+            w = b[k].to(torch.bfloat16) if name == "dit" else b[k]
+            if not torch.equal(a[k], w.to(a[k].dtype)):
+                raise AssertionError(f"(K) {name}{k}: not the written tensor")
+        leaves += len(a)
+    out["leaves_equal"] = leaves
+    del params, vp, a, b
+    torch.cuda.empty_cache()
+    steps = svc.registry.default_settings("flux_schnell")[
+        "num_inference_steps"]
+    out["steps_from_definition"] = steps
+    out["steps_handler_default"] = handler.default_settings(
+        "flux_schnell")["num_inference_steps"]
+
+    def request(label, per_forward, n_steps, seed):
+        reset_counts()
+        reset_pads()
+        seen.clear()
+        split.clear()
+        settings = {"model_type": "flux_schnell", "prompt": prompt,
+                    "seed": seed, "_context": ctx}
+        if n_steps != steps:
+            settings["num_inference_steps"] = n_steps
+        t0 = time.perf_counter()
+        got = svc.generate(settings)
+        req_s = time.perf_counter() - t0
+        ok = (len(got) == 1 and got[0].endswith(".png")
+              and media.read_image(got[0]).shape == (K_H, K_W, 3)
+              and seen and seen[0]["finite"]
+              and seen[0]["shape"] == [K_H, K_W, 3]
+              and media.read_image_metadata(got[0])[
+                  "num_inference_steps"] == n_steps)
+        if not ok:
+            raise AssertionError(f"(K) {label}: {got} {seen}")
+        counts = read_counts()
+        want = {k: per_forward.get(k, 0) * n_steps for k in counts}
+        if counts != want or read_pads():
+            raise AssertionError(f"(K) {label}: launches {counts}, want "
+                                 f"{want}, padded {read_pads()}")
+        os.remove(got[0])
+        return {"steps": n_steps, "request_s": req_s, **split,
+                "step_s": split["denoise_s"] / n_steps, "launches": counts,
+                "launches_per_forward": per_forward, "padded_launches": 0}
+
+    real_denoise, real_decode = fpipe.flux_denoise, fpipe.flux_vae_decode
+    fpipe.flux_denoise = timed("denoise", real_denoise)
+    fpipe.flux_vae_decode = timed("decode", real_decode)
+    launches = {}
+    try:
+        pipe.clip_encode_fn = timed("clip", pipe.clip_encode_fn)
+        out["bf16"] = request("bf16", {"flash_attention": 57}, steps, 5)
+        t0 = time.perf_counter()
+        pipe.dit_params = svc_mod.quantize_dit_params(pipe.dit_params,
+                                                      "int8")
+        torch.cuda.synchronize()
+        out["quantize_s"] = time.perf_counter() - t0
+        out["int8"] = request("int8", {"flash_attention": 57,
+                                       "matmul_w8": 228,
+                                       "matmul_w8_gemv": 76}, steps, 5)
+        svc.release_model()
+        del pipe
+        torch.cuda.empty_cache()
+        # the service's own quantize on load: the file read again, int4
+        svc = svc_mod.GenerationService(checkpoints_resolver=resolver,
+                                        output_dir=out_dir, quantize="int4")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svc.get_pipeline("flux_schnell")
+        torch.cuda.synchronize()
+        out["int4_load_s"] = time.perf_counter() - t0
+        out["int4_load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["int4"] = request("int4", {"flash_attention": 57,
+                                       "matmul_w4": 228,
+                                       "matmul_w4_gemv": 76}, STEPS, 6)
+    finally:
+        fpipe.flux_denoise, fpipe.flux_vae_decode = real_denoise, real_decode
+    for mode in ("bf16", "int8", "int4"):
+        for k, v in out[mode]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    svc.release_model()
+    del svc
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"label": "(K) flux_schnell 1280x720 from its files: bf16, int8 "
+                     "in process, int4 on load",
+            "tokens": K_TOKENS, "launches": launches, **out}
+
+
 def phase_service(frames: int):
     """The main paths through GenerationService on cuda, each with the
     launch counters reset just before its requests and read just after."""
@@ -1647,8 +2077,7 @@ def phase_service(frames: int):
         finally:
             fam._ARCH[model_type] = arch
         reset_counts()
-        Q.w8_pad_launches = Q.w4_pad_launches = 0
-        Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+        reset_pads()
         reqs = []
         for i in range(n_req):
             seen.clear()
@@ -1675,11 +2104,10 @@ def phase_service(frames: int):
                 for name in counts}
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, want {want}")
-        padded = (Q.w8_pad_launches + Q.w4_pad_launches
-                  + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
+        padded = read_pads()
         if padded:
-            raise AssertionError(f"{label}: {padded} matmul launches padded "
-                                 f"their operands")
+            raise AssertionError(f"{label}: {padded} launches padded or "
+                                 f"copied their operands")
         extra = after(svc) if after else None
         svc.release_model()
         del svc
@@ -1997,8 +2425,7 @@ def phase_service(frames: int):
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         load_peak = torch.cuda.max_memory_allocated() / 1e9
-        Q.w8_pad_launches = Q.w4_pad_launches = 0
-        Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+        reset_pads()
         per_forward = {"flash_attention": 80, "matmul_w8": 400}
         out = recorded_request("(G)", lambda: svc.generate({
             "model_type": "i2v_2_2", "prompt": "a red fox",
@@ -2010,8 +2437,7 @@ def phase_service(frames: int):
                    .get(i) for i in out.pop("forward_params")]
         if experts != [0, 1]:
             raise AssertionError(f"(G): experts by forward {experts}")
-        padded = (Q.w8_pad_launches + Q.w4_pad_launches
-                  + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
+        padded = read_pads()
         if padded:
             raise AssertionError(f"(G): {padded} matmul launches padded")
         svc.release_model()
@@ -2095,8 +2521,7 @@ def phase_service(frames: int):
         def tile(p, c, z):
             tiles.append(list(z.shape[1:4]))
             return real_tile(p, c, z)
-        Q.w8_pad_launches = Q.w4_pad_launches = 0
-        Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+        reset_pads()
         per_forward = {"flash_attention": 60, "matmul_w8": 300}
         vae2_2.wan22_vae_decode = tile
         try:
@@ -2113,10 +2538,9 @@ def phase_service(frames: int):
         lat = [(I_FRAMES - 1) // 4 + 1, I_H // 16, I_W // 16]
         if len(tiles) != 28 or max(tiles) != [lat[0], 16, 16]:
             raise AssertionError(f"(I): decode tiles {tiles}")
-        padded = (Q.w8_pad_launches + Q.w4_pad_launches
-                  + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
+        padded = read_pads()
         if padded:
-            raise AssertionError(f"(I): {padded} matmul launches padded")
+            raise AssertionError(f"(I): {padded} launches padded")
         svc.release_model()
         del svc, pipe
         files = {os.path.basename(p): os.path.getsize(p)
@@ -2255,13 +2679,11 @@ def phase_service(frames: int):
                 frame_num=frames, sampling=sampling, seed=9,
                 audio_guide_scale=4.0, vace_context=vctx)
         per_forward = {"flash_attention": 160, "matmul_w8": 740}
-        Q.w8_pad_launches = Q.w4_pad_launches = 0
-        Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+        reset_pads()
         out = recorded_request("(J)", request, [1] * STEPS, per_forward, {},
                                frames, h, w)
         out.pop("forward_params")
-        padded = (Q.w8_pad_launches + Q.w4_pad_launches
-                  + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
+        padded = read_pads()
         if padded:
             raise AssertionError(f"(J): {padded} matmul launches padded")
         if (extra["audio_features"] != [1, frames, 12, 768]
@@ -2387,6 +2809,7 @@ def phase_service(frames: int):
         os.remove(png)
         results["5B_ti2v_I"] = run_i()
         results["14B_vace_multitalk_J"] = run_j()
+        results["flux_schnell_K"] = run_k(out_dir, timed, split, seen)
     finally:
         media.save_video, media.save_image = real_save, real_save_image
         pipe_mod.wan_dit_forward = real_forward
@@ -2480,6 +2903,12 @@ def main(argv=None):
          "wan2gp_tpu/ops/quant.py:222 quantize_act_int8 (XLA; the JAX "
          "package has no Pallas kernel for it)", "14B_int4a8_sol",
          "151200x13824"),
+        ("matmul_w8_gemv", "wo_gemv.cu",
+         "wan2gp_tpu/ops/quant.py:32 (_w8_kernel on fp32 x)",
+         "flux_schnell_K", "1x3072x18432"),
+        ("matmul_w4_gemv", "wo_gemv.cu",
+         "wan2gp_tpu/ops/quant.py:127 (_w4_kernel on fp32 x)",
+         "flux_schnell_K", "1x3072x18432"),
     )
     kernels = []
     for name, src, replaces, run, case in table:

@@ -7,6 +7,7 @@ the JAX `dense_quant` (Pallas interpret mode) against the port's plain
 `matmul_w8`; the block against the reference-executed goldens at 5e-4.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -49,9 +50,11 @@ def _forward_pair(jparams, jcfg, cfg, dtype=None, quant=False):
     jcos, jsin = jbuild_rope(grid, head_dim=jcfg.head_dim)
     if quant:
         jparams = jquantize(jparams, "int8")
-    ref = jdit.wan_dit_forward(jparams, jcfg, jnp.asarray(lat),
-                               jnp.asarray(t), jnp.asarray(ctx), jcos, jsin,
-                               attn_backend="xla")
+    # jitted: the eager outputs in fewer seconds
+    ref = jax.jit(functools.partial(jdit.wan_dit_forward, cfg=jcfg,
+                                    attn_backend="xla"))(
+        jparams, latents=jnp.asarray(lat), t=jnp.asarray(t),
+        context=jnp.asarray(ctx), rope_cos=jcos, rope_sin=jsin)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     cos, sin = build_rope_3d(grid, head_dim=cfg.head_dim)
     got = dit.wan_dit_forward(params, cfg, torch.from_numpy(lat),

@@ -31,6 +31,11 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.families.wan",
     "wan2gp_tpu_torch.families.krea2",
     "wan2gp_tpu_torch.families._image_vae",
+    "wan2gp_tpu_torch.families.flux",
+    "wan2gp_tpu_torch.models.flux.pipeline",
+    "wan2gp_tpu_torch.models.flux.vae",
+    "wan2gp_tpu_torch.models.flux.clip",
+    "wan2gp_tpu_torch.io.flux_checkpoint",
     "wan2gp_tpu_torch.models.krea2.dit",
     "wan2gp_tpu_torch.models.krea2.pipeline",
     "wan2gp_tpu_torch.models.flux.dit",
@@ -117,10 +122,14 @@ def no_card():
 def test_default_device_entry_points_raise_without_a_card(no_card,
                                                           tmp_path):
     from wan2gp_tpu_torch import resolve_device
+    from wan2gp_tpu_torch.families.flux import FluxFamilyHandler
     from wan2gp_tpu_torch.families.krea2 import Krea2FamilyHandler
     from wan2gp_tpu_torch.families.wan import WanFamilyHandler
     from wan2gp_tpu_torch.io.wan_checkpoint import (load_wan_vae_params,
                                                     load_wan22_vae_params)
+    from wan2gp_tpu_torch.io.flux_checkpoint import load_flux_vae_params
+    from wan2gp_tpu_torch.models.flux.dit import FluxConfig
+    from wan2gp_tpu_torch.models.flux.pipeline import FluxPipeline
     from wan2gp_tpu_torch.models.krea2.dit import Krea2Config
     from wan2gp_tpu_torch.models.krea2.pipeline import Krea2Pipeline
     from wan2gp_tpu_torch.models.wan.dit import WanDiTConfig
@@ -151,6 +160,10 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
         "Krea2Pipeline": lambda: Krea2Pipeline({}, Krea2Config()),
         "krea2 load_model": lambda: Krea2FamilyHandler.load_model(
             "krea2_raw", {}, init_random=True),
+        "FluxPipeline": lambda: FluxPipeline({}, FluxConfig()),
+        "flux load_model": lambda: FluxFamilyHandler.load_model(
+            "flux_schnell", {}, init_random=True),
+        "load_flux_vae_params": lambda: load_flux_vae_params({}, None),
         "load_wan_vae_params": lambda: load_wan_vae_params({}, None),
         "load_wan22_vae_params": lambda: load_wan22_vae_params({}, None),
     }
@@ -186,6 +199,11 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
     s = torch.empty((16,), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         quant.matmul_w8(x, w, s)
+    for fn, wq in ((quant.matmul_w8, w), (quant.matmul_w4, w[:16])):
+        with pytest.raises(ValueError, match="CUDA"):       # the GEMV
+            fn(x.float(), wq, s)
+    with pytest.raises(ValueError, match="CUDA"):           # padded D
+        attention.attention(q[..., :40], q[..., :40], q[..., :40])
     for act in ("bf16", "int8"):
         with pytest.raises(ValueError, match="CUDA"):
             quant.dense_quant(x, {"w_q": w, "scale": s}, act_quant=act)
@@ -201,6 +219,8 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
         sol.sol_flash(q, q, q, tables[0][None], tables[1][None], 0.125, 64,
                       64)
     assert attention.launches == attention.kvmask_launches == 0
+    assert attention.flash_pad_launches == 0
+    assert quant.w8_gemv_launches == quant.w4_gemv_launches == 0
     assert quant.launches == quant.w8a8_launches == 0
     assert quant.w4_launches == quant.w4a8_launches == 0
     assert sparse.launches == sol.launches == 0

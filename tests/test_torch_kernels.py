@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips without a CUDA card (the kernels have no CPU
-mode).  The flash wrapper's input rules (what its TMA maps take) are a pure
-function of shapes, strides and pointer offsets, tested on CPU tensors.
+mode).  The flash wrapper's input rules (what its TMA maps take, and what
+it pads or copies) are a pure function of shapes, strides and pointer
+offsets, tested on CPU tensors.
 The file imports only torch and the port, so on the card's machine, which
 has no JAX, it runs on its own:
 
@@ -12,7 +13,9 @@ Tolerances, from the same bf16 inputs with the plain version in fp32:
 flash attention (dense and kv-masked), block-sparse and Sol flash max abs
 err <= 2e-2 and mean abs err <= 2e-3 (bf16 rounding of q*scale and of P,
 and the summation order), Sol's logsumexp max abs err <= 1e-2; int8, int4,
-W8A8 and W4A8 matmuls relative Frobenius error <= 1e-2.
+W8A8 and W4A8 matmuls relative Frobenius error <= 1e-2; the fp32 W8 and W4
+GEMVs <= 1e-5 (fp32 throughout: only the summation order differs).  The
+GEMV's K split is a pure function too, tested on the CPU.
 """
 import math
 
@@ -83,24 +86,50 @@ def test_flash_kernel_reads_strided_views(gen, layout):
 
 @pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(gen):
+    """What no copy mends raises before any launch: another dtype, another
+    device, mismatched shapes, D above 128."""
     q = _randn((1, 16, 2, 128), gen)
+    before = attention.launches + attention.flash_pad_launches
     with pytest.raises(TypeError):
         attention.flash_attention(q.float(), q.float(), q.float(), 0.1)
     with pytest.raises(ValueError):
-        attention.flash_attention(q[..., :96], q[..., :96], q[..., :96], 0.1)
-    with pytest.raises(ValueError):
         attention.flash_attention(q, q.cpu(), q, 0.1)
-    # a view 4 elements (8 bytes) into its storage: no TMA map takes it,
-    # and the wrapper raises instead of falling back
-    shifted = _randn((q.numel() + 4,), gen)[4:].view(q.shape)
-    before = attention.launches
     with pytest.raises(ValueError):
-        attention.flash_attention(shifted, q, q, 0.1)
-    # rows 132 elements apart: a byte stride that is not a multiple of 16
-    wide = _randn((1, 16, 2, 132), gen)[..., :128]
-    with pytest.raises(ValueError):
-        attention.flash_attention(q, wide, wide, 0.1)
-    assert attention.launches == before
+        attention.flash_attention(q, q[:, :, :1], q[:, :, :1], 0.1)
+    wide = _randn((1, 16, 2, 160), gen)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        attention.flash_attention(wide, wide, wide, 0.1)
+    assert attention.launches + attention.flash_pad_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d80", "d96", "d80_masked",
+                                  "kv_stride_132", "q_offset_4"])
+def test_flash_kernel_pads_and_relays_what_tma_does_not_take(gen, case):
+    """D padded with zeros to 64 or 128 and layouts the TMA maps refuse
+    copied into fresh buffers, as the JAX package pads: the output equals
+    the plain version's on the original tensors, and the launch counts as
+    padded."""
+    b, l, s, n = 2, 300, 200, 3
+    d = {"d80": 80, "d96": 96, "d80_masked": 80}.get(case, 128)
+    q, k, v = (_randn((b, x, n, d), gen) for x in (l, s, s))
+    mask = None
+    if case == "kv_stride_132":      # rows 132 elements apart
+        k, v = (_randn((b, s, n, 132), gen)[..., :128] for _ in range(2))
+    elif case == "q_offset_4":       # a base 8 bytes past an aligned one
+        q = _randn((q.numel() + 4,), gen)[4:].view(q.shape)
+    elif case == "d80_masked":
+        mask = torch.rand((b, s), generator=gen, device="cuda") < 0.7
+    scale = 1.0 / math.sqrt(d)
+    before = attention.flash_pad_launches
+    got = attention.flash_attention(q, k, v, scale, mask).float()
+    torch.cuda.synchronize()
+    assert attention.flash_pad_launches == before + 1
+    assert got.shape == (b, l, n, d)
+    ref = attention.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        scale, mask)
+    err = (got - ref).abs()
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
 
 def _cpu_layout(t):
@@ -146,6 +175,47 @@ def test_flash_layout_rules_on_cpu_tensors(case, ok):
     shapes, strides, offsets = zip(*(_cpu_layout(t) for t in (q, k, v)))
     err = attention.flash_layout_error(shapes, strides, offsets)
     assert (err is None) == ok, err
+
+
+@pytest.mark.parametrize("case,want", [
+    ("contiguous", (128, (False, False, False))),
+    ("packed_qkv", (128, (False, False, False))),
+    ("offset_4_elements", (128, (True, False, False))),
+    ("stride_not_multiple_of_8", (128, (False, True, True))),
+    ("d80", (128, (True, True, True))),
+    ("d48", (64, (True, True, True))),
+    ("d96", (128, (True, True, True))),
+    ("d160", "ROADMAP Queue 2"), ("shape_mismatch", "shape mismatch"),
+    ("empty", "empty")])
+def test_flash_relayout_decision_on_cpu_tensors(case, want):
+    """What the wrapper copies or pads before a launch, as a pure function
+    of shapes, strides and byte offsets: D padded to 64 or 128 (all three
+    copied), otherwise only the tensors the TMA rule refuses; what no copy
+    mends raises."""
+    q = torch.empty((2, 40, 3, 128), dtype=torch.bfloat16)
+    k = v = torch.empty((2, 50, 3, 128), dtype=torch.bfloat16)
+    if case == "packed_qkv":
+        qkv = torch.empty((2, 40, 3, 3, 128), dtype=torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    elif case == "offset_4_elements":
+        q = torch.empty((q.numel() + 4,), dtype=torch.bfloat16)[4:].view(
+            q.shape)
+    elif case == "stride_not_multiple_of_8":
+        k = v = torch.empty((2, 50, 3, 132), dtype=torch.bfloat16)[..., :128]
+    elif case.startswith("d"):
+        d = int(case[1:])
+        q, k, v = (torch.empty(t.shape[:3] + (d,), dtype=torch.bfloat16)
+                   for t in (q, k, v))
+    elif case == "shape_mismatch":
+        v = torch.empty((2, 51, 3, 128), dtype=torch.bfloat16)
+    elif case == "empty":
+        k = v = torch.empty((2, 0, 3, 128), dtype=torch.bfloat16)
+    shapes, strides, offsets = zip(*(_cpu_layout(t) for t in (q, k, v)))
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            attention.flash_relayout(shapes, strides, offsets)
+    else:
+        assert attention.flash_relayout(shapes, strides, offsets) == want
 
 
 @pytest.mark.parametrize("dtype,s_len,copied", [
@@ -236,11 +306,12 @@ def test_w8_kernel_matches_plain(gen, m, k, n):
 
 @pytest.mark.cuda
 def test_w8_kernel_rejects_what_it_does_not_take(gen):
+    """fp16 x has no kernel (bf16 x takes the matmul, fp32 x the GEMV)."""
     x = _randn((8, 32), gen)
     wq, s = quant.quantize_int8(torch.randn((32, 16), generator=gen,
                                             device="cuda"))
     with pytest.raises(TypeError):
-        quant.matmul_w8(x.float(), wq, s)
+        quant.matmul_w8(x.half(), wq, s)
     with pytest.raises(ValueError):
         quant.matmul_w8(x.t(), wq[:8], s)
 
@@ -385,6 +456,62 @@ def test_weight_only_kernels_at_main_path_widths(gen, kernel, m, k, n):
     assert quant.w8_pad_launches + quant.w4_pad_launches == pads
     ref = ref_fn(x.float(), wq, s).float()
     assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,k,n", [
+    ("w8", 1, 3072, 18432),         # Flux double block modulation
+    ("w8", 1, 3072, 9216),          # Flux single block modulation
+    ("w4", 1, 3072, 18432),
+    ("w4", 1, 3072, 9216),
+    ("w8", 2, 3072, 1001),          # N % 4 != 0: the scalar weight loads
+    ("w4", 3, 1000, 1001),          # K < 2 KH: x's high half is short
+    ("w8", 16, 256, 384)])          # the largest M it takes
+def test_fp32_gemv_kernels_match_plain(gen, kernel, m, k, n):
+    """fp32 x at small M through csrc/wo_gemv.cu: relative Frobenius error
+    <= 1e-5 against the plain version in fp32 (only the summation order
+    differs), and two launches bit-equal (the K split is reduced in a fixed
+    order, no atomics)."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    if kernel == "w8":
+        wq, s = quant.quantize_int8(w)
+        fn, ref_fn = quant.matmul_w8, quant.matmul_w8_ref
+    else:
+        wq, s = quant.quantize_int4(w)
+        fn, ref_fn = quant.matmul_w4, quant.matmul_w4_ref
+    counter = f"{kernel}_gemv_launches"
+    before = (getattr(quant, counter), quant.launches, quant.w4_launches)
+    got = fn(x, wq, s)
+    again = fn(x, wq, s)
+    torch.cuda.synchronize()
+    assert (getattr(quant, counter), quant.launches, quant.w4_launches) == (
+        before[0] + 2, before[1], before[2])
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    ref = ref_fn(x, wq, s)
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fp32_gemv_refuses_large_m(gen):
+    x = torch.randn((17, 256), generator=gen, device="cuda")
+    wq, s = quant.quantize_int8(torch.randn((256, 256), generator=gen,
+                                            device="cuda"))
+    with pytest.raises(ValueError, match="M <= 16"):
+        quant.matmul_w8(x, wq, s)
+
+
+@pytest.mark.parametrize("rows,n", [(3072, 18432), (3072, 9216),
+                                    (1536, 18432), (1000, 1001), (7, 5),
+                                    (65536, 256)])
+def test_fp32_gemv_split_on_cpu(rows, n):
+    """The K split: no split empty, at most 256 rows each, and a grid of at
+    least half the 264 CTAs it aims for (rows allowing)."""
+    splits = quant.gemv_splits(rows, n)
+    r = -(-rows // splits)
+    tiles = -(-n // 1024)
+    assert r <= 256 and (splits - 1) * r < rows
+    assert tiles * splits >= min(264, tiles * rows) / 2
 
 
 def _structured_int4(k, n, kh):

@@ -17,6 +17,7 @@ every self-attention and the text refiner through the masked kernel's
 wrapper.
 """
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -50,6 +51,14 @@ TINY = dit.Krea2Config(**{f.name: getattr(JTINY, f.name)
                        compute_dtype=torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted(fn, cfg, **static):
+    """A JAX reference jitted with its config and static arguments bound
+    (call it with keywords after params): the eager outputs, in fewer
+    seconds."""
+    return jax.jit(functools.partial(fn, cfg=cfg, **static))
+
+
 def _close(got, ref, tol=TOL):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
     ref = np.asarray(ref, np.float32)
@@ -61,9 +70,12 @@ def _close(got, ref, tol=TOL):
 def trees():
     """The JAX tree and its copy in the port, with random (non-zero) norm
     offsets and modulation biases so those paths are exercised."""
-    # jitted: the same values, fewer seconds than the eager init
-    jparams = jax.jit(lambda key: jdit.init_krea2(key, JTINY))(
-        jax.random.key(0))
+    # the port's init carried over (milliseconds; the JAX init takes
+    # seconds even jitted): its layout is the JAX one
+    # (test_init_matches_jax_tree_layout)
+    from tests._torch_trees import to_jax
+    jparams = to_jax(dit.init_krea2(torch.Generator().manual_seed(0), TINY,
+                                    torch.float32))
     rng = np.random.default_rng(1)
 
     def jitter(path, leaf):
@@ -100,8 +112,9 @@ def _spy_masked_calls(monkeypatch):
     return seen
 
 
-def test_init_matches_jax_tree_layout(trees):
-    jparams, _ = trees
+def test_init_matches_jax_tree_layout():
+    jparams = jax.eval_shape(lambda k: jdit.init_krea2(k, JTINY),
+                             jax.random.key(0))
     ours = dit.init_krea2(torch.Generator().manual_seed(0), TINY)
     jflat = {jax.tree_util.keystr(p): v for p, v in
              jax.tree_util.tree_flatten_with_path(jparams)[0]}
@@ -167,9 +180,9 @@ def test_prepare_context_matches_jax(trees, monkeypatch):
     jparams, params = trees
     _, ctx, mask = _inputs()
     seen = _spy_masked_calls(monkeypatch)
-    ref = jdit.prepare_context(jparams, JTINY, jnp.asarray(ctx),
-                               jnp.asarray(mask), output_len=7,
-                               attn_backend="xla")
+    ref = _jitted(jdit.prepare_context, JTINY, output_len=7,
+                  attn_backend="xla")(jparams, context=jnp.asarray(ctx),
+                                      mask=jnp.asarray(mask))
     got = dit.prepare_context(params, TINY, torch.from_numpy(ctx),
                               torch.from_numpy(mask), output_len=7)
     _close(got, ref)
@@ -183,16 +196,16 @@ def test_prepare_context_matches_jax(trees, monkeypatch):
 def test_krea2_forward_matches_jax(trees, jbackend, monkeypatch):
     jparams, params = trees
     img, ctx, mask = _inputs()
-    jfused = jdit.prepare_context(jparams, JTINY, jnp.asarray(ctx),
-                                  jnp.asarray(mask), attn_backend="xla")
+    jfused = _jitted(jdit.prepare_context, JTINY, attn_backend="xla")(
+        jparams, context=jnp.asarray(ctx), mask=jnp.asarray(mask))
     fused = torch.from_numpy(np.array(jfused))
     l_txt, pad_to = 5, 5 + 16 + 3
     jcos, jsin = jdit.build_krea2_rope(l_txt, 4, 4, JTINY, pad_to)
     cos, sin = dit.build_krea2_rope(l_txt, 4, 4, TINY, pad_to)
     t = np.array([0.7, 0.7], np.float32)
-    ref = jdit.krea2_forward(jparams, JTINY, jnp.asarray(img), jfused,
-                             jnp.asarray(t), jcos, jsin, jnp.asarray(mask),
-                             attn_backend=jbackend)
+    ref = _jitted(jdit.krea2_forward, JTINY, attn_backend=jbackend)(
+        jparams, img=jnp.asarray(img), context=jfused, t=jnp.asarray(t),
+        rope_cos=jcos, rope_sin=jsin, txt_mask=jnp.asarray(mask))
     seen = _spy_masked_calls(monkeypatch)
     got = dit.krea2_forward(params, TINY, torch.from_numpy(img), fused,
                             torch.from_numpy(t), cos, sin,
@@ -212,8 +225,8 @@ def test_bf16_matches_jax(trees, part):
     jcfg = dataclasses.replace(JTINY, compute_dtype=jnp.bfloat16)
     cfg = dataclasses.replace(TINY, compute_dtype=torch.bfloat16)
     img, ctx, mask = _inputs()
-    jfused = jdit.prepare_context(jparams, jcfg, jnp.asarray(ctx),
-                                  jnp.asarray(mask), attn_backend="xla")
+    jfused = _jitted(jdit.prepare_context, jcfg, attn_backend="xla")(
+        jparams, context=jnp.asarray(ctx), mask=jnp.asarray(mask))
     if part == "prepare_context":
         ref = jfused
         got = dit.prepare_context(params, cfg, torch.from_numpy(ctx),
@@ -222,9 +235,9 @@ def test_bf16_matches_jax(trees, part):
         jcos, jsin = jdit.build_krea2_rope(5, 4, 4, jcfg, 24)
         cos, sin = dit.build_krea2_rope(5, 4, 4, cfg, 24)
         t = np.array([0.7, 0.3], np.float32)
-        ref = jdit.krea2_forward(jparams, jcfg, jnp.asarray(img), jfused,
-                                 jnp.asarray(t), jcos, jsin,
-                                 jnp.asarray(mask), attn_backend="xla")
+        ref = _jitted(jdit.krea2_forward, jcfg, attn_backend="xla")(
+            jparams, img=jnp.asarray(img), context=jfused, t=jnp.asarray(t),
+            rope_cos=jcos, rope_sin=jsin, txt_mask=jnp.asarray(mask))
         fused = torch.from_numpy(np.asarray(jfused, np.float32)).to(
             torch.bfloat16)
         got = dit.krea2_forward(params, cfg, torch.from_numpy(img), fused,
@@ -254,9 +267,9 @@ def test_padded_text_does_not_leak(trees):
 def test_denoise_loop_matches_jax(trees, guidance):
     jparams, params = trees
     img, ctx, mask = _inputs()
-    jf = [jdit.prepare_context(jparams, JTINY, jnp.asarray(ctx[i:i + 1]),
-                               jnp.asarray(mask[i:i + 1]), attn_backend="xla")
-          for i in range(2)]
+    jf = [_jitted(jdit.prepare_context, JTINY, attn_backend="xla")(
+        jparams, context=jnp.asarray(ctx[i:i + 1]),
+        mask=jnp.asarray(mask[i:i + 1])) for i in range(2)]
     ts = jpipe.krea2_timesteps(16, 3)
     jcos, jsin = jdit.build_krea2_rope(5, 4, 4, JTINY, 24)
     cos, sin = dit.build_krea2_rope(5, 4, 4, TINY, 24)

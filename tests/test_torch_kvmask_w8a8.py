@@ -213,9 +213,12 @@ def test_dit_forward_int8a8_matches_jax(monkeypatch):
     monkeypatch.setattr(jquant, "matmul_w8a8", _interpret(jquant.matmul_w8a8))
     monkeypatch.setattr(jquant, "_ACT_QUANT", "int8")
     jcos, jsin = jbuild_rope(grid, head_dim=JCFG.head_dim)
-    ref = np.asarray(jdit.wan_dit_forward(
-        jq, JCFG, jnp.asarray(lat), jnp.asarray(t), jnp.asarray(ctx), jcos,
-        jsin, attn_backend="xla"), np.float32)
+    # jitted (the patched module globals are read while tracing): the
+    # eager outputs in fewer seconds
+    ref = np.asarray(jax.jit(functools.partial(
+        jdit.wan_dit_forward, cfg=JCFG, attn_backend="xla"))(
+        jq, latents=jnp.asarray(lat), t=jnp.asarray(t),
+        context=jnp.asarray(ctx), rope_cos=jcos, rope_sin=jsin), np.float32)
     np.testing.assert_array_equal(
         params["blocks"]["ffn"]["fc1"]["w_q"].numpy(),
         np.asarray(jq["blocks"]["ffn"]["fc1"]["w_q"]))

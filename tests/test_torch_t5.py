@@ -3,6 +3,7 @@
 Tiny encoder (vocab 100, 2 layers): fp32 at 1e-4, bf16 at 3e-2 * max|ref|;
 relative-position buckets against the reference golden (exact).
 """
+import functools
 import os
 import subprocess
 import sys
@@ -35,16 +36,24 @@ def _ids():
     return ids, mask
 
 
+# jitted: the same values and outputs as eager, in fewer seconds
+_jax_init = jax.jit(jt5.init_t5_encoder, static_argnums=(1, 2))
+
+
+def _jax_encode(jcfg):
+    return jax.jit(functools.partial(jt5.t5_encode, cfg=jcfg))
+
+
 @pytest.mark.parametrize("shared_pos", [False, True])
 def test_t5_encode_fp32_matches_jax(shared_pos):
     jcfg = jt5.T5Config(**TINY, shared_pos=shared_pos,
                         compute_dtype=jnp.float32)
     cfg = t5.T5Config(**TINY, shared_pos=shared_pos,
                       compute_dtype=torch.float32)
-    jp = jt5.init_t5_encoder(jax.random.key(0), jcfg, jnp.float32)
+    jp = _jax_init(jax.random.key(0), jcfg, jnp.float32)
     ids, mask = _ids()
-    ref = np.asarray(jt5.t5_encode(jp, jcfg, jnp.asarray(ids),
-                                   jnp.asarray(mask)))
+    ref = np.asarray(_jax_encode(jcfg)(jp, ids=jnp.asarray(ids),
+                                       mask=jnp.asarray(mask)))
     p = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     got = t5.t5_encode(p, cfg, torch.from_numpy(ids), torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
@@ -53,10 +62,10 @@ def test_t5_encode_fp32_matches_jax(shared_pos):
 def test_t5_encode_bf16_matches_jax():
     jcfg = jt5.T5Config(**TINY)
     cfg = t5.T5Config(**TINY)
-    jp = jt5.init_t5_encoder(jax.random.key(1), jcfg)
+    jp = _jax_init(jax.random.key(1), jcfg, jnp.bfloat16)
     ids, mask = _ids()
-    ref = np.asarray(jt5.t5_encode(jp, jcfg, jnp.asarray(ids),
-                                   jnp.asarray(mask)), np.float32)
+    ref = np.asarray(_jax_encode(jcfg)(jp, ids=jnp.asarray(ids),
+                                       mask=jnp.asarray(mask)), np.float32)
     p = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     got = t5.t5_encode(p, cfg, torch.from_numpy(ids), torch.from_numpy(mask))
     assert got.dtype == torch.bfloat16
@@ -65,7 +74,8 @@ def test_t5_encode_bf16_matches_jax():
 
 
 def test_init_t5_matches_jax_shapes():
-    jp = jt5.init_t5_encoder(jax.random.key(0), jt5.T5Config(**TINY))
+    jp = jax.eval_shape(lambda k: jt5.init_t5_encoder(
+        k, jt5.T5Config(**TINY)), jax.random.key(0))
     p = t5.init_t5_encoder(torch.Generator().manual_seed(0),
                            t5.T5Config(**TINY))
     jshapes = jax.tree.map(lambda a: tuple(a.shape), jp)
@@ -89,12 +99,17 @@ def test_hash_tokenizer_ids_are_pinned():
 
 
 def test_hash_tokenizer_same_ids_in_every_process():
-    code = ("from wan2gp_tpu_torch.utils.tokenizer import HashTokenizer;"
-            "print(HashTokenizer()(['a red fox'], 8)[0].tolist())")
+    # the module is loaded from its file (it needs only numpy), so each
+    # process starts in a fraction of a second without importing torch
+    path = os.path.join(REPO, "wan2gp_tpu_torch", "utils", "tokenizer.py")
+    code = ("import importlib.util as u;"
+            f"s = u.spec_from_file_location('tok', {path!r});"
+            "m = u.module_from_spec(s); s.loader.exec_module(m);"
+            "print(m.HashTokenizer()(['a red fox'], 8)[0].tolist())")
     outs = set()
     for seed in ("1", "2"):
-        env = dict(os.environ, PYTHONHASHSEED=seed, PYTHONPATH=REPO)
+        env = dict(os.environ, PYTHONHASHSEED=seed)
         outs.add(subprocess.run([sys.executable, "-c", code], env=env,
                                 capture_output=True, text=True, check=True,
                                 timeout=120).stdout)
-    assert len(outs) == 1
+    assert outs == {f"{HashTokenizer()(['a red fox'], 8)[0].tolist()}\n"}

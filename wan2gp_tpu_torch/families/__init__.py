@@ -1,8 +1,9 @@
-"""Family handlers of the port: Wan t2v and Krea 2 text-to-image."""
+"""Family handlers of the port: Wan, Krea 2 and Flux."""
+from .flux import FluxFamilyHandler
 from .krea2 import Krea2FamilyHandler
 from .wan import WanFamilyHandler
 
-_HANDLER_CLASSES = (WanFamilyHandler, Krea2FamilyHandler)
+_HANDLER_CLASSES = (WanFamilyHandler, Krea2FamilyHandler, FluxFamilyHandler)
 
 
 def build_handler_map():

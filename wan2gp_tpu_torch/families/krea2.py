@@ -29,8 +29,9 @@ TEXT_LEN = 64       # tokens per prompt of the random text encoder
 
 class Krea2FamilyHandler:
     family = "krea2"
-    # its blocks' `_dense` reads float weights only
-    quantizable = False
+    # no quantize mode: its blocks' `_dense` reads float weights only
+    quantize_modes = ()
+    quantize_refusal = "its linears read float weights only"
 
     @staticmethod
     def query_supported_types() -> List[str]:

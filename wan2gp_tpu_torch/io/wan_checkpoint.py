@@ -21,8 +21,8 @@ The i2v image branch (`cross_attn.{k_img,v_img,norm_k_img}` and
 `vace_blocks.N.*` with their `after_proj`, and `vace_blocks.0.before_proj`
 as `vace_before_proj`) load as the JAX loader loads them.  The other
 variant branches (FantasyTalking, ShotPlan) are not ported: their keys
-stay leftovers, which `families/wan.py` refuses.  The HF T5 encoder is a
-ROADMAP Queue 1 item.
+stay leftovers, which `families/wan.py` refuses.  The HF T5 v1.1 encoder
+(Flux's) loads through `load_hf_t5_params`.
 """
 from __future__ import annotations
 
@@ -48,12 +48,10 @@ def normalize_wan_sd(sd: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
-    """A copy of x (torch tensor or numpy array) as `dtype` on `device`;
-    floats pass through fp32, as the JAX loader's numpy casts do."""
-    t = torch.as_tensor(x)
-    if t.is_floating_point() and dtype != torch.float32:
-        t = t.float()
-    return t.to(device=device, dtype=dtype, copy=True)
+    """A copy of x (torch tensor or numpy array) on `device`, cast to
+    `dtype` there: a bf16 file's tensors move as they are, half the bytes
+    of an fp32 copy made on the host (the JAX loader's numpy casts)."""
+    return torch.as_tensor(x).to(device, copy=True).to(dtype)
 
 
 def _stack(dicts):
@@ -76,7 +74,7 @@ class _Reader:
         t = _tensor(self.sd.pop(key), torch.float32, self.device)
         return t if shape is None else t.reshape(shape)
 
-    def lin(self, prefix, dtype, bias=True):
+    def lin(self, prefix, dtype, bias=True, bias_dtype=None):
         sd = self.sd
         if f"{prefix}.weight._data" in sd:
             data = torch.as_tensor(sd.pop(f"{prefix}.weight._data"))
@@ -85,11 +83,11 @@ class _Reader:
                  "scale": _tensor(scale, torch.float32,
                                   self.device).reshape(-1)}
         else:
-            w = torch.as_tensor(sd.pop(f"{prefix}.weight")).float()
-            p = {"w": w.t().to(device=self.device, dtype=dtype,
-                               copy=True).contiguous()}
+            w = _tensor(sd.pop(f"{prefix}.weight"), dtype, self.device)
+            p = {"w": w.t().contiguous()}
         if bias and f"{prefix}.bias" in sd:
-            p["b"] = _tensor(sd.pop(f"{prefix}.bias"), dtype, self.device)
+            p["b"] = _tensor(sd.pop(f"{prefix}.bias"), bias_dtype or dtype,
+                             self.device)
         return p
 
     def leftover(self):
@@ -202,6 +200,71 @@ def load_t5_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
         "norm": r.vec("norm.weight"),
     }
     return p, r.leftover()
+
+
+def load_hf_t5_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
+                      device=None):
+    """The HF T5 v1.1 encoder (google/t5-v1_1-xxl, Flux's text encoder):
+    encoder.block.N.layer.0.SelfAttention.{q,k,v,o} + layer.1.
+    DenseReluDense.{wi_0 gate, wi_1 fc1, wo}, one relative-position table
+    (block 0's `relative_attention_bias`, shared by every layer) and the
+    `shared` token embeddings (`encoder.embed_tokens`, the same tensor in
+    HF files, is dropped).  cfg: a T5Config with shared_pos=True.  Returns
+    (params, leftover keys)."""
+    if not cfg.shared_pos:
+        raise ValueError("load_hf_t5_params reads T5 v1.1 (one shared "
+                         "relative-position table): cfg.shared_pos=True")
+    r = _Reader({k[len("encoder."):] if k.startswith("encoder.") else k: v
+                 for k, v in sd.items()}, device)
+
+    def block(i):
+        pre = f"block.{i}.layer"
+        return {
+            "norm1": r.vec(f"{pre}.0.layer_norm.weight"),
+            "attn": {k: r.lin(f"{pre}.0.SelfAttention.{k}", dtype,
+                              bias=False) for k in ("q", "k", "v", "o")},
+            "norm2": r.vec(f"{pre}.1.layer_norm.weight"),
+            "ffn": {"gate": r.lin(f"{pre}.1.DenseReluDense.wi_0", dtype,
+                                  bias=False),
+                    "fc1": r.lin(f"{pre}.1.DenseReluDense.wi_1", dtype,
+                                 bias=False),
+                    "fc2": r.lin(f"{pre}.1.DenseReluDense.wo", dtype,
+                                 bias=False)},
+        }
+
+    emb_key = "shared.weight" if r.has("shared.weight") \
+        else "embed_tokens.weight"
+    p = {
+        "token_embedding": _tensor(r.sd.pop(emb_key), dtype, r.device),
+        "shared_pos_emb": r.vec(
+            "block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+        "blocks": _stack([block(i) for i in range(cfg.num_layers)]),
+        "norm": r.vec("final_layer_norm.weight"),
+    }
+    r.sd.pop("embed_tokens.weight", None)
+    return p, r.leftover()
+
+
+def hf_t5_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
+    """A port T5 v1.1 tree as an HF encoder state dict (the keys
+    `load_hf_t5_params` reads; linears [out, in]).  Each layer's per-layer
+    `pos_emb`, which T5 v1.1 does not read, is not written."""
+    sd = {"shared.weight": params["token_embedding"],
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias."
+          "weight": params["shared_pos_emb"],
+          "encoder.final_layer_norm.weight": params["norm"]}
+    b = params["blocks"]
+    for i in range(cfg.num_layers):
+        pre = f"encoder.block.{i}.layer"
+        sd[f"{pre}.0.layer_norm.weight"] = b["norm1"][i]
+        for k in ("q", "k", "v", "o"):
+            sd[f"{pre}.0.SelfAttention.{k}.weight"] = \
+                b["attn"][k]["w"][i].t().contiguous()
+        sd[f"{pre}.1.layer_norm.weight"] = b["norm2"][i]
+        for name, key in (("wi_0", "gate"), ("wi_1", "fc1"), ("wo", "fc2")):
+            sd[f"{pre}.1.DenseReluDense.{name}.weight"] = \
+                b["ffn"][key]["w"][i].t().contiguous()
+    return sd
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,11 @@ _LATER = {
 # plain integer counts of kernel launches (read and reset by callers)
 launches = 0            # flash_attention
 kvmask_launches = 0     # flash_attention with a kv_mask
+# launches of either whose q, k or v had to be padded or copied first
+flash_pad_launches = 0
+
+# the head dims the kernel is instantiated for
+FLASH_HEAD_DIMS = (64, 128)
 
 # working-set cap of the plain version's fp32 score block
 _REF_SCORE_BYTES = 1 << 30
@@ -83,35 +88,91 @@ def _bf16_scale(scale: float) -> float:
     return float(torch.tensor(scale, dtype=torch.bfloat16))
 
 
-def flash_layout_error(shapes, strides, byte_offsets) -> str | None:
-    """Why the kernel's TMA maps cannot take q, k and v, or None.
-
-    shapes and strides: the three [B, L|S, N, D] shapes and element
-    strides of q, k and v; byte_offsets: each base pointer modulo 16.  The
-    kernel reads D with unit stride, and a TMA map needs a 16-byte aligned
-    base and byte strides that are multiples of 16 (element strides that
-    are multiples of 8) on every dimension of more than one element."""
+def _flash_shape_error(shapes) -> str | None:
     qs, ks, vs = (tuple(x) for x in shapes)
     if len(qs) != 4 or len(ks) != 4 or len(vs) != 4:
         return "expected [B, L, N, D] tensors"
     b, l, n, d = qs
     if ks != vs or ks[0] != b or ks[2:] != (n, d):
         return f"shape mismatch q {qs} k {ks} v {vs}"
-    if d not in (64, 128):
-        return f"the kernel takes D in (64, 128), got {d}"
-    if l == 0 or ks[1] == 0:
+    if l == 0 or ks[1] == 0 or d == 0:
         return "empty sequence"
     if n > 65535 or b > 65535:
         return "B and N must be <= 65535"
-    for name, shape, stride, off in zip("qkv", (qs, ks, vs), strides,
-                                        byte_offsets):
-        bad = [i for i in range(3) if shape[i] > 1
-               and (stride[i] <= 0 or stride[i] % 8)]
-        if stride[3] != 1 or bad or off % 16:
-            return (f"{name} needs unit stride on D, a 16-byte aligned base "
-                    f"and positive strides that are multiples of 8, got "
-                    f"strides {tuple(stride)} at byte offset {off} mod 16")
     return None
+
+
+def _tma_error(name, shape, stride, off) -> str | None:
+    bad = [i for i in range(3) if shape[i] > 1
+           and (stride[i] <= 0 or stride[i] % 8)]
+    if stride[3] != 1 or bad or off % 16:
+        return (f"{name} needs unit stride on D, a 16-byte aligned base "
+                f"and positive strides that are multiples of 8, got "
+                f"strides {tuple(stride)} at byte offset {off} mod 16")
+    return None
+
+
+def flash_layout_error(shapes, strides, byte_offsets) -> str | None:
+    """Why the kernel's TMA maps cannot take q, k and v as they are, or
+    None.
+
+    shapes and strides: the three [B, L|S, N, D] shapes and element
+    strides of q, k and v; byte_offsets: each base pointer modulo 16.  The
+    kernel reads D in (64, 128) with unit stride, and a TMA map needs a
+    16-byte aligned base and byte strides that are multiples of 16
+    (element strides that are multiples of 8) on every dimension of more
+    than one element.  `flash_relayout` says what the wrapper copies so
+    that they do."""
+    err = _flash_shape_error(shapes)
+    if err:
+        return err
+    d = tuple(shapes[0])[3]
+    if d not in FLASH_HEAD_DIMS:
+        return f"the kernel takes D in {FLASH_HEAD_DIMS}, got {d}"
+    for name, shape, stride, off in zip("qkv", shapes, strides,
+                                        byte_offsets):
+        err = _tma_error(name, tuple(shape), tuple(stride), off)
+        if err:
+            return err
+    return None
+
+
+def flash_relayout(shapes, strides, byte_offsets):
+    """What the wrapper does to q, k and v before a launch, as the JAX
+    package's `_flash_attention` pads and relayouts them: (d_to, copies).
+    d_to is the head dim the kernel runs, D zero-padded up to 64 or 128
+    (zero columns add nothing to q.k, and the padded columns of the output
+    are cut off; the scale stays the caller's); copies says, for q, k and v,
+    which is copied into a fresh contiguous [B, L, N, d_to] buffer (all
+    three when D pads, else those whose layout breaks the TMA rule of
+    `flash_layout_error`).  Raises a ValueError for what no copy mends:
+    mismatched or empty shapes, B or N above 65535, and D above 128, which
+    no instantiation of the kernel takes."""
+    err = _flash_shape_error(shapes)
+    if err:
+        raise ValueError(f"flash_attention: {err}")
+    d = tuple(shapes[0])[3]
+    if d > FLASH_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"flash_attention: D={d}: the kernel takes D <= "
+            f"{FLASH_HEAD_DIMS[-1]} (ROADMAP Queue 2: flash attention at "
+            "head dims above 128)")
+    d_to = next(x for x in FLASH_HEAD_DIMS if x >= d)
+    if d_to != d:
+        return d_to, (True, True, True)
+    return d, tuple(_tma_error(name, tuple(shape), tuple(stride), off)
+                    is not None for name, shape, stride, off in zip(
+                        "qkv", shapes, strides, byte_offsets))
+
+
+def _relaid(t, d_to: int):
+    """t in a fresh contiguous (hence aligned) buffer, D zero-padded to
+    d_to."""
+    d = t.shape[3]
+    out = (torch.empty_like(t, memory_format=torch.contiguous_format)
+           if d_to == d else t.new_zeros(t.shape[:3] + (d_to,)))
+    out[..., :d] = t
+    return out
 
 
 def _tma_strides(t) -> list:
@@ -121,7 +182,7 @@ def _tma_strides(t) -> list:
                                                       t.stride()[:3])]
 
 
-def _check_flash_inputs(q, k, v):
+def _check_flash_devices(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention: q, k and v must all be CUDA "
                          "tensors")
@@ -130,9 +191,18 @@ def _check_flash_inputs(q, k, v):
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    err = flash_layout_error([t.shape for t in (q, k, v)],
-                             [t.stride() for t in (q, k, v)],
-                             [t.data_ptr() % 16 for t in (q, k, v)])
+
+
+def _layouts(q, k, v):
+    return ([t.shape for t in (q, k, v)], [t.stride() for t in (q, k, v)],
+            [t.data_ptr() % 16 for t in (q, k, v)])
+
+
+def _check_flash_inputs(q, k, v):
+    """The table kernels' inputs (csrc/sparse_flash.cu): taken as they are,
+    or refused."""
+    _check_flash_devices(q, k, v)
+    err = flash_layout_error(*_layouts(q, k, v))
     if err:
         raise ValueError(f"flash_attention: {err}")
 
@@ -159,13 +229,19 @@ def flash_attention(q, k, v, scale: float, kv_mask=None):
     optional [B, S] key-validity mask (> 0 = valid; bool, int or float).
 
     CPU tensors run `flash_attention_ref`; CUDA tensors launch the kernel
-    (bf16, D in {64, 128}, any L and S; with a mask, its masked variant)
-    or raise."""
-    global launches, kvmask_launches
+    (bf16, any L and S, D up to 128; with a mask, its masked variant), on
+    copies of q, k and v where `flash_relayout` says so, or raise."""
+    global launches, kvmask_launches, flash_pad_launches
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, kv_mask)
-    _check_flash_inputs(q, k, v)
-    b, l, n, d = q.shape
+    _check_flash_devices(q, k, v)
+    d_to, copies = flash_relayout(*_layouts(q, k, v))
+    d = q.shape[3]
+    relaid = any(copies)
+    if relaid:
+        q, k, v = (_relaid(t, d_to) if c else t
+                   for t, c in zip((q, k, v), copies))
+    b, l, n, _ = q.shape
     s_len = k.shape[1]
     if kv_mask is not None and (tuple(kv_mask.shape) != (b, s_len)
                                 or kv_mask.device != q.device):
@@ -181,16 +257,21 @@ def flash_attention(q, k, v, scale: float, kv_mask=None):
     if kv_mask is None:
         _cuda.check(lib.wg_flash_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l,
-            s_len, n, d, strides, scale_q, _cuda.stream_handle(q)),
+            s_len, n, d_to, strides, scale_q, _cuda.stream_handle(q)),
             "flash_attention launch")
         launches += 1
-        return o
-    mask = kernel_kv_mask(kv_mask, s_len)
-    _cuda.check(lib.wg_flash_attention_kvmask_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        o.data_ptr(), b, l, s_len, n, d, strides, mask.stride(0), scale_q,
-        _cuda.stream_handle(q)), "flash_attention (kv-masked) launch")
-    kvmask_launches += 1
+    else:
+        mask = kernel_kv_mask(kv_mask, s_len)
+        _cuda.check(lib.wg_flash_attention_kvmask_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            o.data_ptr(), b, l, s_len, n, d_to, strides, mask.stride(0),
+            scale_q, _cuda.stream_handle(q)),
+            "flash_attention (kv-masked) launch")
+        kvmask_launches += 1
+    if relaid:
+        flash_pad_launches += 1
+        if d_to != d:
+            o = o[..., :d].contiguous()
     return o
 
 

@@ -5,6 +5,8 @@ Usage:
   python -m wan2gp_tpu_torch --checkpoints-dir ckpts --process settings.json
   python -m wan2gp_tpu_torch --model krea2_raw --prompt "a cat" \
       --random-weights --resolution 1024x1024 --steps 28
+  python -m wan2gp_tpu_torch --model flux_schnell --prompt "a cat" \
+      --random-weights --quantize int8
   python -m wan2gp_tpu_torch --process queue.json
   python -m wan2gp_tpu_torch --list-models
 
@@ -32,11 +34,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--list-models", action="store_true")
     p.add_argument("--model", default=None,
                    help="model type for one-shot (t2v_1.3B, t2v, krea2_raw, "
-                        "krea2_turbo; see --list-models)")
+                        "krea2_turbo, flux_schnell, flux_dev; see "
+                        "--list-models)")
     p.add_argument("--prompt", default=None)
     p.add_argument("--negative-prompt", default="")
     p.add_argument("--resolution", default=None,
-                   help="e.g. 832x480 (Wan) or 1024x1024 (Krea 2)")
+                   help="e.g. 832x480 (Wan), 1024x1024 (Krea 2) or "
+                        "1280x720 (Flux)")
     p.add_argument("--frames", type=int, default=None)
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--guidance-scale", type=float, default=None)
@@ -52,9 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "swa:<window_blocks>[:<sink_blocks>]")
     p.add_argument("--quantize", default="",
                    choices=["", "int8", "int4", "int8a8", "int4a8"],
-                   help="quantize the Wan transformer's linears on load: "
+                   help="quantize the transformer's block linears on load: "
                         "int8 or int4 weights; int8a8 / int4a8 also run "
-                        "int8 activations (Krea 2 takes none of them)")
+                        "int8 activations (Wan; Flux takes int8 and int4, "
+                        "Krea 2 none of them)")
     p.add_argument("--random-weights", action="store_true",
                    help="run with randomly initialized weights")
     p.add_argument("--checkpoints-dir", default="ckpts",

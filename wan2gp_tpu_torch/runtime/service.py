@@ -101,10 +101,12 @@ class GenerationService:
                 model_def = self.registry.get(model_type)
             handler = self.registry.handler_for(model_type)
             base = self.registry.base_model_type(model_type)
-            if self.quantize and not getattr(handler, "quantizable", True):
+            modes = getattr(handler, "quantize_modes", None)
+            if self.quantize and modes is not None \
+                    and self.quantize not in modes:
                 raise ValueError(
                     f"quantize={self.quantize!r} is not supported for "
-                    f"{model_type}: its linears read float weights only")
+                    f"{model_type}: {handler.quantize_refusal}")
             ckpts = None
             if not self.init_random_weights:
                 if self.checkpoints_resolver is None:
