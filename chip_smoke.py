@@ -43,7 +43,9 @@ the repository).  Phases, each printing one JSON line:
             (k, v rows 132 elements apart; q 8 bytes off), each counted as
             a padded launch.  The fp32 W8 and W4 GEMVs (csrc/wo_gemv.cu):
             relative Frobenius error <= 1e-5 (only the sum order differs)
-            at (K)'s modulation shapes and at M = 2, 3 with N = 1,001.
+            at (K)'s and (L)'s modulation shapes and at M = 2, 3 with
+            N = 1,001.  Dense flash also at HunyuanVideo 1.5's 16 heads
+            over a ragged L = S = 1,000.
             The Wan2.2 VAE decode at full width (random
             weights) against the same decode on the CPU for one small tile
             (2 x 4 x 4 latents): max abs err <= 1e-3.
@@ -59,7 +61,10 @@ the repository).  Phases, each printing one JSON line:
             128 (its masked self-attention and text refiner); a Flux
             forward at full width with 2 double and 2 single blocks in
             bf16, int8 and int4 (4 flash; 20 W8 or W4 and 6 fp32 GEMV
-            launches): max abs err <= 3e-2 * max|ref|.
+            launches); a HunyuanVideo 1.5 forward at full width with 2
+            double blocks at batch 2, one item's text masks all zero, in
+            bf16 and int8 (2 flash; 24 W8 and 6 fp32 GEMV launches): max
+            abs err <= 3e-2 * max|ref|.
 4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
             the kernel's output there is held to the plain version in fp32
@@ -93,8 +98,11 @@ the repository).  Phases, each printing one JSON line:
             linear shape, M = 3,600 image, 256 text and 3,856 single-block
             tokens; the fp32 W8 and W4 GEMVs at M = 1, K = 3072, N = 18,432
             and 9,216, each launch on another of four weights so that the
-            weight is cold in L2, beside torch.matmul on the fp32 weight),
-            each with its launches per forward.
+            weight is cold in L2, beside torch.matmul on the fp32 weight)
+            and (L)'s (the joint attention at B2 L = S = 10,262, 16 heads;
+            W8 at the image stream's four linears, M = 19,500, and the text
+            stream's qkv, M = 1,024; the fp32 W8 GEMV at M = 2, K = 2048,
+            N = 12,288), each with its launches per forward.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
@@ -163,19 +171,38 @@ the repository).  Phases, each printing one JSON line:
                 write, read, quantize, wav2vec2, encode, step, decode and
                 request seconds and the load, encode, denoise and decode
                 peaks;
-            (K) flux_schnell (Flux.1 schnell 12B: 19 double + 38 single
-                blocks) at the definition's 1280x720 and 10 steps (its file
-                overrides the handler's 4), from files written from random
-                weights (the DiT in bf16 under the definition's first URL,
-                the AE and CLIP-L) and loaded through the resolver (read-back
-                trees equal to the written ones); a full-size random T5
-                v1.1 XXL encodes the prompt's 256 hash ids into the
-                requests' context (t5_s); a bf16 request, the same tree
-                quantized int8 in process and a second request, then a
-                quantize="int4" service loads the file again for 2 steps:
-                57 flash a forward, and 228 W8 + 76 fp32 W8 GEMV (int8) or
-                228 W4 + 76 W4 GEMV (int4), none padded; write, load,
-                quantize, step, decode and request seconds and the peaks.
+            (K) flux_schnell (Flux.1 schnell at full width, K_DOUBLE = 10
+                of its 19 double and K_SINGLE = 19 of its 38 single blocks,
+                so that the files the whole script writes stay under the
+                45 GiB a one-card call may write) at the definition's
+                1280x720 and 10 steps (its file overrides the handler's 4),
+                from files written from random weights (the DiT in bf16
+                under the definition's first URL, the AE and CLIP-L) and
+                loaded through the resolver (read-back trees equal to the
+                written ones); a full-size random T5 v1.1 XXL encodes the
+                prompt's 256 hash ids into the requests' context (t5_s); a
+                bf16 request, the same tree quantized int8 in process and a
+                second request, then a quantize="int4" service loads the
+                file again for 2 steps: 29 flash a forward, and 118 W8 + 39
+                fp32 W8 GEMV (int8) or 118 W4 + 39 W4 GEMV (int4), none
+                padded; write, load, quantize, step, decode and request
+                seconds and the peaks;
+            (L) hunyuan_1_5_480_t2v (HunyuanVideo 1.5, 8.3 B: 54 double
+                blocks, hidden 2048, 16 heads of 128) at the definition's
+                832x480x97 and guidance 6.0 (CFG as batch 2: the empty
+                negative prompt through the same LM), flow_shift 5, 2 Euler
+                steps (the definition: 30), from files written from random
+                weights (the DiT as a quanto-int8 file under the
+                definition's second URL, picked by the resolver for
+                quantization "int8"; the HV1.5 VAE in fp32; byT5-small with
+                a grown vocabulary; CLIP-L; the loaded DiT equal to the
+                written tensors); the LLaMA-3 8B tower random on the card
+                over hash ids; a quoted "OPEN" in the prompt through byT5
+                and the glyph mapper; the video decoded in 15 tiles
+                (asserted): 54 flash, 440 W8 and 110 fp32 W8 GEMV launches
+                a forward, none padded; init, write, load, LM, byT5, CLIP,
+                step, decode and request seconds and the load, denoise and
+                decode peaks.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -214,11 +241,22 @@ VAE22_MAX_ABS = 1e-3            # Wan2.2 VAE decode, card against CPU (fp32)
 # (K): flux_schnell at its definition's 1280x720: 45 x 80 image tokens
 # after schnell's 256 T5 tokens
 K_W, K_H, K_TXT = 1280, 720, 256
+# (K)'s depth, of flux-schnell's 19 double and 38 single blocks: cut so that
+# the files the script writes stay under the 45 GiB a one-card machine lets
+# a call write ((L) adds 14.4 GB)
+K_DOUBLE, K_SINGLE = 10, 19
 K_TOKENS = K_TXT + (K_H // 16) * (K_W // 16)
 # (I): Wan2.2 TI2V 5B at its definition's 121 frames and the Wan2.2
 # generate.py size for ti2v-5B (1280x720 gives 45 latent rows, which the
 # 2x2 patch does not divide): 31 x 44 x 80 latents, 27,280 tokens
 I_FRAMES, I_W, I_H = 121, 1280, 704
+# (L): hunyuan_1_5_480_t2v at its definition's 832x480x97: 25 x 30 x 52
+# latents, 25 x 15 x 26 = 9,750 image tokens after the 2x2 patch, then the
+# LM's 256 and byT5's 256 tokens in the joint sequence; CFG as batch 2
+L_W, L_H, L_FRAMES = 832, 480, 97
+L_IMG = ((L_FRAMES - 1) // 4 + 1) * (L_H // 32) * (L_W // 32)
+L_TXT = 256 + 256
+L_TOKENS = L_IMG + L_TXT
 REPO = os.path.dirname(os.path.abspath(__file__))
 # logs and the (deleted after checking) outputs, beside the built kernels
 OUT = os.path.join(REPO, "wan2gp_tpu_torch", "_build", "chip_smoke")
@@ -409,6 +447,8 @@ def phase_check():
         "image_cross_s257": (2, 1000, 257, 40, 128),
         # the 5B's 24 heads over a ragged L, at its cross-attention's S
         "ti2v_5B_n24_l1000_s512": (2, 1000, 512, 24, 128),
+        # HunyuanVideo 1.5's 16 heads over a ragged joint sequence
+        "hv15_n16_l1000": (2, 1000, 1000, 16, 128),
     }
     flash = {}
     for name, (b, l, s, n, d) in flash_cases.items():
@@ -614,7 +654,8 @@ def _gemv_kernels():
 
 def gemv_checks(gen):
     """The fp32 W8 and W4 GEMVs against their plain versions in fp32: at
-    (K)'s modulation shapes (M = 1, K = 3072, N = 18,432 and 9,216), and at
+    (K)'s modulation shapes (M = 1, K = 3072, N = 18,432 and 9,216), at
+    (L)'s (M = 2, K = 2048, N = 12,288), and at
     M = 2 and 3 with N = 1,001 (not a multiple of the 1,024-column tile,
     nor of the 4 columns a thread loads) and, for W4, K = 1,000 < 2 KH."""
     out = {}
@@ -624,6 +665,8 @@ def gemv_checks(gen):
         for name, (m, k, n) in {"double_mod_1x3072x18432": (1, 3072, 18432),
                                 "single_mod_1x3072x9216": (1, 3072, 9216),
                                 "m2_3072x1001": (2, 3072, 1001),
+                                # (L): HV1.5's modulation at CFG batch 2
+                                "hv15_mod_2x2048x12288": (2, 2048, 12288),
                                 "m3_1000x1001": (3, 1000, 1001)}.items():
             x = torch.randn((m, k), generator=gen, device="cuda")
             wq, sc = qfn(torch.randn((k, n), generator=gen, device="cuda"))
@@ -873,6 +916,7 @@ def phase_dit():
     out["vace_audio"] = dit_vace_audio()
     out["krea2"] = dit_krea2()
     out["flux"] = dit_flux()
+    out["hv15"] = dit_hv15()
     emit("dit", tolerance="max_abs<=3e-2*max|ref|", **out)
 
 
@@ -1081,6 +1125,62 @@ def dit_flux():
                       "2 single blocks, batch 1", **out}
 
 
+def dit_hv15():
+    """A HunyuanVideo 1.5 forward at full width (hidden 2048, 16 heads of
+    128, MLP 8192, the LM's 4096 and byT5's 1472 inputs) with 2 double
+    blocks, card against CPU, in bf16 and with int8 block weights, at batch
+    2 with the second item's text and byT5 masks all zero (the refiner's
+    fully masked rows, as CFG's null side has them): 2 joint attentions,
+    and when quantized 24 W8 launches (8 a block, 8 for the refiner's 2
+    blocks) and 6 fp32 GEMVs (each block's 2 modulations, the refiner's 2
+    adaLN)."""
+    from wan2gp_tpu_torch.families.hyvideo import HunyuanFamilyHandler
+    from wan2gp_tpu_torch.models.hyvideo import dit as hd
+    from wan2gp_tpu_torch.runtime.service import quantize_dit_params
+    cfg = dataclasses.replace(
+        HunyuanFamilyHandler.dit_config("hunyuan_1_5_t2v"),
+        mm_double_blocks_depth=2)
+    rng = np.random.default_rng(4)
+    lat, states, byt5 = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)) for shape in (
+        (2, cfg.in_channels, 2, 8, 8), (2, 16, cfg.text_states_dim),
+        (2, 8, cfg.byt5_in_dim)))
+    mask = torch.tensor([[1] * 10 + [0] * 6, [0] * 16], dtype=torch.int32)
+    bmask = torch.tensor([[1] * 5 + [0] * 3, [0] * 8], dtype=torch.int32)
+    t = torch.tensor([900.0, 900.0])
+    p = hd.init_hunyuan(torch.Generator(device="cuda").manual_seed(5), cfg)
+    out = {}
+    for mode, want in (("bf16", {"flash_attention": 2}),
+                       ("int8", {"flash_attention": 2, "matmul_w8": 24,
+                                 "matmul_w8_gemv": 6})):
+        pm = p if mode == "bf16" else quantize_dit_params(_nodes(p), mode)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            pd = _tree_to(pm, "cpu") if dev == "cpu" else pm
+            before = read_counts()
+            res[dev] = hd.hunyuan_forward(
+                pd, cfg, lat.to(dev), t.to(dev), states.to(dev),
+                mask.to(dev), byt5_states=byt5.to(dev),
+                byt5_mask=bmask.to(dev)).float().cpu()
+            launched = {k: v - before[k] for k, v in read_counts().items()
+                        if v != before[k]}
+            del pd
+        ref_max = res["cpu"].abs().max().item()
+        err = (res["cuda"] - res["cpu"]).abs().max().item()
+        out[mode] = {"tokens": 32 + 16 + 8, "max_abs": err,
+                     "ref_max": ref_max, "launches": launched,
+                     "finite": bool(torch.isfinite(res["cuda"]).all())}
+        if not (out[mode]["finite"] and err <= 3e-2 * ref_max
+                and launched == want):
+            raise AssertionError(f"small HV1.5 forward ({mode}): "
+                                 f"{out[mode]}, want launches {want}")
+        del pm
+    del p
+    torch.cuda.empty_cache()
+    return {"config": "hidden 2048, 16 heads of 128, mlp 8192, 2 double "
+                      "blocks, batch 2 (a fully masked text item)", **out}
+
+
 def _nodes(tree):
     """tree's dicts and lists anew, its tensors shared."""
     if isinstance(tree, dict):
@@ -1095,7 +1195,7 @@ def _tree_to(tree, dev):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tree_to(v, dev) for v in tree]
-    return tree.to(dev)
+    return None if tree is None else tree.to(dev)
 
 
 def time_flash(name, b, l, s, n, d):
@@ -1502,19 +1602,38 @@ J_PER_FORWARD = {"self_14B_480p": 60, "cross_14B_480p": 60,
                  "1024x5120x5120": 2 * 60, "1344x768x10240": 40}
 
 
-# launches per DiT forward of (K) (flux_schnell at 1280x720, batch 1): one
-# joint attention a block (19 double, 38 single); under int8 / int4 the
-# double blocks' qkv, proj, mlp.0, mlp.2 of the image (M = 3,600) and text
-# (M = 256) streams, the single blocks' linear1 and linear2 (M = 3,856),
-# and one fp32 modulation GEMV a stream (K = 3072, N = 18,432 / 9,216)
+# launches per DiT forward of (K) (flux_schnell at 1280x720, batch 1, at
+# K_DOUBLE double and K_SINGLE single blocks): one joint attention a block;
+# under int8 / int4 the double blocks' qkv, proj, mlp.0, mlp.2 of the
+# image (M = 3,600) and text (M = 256) streams, the single blocks' linear1
+# and linear2 (M = 3,856), and one fp32 modulation GEMV a stream (K =
+# 3072, N = 18,432 / 9,216)
 K_IMG = K_TOKENS - K_TXT
-K_PER_FORWARD = {"self_flux_K": 57,
-                 **{f"{m}x{k}x{n}": 19 for m in (K_IMG, K_TXT)
+K_PER_FORWARD = {"self_flux_K": K_DOUBLE + K_SINGLE,
+                 **{f"{m}x{k}x{n}": K_DOUBLE for m in (K_IMG, K_TXT)
                     for k, n in ((3072, 9216), (3072, 3072), (3072, 12288),
                                  (12288, 3072))},
-                 f"{K_TOKENS}x3072x21504": 38,
-                 f"{K_TOKENS}x15360x3072": 38,
-                 "1x3072x18432": 38, "1x3072x9216": 38}
+                 f"{K_TOKENS}x3072x21504": K_SINGLE,
+                 f"{K_TOKENS}x15360x3072": K_SINGLE,
+                 "1x3072x18432": 2 * K_DOUBLE, "1x3072x9216": K_SINGLE}
+# the same by kernel: flash, W8 / W4, the fp32 GEMV
+K_KERNELS = (K_DOUBLE + K_SINGLE, 8 * K_DOUBLE + 2 * K_SINGLE,
+             2 * K_DOUBLE + K_SINGLE)
+
+
+# launches per DiT forward of (L) (HunyuanVideo 1.5 at 832x480x97, int8
+# from its quanto file, CFG batch 2): one joint attention a double block
+# (54); W8 on each stream's qkv, proj, mlp1, mlp2 at the image (M = 19,500)
+# and text (M = 1,024) tokens, and on the refiner's 2 blocks (M = 512);
+# the fp32 W8 GEMV on each stream's modulation (K = 2048, N = 12,288) and
+# the refiner's adaLN (N = 4,096)
+L_LINEARS = ((2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048))
+L_PER_FORWARD = {"self_hv15_L": 54,
+                 **{f"{m}x{k}x{n}": 54 for m in (2 * L_IMG, 2 * L_TXT)
+                    for k, n in L_LINEARS},
+                 **{f"512x{k}x{n}": 2 for k, n in L_LINEARS},
+                 "2x2048x12288": 108, "2x2048x4096": 2}
+L_KERNELS = {"flash_attention": 54, "matmul_w8": 440, "matmul_w8_gemv": 110}
 
 
 def phase_time(tokens: int):
@@ -1614,6 +1733,7 @@ def phase_time(tokens: int):
     gemv = {kernel: {f"1x3072x{n}": time_gemv(kernel, 1, 3072, n)
                      for n in (18432, 9216)}
             for kernel in ("matmul_w8_gemv", "matmul_w4_gemv")}
+    time_l(flash, w8, gemv)
     for table in (flash, w8, *gemv.values()):
         for case, t in table.items():
             if case in K_PER_FORWARD:
@@ -1638,6 +1758,25 @@ def phase_time(tokens: int):
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
             "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8,
             "act_quant": aq, **gemv}
+
+
+def time_l(flash, w8, gemv):
+    """(L)'s rows: the joint attention at B2 L = S = 10,262 over 16 heads,
+    W8 at the image stream's four linears (M = 19,500) and the text
+    stream's qkv (M = 1,024), the fp32 W8 GEMV at the modulation (M = 2),
+    each with its launches per (L) forward."""
+    flash["self_hv15_L"] = time_flash("self_hv15_L", 2, L_TOKENS, L_TOKENS,
+                                      16, 128)
+    for m, k, n in ((2 * L_IMG, *L_LINEARS[0]), (2 * L_IMG, *L_LINEARS[1]),
+                    (2 * L_IMG, *L_LINEARS[2]), (2 * L_IMG, *L_LINEARS[3]),
+                    (2 * L_TXT, *L_LINEARS[0])):
+        w8[f"{m}x{k}x{n}"] = time_w8(f"{m}x{k}x{n}", m, k, n)
+    gemv["matmul_w8_gemv"]["2x2048x12288"] = time_gemv("matmul_w8_gemv", 2,
+                                                       2048, 12288)
+    for table in (flash, w8, gemv["matmul_w8_gemv"]):
+        for case, t in table.items():
+            if case in L_PER_FORWARD:
+                t["launches_per_forward_L"] = L_PER_FORWARD[case]
 
 
 # the denoise steps of (C): the fewest at which a TeaCache plan for 1.75x
@@ -1866,7 +2005,8 @@ def run_k(out_dir, timed, split, seen):
         ("transformer", "flux1-schnell_bf16.safetensors"),
         ("vae", "flux_vae.safetensors"),
         ("clip", "clip_vit_large_patch14.safetensors"))}
-    cfg = handler.dit_config("flux_schnell")
+    cfg = dataclasses.replace(handler.dit_config("flux_schnell"),
+                              depth=K_DOUBLE, depth_single_blocks=K_SINGLE)
     gen = torch.Generator(device="cuda").manual_seed(22)
     t0 = time.perf_counter()
     params = fdit.init_flux(gen, cfg)
@@ -1896,6 +2036,10 @@ def run_k(out_dir, timed, split, seen):
         [ckdir], roles=("transformer", "vae", "clip"))
     svc = svc_mod.GenerationService(checkpoints_resolver=resolver,
                                     output_dir=out_dir)
+    # the service's loads read the file at (K)'s depth
+    arch = ffam._ARCH["flux_schnell"]
+    ffam._ARCH["flux_schnell"] = {**arch, "depth": K_DOUBLE,
+                                  "depth_single_blocks": K_SINGLE}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pipe = svc.get_pipeline("flux_schnell")
@@ -1956,17 +2100,18 @@ def run_k(out_dir, timed, split, seen):
     fpipe.flux_denoise = timed("denoise", real_denoise)
     fpipe.flux_vae_decode = timed("decode", real_decode)
     launches = {}
+    n_flash, n_mm, n_gemv = K_KERNELS
     try:
         pipe.clip_encode_fn = timed("clip", pipe.clip_encode_fn)
-        out["bf16"] = request("bf16", {"flash_attention": 57}, steps, 5)
+        out["bf16"] = request("bf16", {"flash_attention": n_flash}, steps, 5)
         t0 = time.perf_counter()
         pipe.dit_params = svc_mod.quantize_dit_params(pipe.dit_params,
                                                       "int8")
         torch.cuda.synchronize()
         out["quantize_s"] = time.perf_counter() - t0
-        out["int8"] = request("int8", {"flash_attention": 57,
-                                       "matmul_w8": 228,
-                                       "matmul_w8_gemv": 76}, steps, 5)
+        out["int8"] = request("int8", {"flash_attention": n_flash,
+                                       "matmul_w8": n_mm,
+                                       "matmul_w8_gemv": n_gemv}, steps, 5)
         svc.release_model()
         del pipe
         torch.cuda.empty_cache()
@@ -1979,11 +2124,12 @@ def run_k(out_dir, timed, split, seen):
         torch.cuda.synchronize()
         out["int4_load_s"] = time.perf_counter() - t0
         out["int4_load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["int4"] = request("int4", {"flash_attention": 57,
-                                       "matmul_w4": 228,
-                                       "matmul_w4_gemv": 76}, STEPS, 6)
+        out["int4"] = request("int4", {"flash_attention": n_flash,
+                                       "matmul_w4": n_mm,
+                                       "matmul_w4_gemv": n_gemv}, STEPS, 6)
     finally:
         fpipe.flux_denoise, fpipe.flux_vae_decode = real_denoise, real_decode
+        ffam._ARCH["flux_schnell"] = arch
     for mode in ("bf16", "int8", "int4"):
         for k, v in out[mode]["launches"].items():
             launches[k] = launches.get(k, 0) + v
@@ -1994,6 +2140,196 @@ def run_k(out_dir, timed, split, seen):
     return {"label": "(K) flux_schnell 1280x720 from its files: bf16, int8 "
                      "in process, int4 on load",
             "tokens": K_TOKENS, "launches": launches, **out}
+
+
+# a prompt long enough that the LM keeps tokens after the video template's
+# 95-token prefix (the hash tokenizer splits on whitespace), with a quoted
+# text for byT5 and the glyph mapper
+L_PROMPT = (
+    'A small bakery on a rainy street at dusk, a shop sign that says "OPEN" '
+    "glowing in warm neon above the door, people with umbrellas walking "
+    "past, reflections shimmering on wet cobblestones, a cat sleeping on "
+    "the windowsill, steam rising from fresh bread in the window, the "
+    "camera slowly pushing in toward the sign, soft cinematic lighting, "
+    "shallow depth of field, gentle film grain and a calm quiet mood")
+# byT5-small's 384 rows grown by Glyph-SDXL-v2's color and font tokens (a
+# stand-in size, not the released table's)
+L_BYT5_VOCAB = 1510
+
+
+def run_l(out_dir, timed, split, seen):
+    """(L): hunyuan_1_5_480_t2v (HunyuanVideo 1.5, 54 double blocks, hidden
+    2048, 8.3 B parameters) at its definition's 832x480x97 from files.
+    Random weights are written under the reference key names: the DiT as
+    a quanto-int8 file named as the definition's second URL (the resolver
+    picks it for quantization "int8"), the HV1.5 VAE (fp32), byT5-small
+    with a grown vocabulary and CLIP-L (the loaded DiT tree equal to the
+    written tensors).  The LLaMA-3 8B tower is random on the card and reads
+    hash ids (no tokenizer files).  One request through the service at the
+    definition's guidance 6.0 (CFG as batch 2; the empty negative prompt
+    through the same LM) and flow_shift 5, STEPS Euler steps, the prompt's
+    quoted "OPEN" through byT5, the video decoded in 15 tiles (asserted).
+    Launches asserted: 54 flash, 440 W8 and 110 fp32 W8 GEMVs a forward,
+    none padded."""
+    from wan2gp_tpu_torch.families import hyvideo as hfam
+    from wan2gp_tpu_torch.io import hyvideo_dit_checkpoint as hck
+    from wan2gp_tpu_torch.io.downloads import make_checkpoints_resolver
+    from wan2gp_tpu_torch.io.flux_checkpoint import clip_text_state_dict
+    from wan2gp_tpu_torch.io.safetensors_reader import save_safetensors
+    from wan2gp_tpu_torch.io.wan_checkpoint import hf_t5_state_dict
+    from wan2gp_tpu_torch.models.flux import clip as fclip
+    from wan2gp_tpu_torch.models.hyvideo import dit as hdit
+    from wan2gp_tpu_torch.models.hyvideo import glyph
+    from wan2gp_tpu_torch.models.hyvideo import pipeline as hpipe
+    from wan2gp_tpu_torch.models.hyvideo import vae15
+    from wan2gp_tpu_torch.models.qwen import text_encoder as lm
+    from wan2gp_tpu_torch.models.wan import t5
+    from wan2gp_tpu_torch.runtime import service as svc_mod
+    from wan2gp_tpu_torch.utils.tokenizer import HashTokenizer
+    handler = hfam.HunyuanFamilyHandler
+    model_type = "hunyuan_1_5_480_t2v"
+    out = {}
+    ckdir = os.path.join(OUT, "ckpts")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    model_def = svc_mod.GenerationService(
+        init_random_weights=True).registry.get(model_type)
+    dit_name = "hunyuan_video_1.5_480_quanto_bf16_int8.safetensors"
+    if not model_def["URLs"][1].endswith("/" + dit_name):
+        raise AssertionError(f"(L): the definition's URLs {model_def}")
+    specs = {f["role"]: f for f in handler.query_model_files(
+        "hunyuan_1_5_t2v", model_def)}
+    paths = {"transformer": os.path.join(ckdir, dit_name)}
+    for role in ("vae", "byt5", "clip"):
+        spec = specs[role]
+        os.makedirs(os.path.join(ckdir, spec.get("subdir", "")),
+                    exist_ok=True)
+        paths[role] = os.path.join(ckdir, spec.get("subdir", ""),
+                                   os.path.basename(spec["urls"][0]))
+    cfg = handler.dit_config("hunyuan_1_5_t2v")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    t0 = time.perf_counter()
+    params = hdit.init_hunyuan(gen, cfg)
+    vcfg = vae15.Hunyuan15VAEConfig()
+    gen.manual_seed(32)
+    vp = vae15.init_hunyuan15_vae(gen, vcfg)
+    bcfg = dataclasses.replace(glyph.BYT5_SMALL, vocab_size=L_BYT5_VOCAB)
+    gen.manual_seed(33)
+    bp = t5.init_t5_encoder(gen, bcfg)
+    ccfg = fclip.ClipTextConfig()
+    gen.manual_seed(34)
+    cp = fclip.init_clip_text(gen, ccfg)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["dit_params"] = sum(v.numel() for v in _leaves(params))
+    out["vae_params"] = sum(v.numel() for v in _leaves(vp))
+    t0 = time.perf_counter()
+    sd = hck.hunyuan_dit_state_dict(params, cfg, quanto=True)
+    del params
+    save_safetensors(paths["transformer"], sd)
+    save_safetensors(paths["vae"], vae15.hunyuan15_vae_state_dict(vp))
+    save_safetensors(paths["byt5"], hf_t5_state_dict(bp, bcfg))
+    save_safetensors(paths["clip"], clip_text_state_dict(cp, ccfg))
+    out["write_s"] = time.perf_counter() - t0
+    out["files_bytes"] = {os.path.basename(p): os.path.getsize(p)
+                          for p in paths.values()}
+    del vp, bp, cp
+    torch.cuda.empty_cache()
+    resolver = make_checkpoints_resolver(
+        [ckdir], quantization="int8",
+        roles=("transformer", "vae", "byt5", "clip"))
+    svc = svc_mod.GenerationService(checkpoints_resolver=resolver,
+                                    output_dir=out_dir)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = svc.get_pipeline(model_type)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the loaded DiT, exported again, is the written file's tensors
+    again = hck.hunyuan_dit_state_dict(pipe.dit_params, cfg, quanto=True)
+    if sorted(again) != sorted(sd):
+        raise AssertionError(f"(L) dit: keys {sorted(set(again) ^ set(sd))}")
+    for k, v in sd.items():
+        if not torch.equal(again[k], v):
+            raise AssertionError(f"(L) dit {k}: not the written tensor")
+    out["tensors_equal"] = len(sd)
+    del sd, again
+    torch.cuda.empty_cache()
+    # the LLaMA-3 8B tower, random on the card, over hash ids
+    lcfg = lm.QwenLMConfig(**hfam.LM_ARCH)
+    t0 = time.perf_counter()
+    lp = lm.init_qwen_lm(torch.Generator(device="cuda").manual_seed(35),
+                         lcfg)
+    torch.cuda.synchronize()
+    out["lm_init_s"] = time.perf_counter() - t0
+    out["lm_params"] = sum(v.numel() for v in _leaves(lp))
+    valid = []
+    encode = handler.text_encoder(lp, lcfg, HashTokenizer(lcfg.vocab_size),
+                                  timed("clip", pipe.clip_encode_fn))
+
+    def text_fn(prompts):
+        states, mask, pooled = encode(prompts)
+        valid.append(mask.sum(1).tolist())
+        return states, mask, pooled
+    pipe.text_encode_fn = timed("text", text_fn)
+    pipe.byt5_encode_fn = timed("byt5", pipe.byt5_encode_fn)
+    pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
+    tiles = []
+    real_tile, real_denoise = vae15.hunyuan15_vae_decode, hpipe.hunyuan_denoise
+
+    def tile(p_, c_, z):
+        tiles.append(list(z.shape[2:]))
+        return real_tile(p_, c_, z)
+    vae15.hunyuan15_vae_decode = tile
+    hpipe.hunyuan_denoise = timed("denoise", real_denoise)
+    try:
+        reset_counts()
+        reset_pads()
+        seen.clear()
+        split.clear()
+        t0 = time.perf_counter()
+        got = svc.generate({"model_type": model_type, "prompt": L_PROMPT,
+                            "negative_prompt": "", "seed": 7,
+                            "num_inference_steps": STEPS})
+        req_s = time.perf_counter() - t0
+    finally:
+        vae15.hunyuan15_vae_decode = real_tile
+        hpipe.hunyuan_denoise = real_denoise
+    merged = svc.registry.default_settings(model_type)
+    ok = (len(got) == 1 and got[0].endswith(".avi") and seen
+          and seen[0]["finite"]
+          and seen[0]["shape"] == [L_FRAMES, L_H, L_W, 3]
+          and len(tiles) == 15 and valid and valid[0][0] > 0
+          and valid[0][1] == 0)
+    if not ok:
+        raise AssertionError(f"(L): {got} {seen} tiles {tiles} valid LM "
+                             f"tokens {valid}")
+    counts = read_counts()
+    want = {k: L_KERNELS.get(k, 0) * STEPS for k in counts}
+    if counts != want or read_pads():
+        raise AssertionError(f"(L): launches {counts}, want {want}, padded "
+                             f"{read_pads()}")
+    out["request"] = {
+        "steps": STEPS, "request_s": req_s, **split,
+        "lm_s": split["text_s"] - split.get("clip_s", 0.0),
+        "step_s": split["denoise_s"] / STEPS, "decode_tiles": len(tiles),
+        "tile_latents": tiles[0], "lm_valid_tokens": valid[0],
+        "byt5_tokens": len('Text "OPEN". '.encode()) + 1,
+        "video_bytes": os.path.getsize(got[0])}
+    os.remove(got[0])
+    svc.release_model()
+    del svc, pipe, lp, encode
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"label": "(L) hunyuan_1_5_480_t2v 832x480x97 from its files, "
+                     "int8 (quanto file), guidance 6",
+            "resolution": f"{L_W}x{L_H}", "frames": L_FRAMES,
+            "guidance_scale": merged["guidance_scale"],
+            "flow_shift": merged["flow_shift"],
+            "definition_steps": merged["num_inference_steps"],
+            "tokens": L_TOKENS, "launches": counts,
+            "launches_per_forward": dict(L_KERNELS), "padded_launches": 0,
+            **out}
 
 
 def phase_service(frames: int):
@@ -2810,6 +3146,7 @@ def phase_service(frames: int):
         results["5B_ti2v_I"] = run_i()
         results["14B_vace_multitalk_J"] = run_j()
         results["flux_schnell_K"] = run_k(out_dir, timed, split, seen)
+        results["hv15_t2v_L"] = run_l(out_dir, timed, split, seen)
     finally:
         media.save_video, media.save_image = real_save, real_save_image
         pipe_mod.wan_dit_forward = real_forward
@@ -2857,7 +3194,10 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    else:
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
         yield tree
 
 

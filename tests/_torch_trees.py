@@ -16,6 +16,8 @@ def to_jax(tree, key=None):
         return {k: to_jax(v, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_jax(v) for v in tree)
+    if tree is None:
+        return None
     t = tree.detach().cpu()
     if key == "w" and t.ndim == 5:
         t = t.permute(2, 3, 4, 1, 0)

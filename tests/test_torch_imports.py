@@ -36,6 +36,14 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.models.flux.vae",
     "wan2gp_tpu_torch.models.flux.clip",
     "wan2gp_tpu_torch.io.flux_checkpoint",
+    "wan2gp_tpu_torch.families.hyvideo",
+    "wan2gp_tpu_torch.models.hyvideo.dit",
+    "wan2gp_tpu_torch.models.hyvideo.glyph",
+    "wan2gp_tpu_torch.models.hyvideo.pipeline",
+    "wan2gp_tpu_torch.models.hyvideo.vae",
+    "wan2gp_tpu_torch.models.hyvideo.vae15",
+    "wan2gp_tpu_torch.models.qwen.text_encoder",
+    "wan2gp_tpu_torch.io.hyvideo_dit_checkpoint",
     "wan2gp_tpu_torch.models.krea2.dit",
     "wan2gp_tpu_torch.models.krea2.pipeline",
     "wan2gp_tpu_torch.models.flux.dit",
@@ -123,6 +131,15 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
                                                           tmp_path):
     from wan2gp_tpu_torch import resolve_device
     from wan2gp_tpu_torch.families.flux import FluxFamilyHandler
+    from wan2gp_tpu_torch.families.hyvideo import HunyuanFamilyHandler
+    from wan2gp_tpu_torch.io.hyvideo_dit_checkpoint import \
+        load_hunyuan_dit_params
+    from wan2gp_tpu_torch.models.hyvideo.dit import HunyuanConfig
+    from wan2gp_tpu_torch.models.hyvideo.pipeline import HunyuanPipeline
+    from wan2gp_tpu_torch.models.hyvideo.vae15 import \
+        load_hunyuan15_vae_params
+    from wan2gp_tpu_torch.models.qwen.text_encoder import (
+        QwenLMConfig, load_qwen_lm_params)
     from wan2gp_tpu_torch.families.krea2 import Krea2FamilyHandler
     from wan2gp_tpu_torch.families.wan import WanFamilyHandler
     from wan2gp_tpu_torch.io.wan_checkpoint import (load_wan_vae_params,
@@ -166,6 +183,14 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
         "load_flux_vae_params": lambda: load_flux_vae_params({}, None),
         "load_wan_vae_params": lambda: load_wan_vae_params({}, None),
         "load_wan22_vae_params": lambda: load_wan22_vae_params({}, None),
+        "HunyuanPipeline": lambda: HunyuanPipeline({}, HunyuanConfig()),
+        "hunyuan load_model": lambda: HunyuanFamilyHandler.load_model(
+            "hunyuan_1_5_t2v", {}, init_random=True),
+        "load_hunyuan_dit_params": lambda: load_hunyuan_dit_params(
+            {}, HunyuanConfig()),
+        "load_hunyuan15_vae_params": lambda: load_hunyuan15_vae_params({}),
+        "load_qwen_lm_params": lambda: load_qwen_lm_params(
+            {}, QwenLMConfig()),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

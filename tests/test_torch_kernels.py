@@ -60,7 +60,8 @@ def _flash_matches_plain(q, k, v):
     (2, 333, 77, 3, 128),       # S < 128, L not a multiple of 128
     (1, 129, 513, 2, 128),      # one row past a q tile, one key past 4 tiles
     (3, 64, 700, 2, 64),        # 64-row instantiation over 6 kv tiles
-    (64, 12, 12, 20, 128)])     # Krea 2's layer-wise text blocks
+    (64, 12, 12, 20, 128),      # Krea 2's layer-wise text blocks
+    (2, 1000, 1000, 16, 128)])  # HunyuanVideo 1.5: 16 heads, ragged L = S
 def test_flash_kernel_matches_plain(gen, b, l, s, n, d):
     _flash_matches_plain(_randn((b, l, n, d), gen), _randn((b, s, n, d), gen),
                          _randn((b, s, n, d), gen))
@@ -466,7 +467,10 @@ def test_weight_only_kernels_at_main_path_widths(gen, kernel, m, k, n):
     ("w4", 1, 3072, 9216),
     ("w8", 2, 3072, 1001),          # N % 4 != 0: the scalar weight loads
     ("w4", 3, 1000, 1001),          # K < 2 KH: x's high half is short
-    ("w8", 16, 256, 384)])          # the largest M it takes
+    ("w8", 16, 256, 384),           # the largest M it takes
+    ("w8", 2, 2048, 12288),         # HV1.5 double block modulation (CFG)
+    ("w8", 2, 2048, 4096),          # HV1.5 refiner adaLN
+    ("w4", 2, 2048, 12288)])
 def test_fp32_gemv_kernels_match_plain(gen, kernel, m, k, n):
     """fp32 x at small M through csrc/wo_gemv.cu: relative Frobenius error
     <= 1e-5 against the plain version in fp32 (only the summation order

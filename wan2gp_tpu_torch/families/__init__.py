@@ -1,9 +1,11 @@
-"""Family handlers of the port: Wan, Krea 2 and Flux."""
+"""Family handlers of the port: Wan, Krea 2, Flux and HunyuanVideo."""
 from .flux import FluxFamilyHandler
+from .hyvideo import HunyuanFamilyHandler
 from .krea2 import Krea2FamilyHandler
 from .wan import WanFamilyHandler
 
-_HANDLER_CLASSES = (WanFamilyHandler, Krea2FamilyHandler, FluxFamilyHandler)
+_HANDLER_CLASSES = (WanFamilyHandler, Krea2FamilyHandler, FluxFamilyHandler,
+                    HunyuanFamilyHandler)
 
 
 def build_handler_map():

@@ -219,10 +219,8 @@ class FluxFamilyHandler:
 def _tokenizer(path, vocab_size: int):
     """The tokenizer of the files in `path`, or the hash stand-in over
     `vocab_size` ids."""
-    from ..utils.tokenizer import HashTokenizer, load_tokenizer
-    tok = load_tokenizer(path)
-    return HashTokenizer(vocab_size) if isinstance(tok, HashTokenizer) \
-        else tok
+    from ..utils.tokenizer import load_tokenizer
+    return load_tokenizer(path, vocab_size=vocab_size)
 
 
 def random_text_encoders(dit_cfg: FluxConfig, seed: int, device):

@@ -425,7 +425,8 @@ def _check_grid(pipe, width: int, height: int):
         f"{width}x{height} gives a latent grid of {height // sh}x"
         f"{width // sw} cells, which the DiT's {ph}x{pw} patch does not "
         f"divide; the nearest size that it does is "
-        f"{nearest(width, sw * pw)}x{nearest(height, sh * ph)}")
+        f"{nearest(width, sw * pw)}x{nearest(height, sh * ph)} (ROADMAP "
+        f"Queue 3: the JAX package's patchify fails on it)")
 
 
 def umt5_tokenizer(text_encoder_path: str):

@@ -1,9 +1,10 @@
 """GenerationService: settings dict -> video or image files.
 
 Counterpart of wan2gp_tpu/runtime/service.py for the Wan t2v/i2v, VACE and
-Multitalk and the Krea 2 text-to-image paths: model resolution and a
-pipeline cache, settings merge, resolution alignment, family dispatch
-(models whose definition has `image_outputs` go through the handler's
+Multitalk, HunyuanVideo 1.5 t2v, and the Krea 2 and Flux text-to-image
+paths: model resolution and a pipeline cache, settings merge, resolution
+alignment, family dispatch (models whose definition has `image_outputs` go
+through the handler's
 `generate_image` and are saved as PNG) and saving with embedded settings
 (and a handler's `audio` as the AVI's PCM16 stream).  Settings keys follow
 the reference task format (prompt, negative_prompt, resolution "WxH",
@@ -35,9 +36,12 @@ from ..utils import media
 
 
 def quantize_dit_params(params, mode: str):
-    """Quantize transformer-block linears on load: every stacked
-    {"w": [L, K, N]} under a *blocks* subtree with K, N >= 256 becomes
-    {"w_q"|"w_q4", "scale"}; embeddings, norms and modulation stay float.
+    """Quantize transformer-block linears on load: every {"w": [L, K, N]}
+    under a *blocks* path with K, N >= 256 becomes {"w_q"|"w_q4",
+    "scale"}, the blocks' modulation linears among them (Flux's and
+    HunyuanVideo's `mod`, HunyuanVideo's refiner `ada`: fp32 products at
+    M = batch, which take the fp32 GEMV kernel); the embedders, the patch
+    embedding, the final layer and the norms stay float.
     Modes: "int8" (or "quanto_int8"), "int4", and "int8a8" / "int4a8",
     which store the weights as "int8" / "int4" do; their int8 activations
     are the DiT config's `act_quant` (see `activation_mode`), never a

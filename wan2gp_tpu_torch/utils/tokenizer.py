@@ -77,11 +77,15 @@ class HashTokenizer:
         return ids, mask
 
 
-def load_tokenizer(path: Optional[str] = None, clean: str = "whitespace"):
-    """HFTokenizer for a local tokenizer dir, else the hash stand-in."""
+def load_tokenizer(path: Optional[str] = None, clean: str = "whitespace",
+                   vocab_size: int = 256384):
+    """HFTokenizer for a local tokenizer dir, else the hash stand-in over
+    the encoder's own vocabulary (UMT5 256,384 by default; T5 v1.1 32,128,
+    CLIP 49,408, LLaMA-3 128,320): ids past an embedding table would fault
+    on the card."""
     if path:
         try:
             return HFTokenizer(path, clean)
         except (ImportError, OSError, ValueError):
             pass
-    return HashTokenizer()
+    return HashTokenizer(vocab_size)
