@@ -45,7 +45,11 @@ the repository).  Phases, each printing one JSON line:
             relative Frobenius error <= 1e-5 (only the sum order differs)
             at (K)'s and (L)'s modulation shapes and at M = 2, 3 with
             N = 1,001.  Dense flash also at HunyuanVideo 1.5's 16 heads
-            over a ragged L = S = 1,000.
+            over a ragged L = S = 1,000, and at (M)'s a2v / v2a shapes
+            (27,280 x 251 and 251 x 27,280, 32 heads of 64).  The fp32 W8
+            and W4 tile kernels (csrc/wo_f32_matmul.cu) at M = 17, 31, 251
+            and 1,001, K 256 / 1000 / 2048 / 4096, N ragged: relative
+            Frobenius error <= 1e-5, the GEMV not launched.
             The Wan2.2 VAE decode at full width (random
             weights) against the same decode on the CPU for one small tile
             (2 x 4 x 4 latents): max abs err <= 1e-3.
@@ -63,8 +67,15 @@ the repository).  Phases, each printing one JSON line:
             bf16, int8 and int4 (4 flash; 20 W8 or W4 and 6 fp32 GEMV
             launches); a HunyuanVideo 1.5 forward at full width with 2
             double blocks at batch 2, one item's text masks all zero, in
-            bf16 and int8 (2 flash; 24 W8 and 6 fp32 GEMV launches): max
-            abs err <= 3e-2 * max|ref|.
+            bf16 and int8 (2 flash; 24 W8 and 6 fp32 GEMV launches); an
+            LTX-2 22B forward at full width with 2 blocks, audio on, over
+            17 latent frames (68 video and 20 audio tokens, so the adaLN
+            products run above 16 rows) in bf16 (12 flash), int8 from a
+            quanto state dict with every linear quantized (72 W8, 22 fp32
+            tile-kernel and 6 fp32 GEMV launches), int4 likewise (on the W4
+            kernels) and a CFG batch 2 over contexts of 7 and 4 rows padded
+            with a key mask (8 flash, 4 kv-masked): max abs err <= 3e-2 *
+            max|ref|.
 4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
             the kernel's output there is held to the plain version in fp32
@@ -102,13 +113,20 @@ the repository).  Phases, each printing one JSON line:
             and (L)'s (the joint attention at B2 L = S = 10,262, 16 heads;
             W8 at the image stream's four linears, M = 19,500, and the text
             stream's qkv, M = 1,024; the fp32 W8 GEMV at M = 2, K = 2048,
-            N = 12,288), each with its launches per forward.
+            N = 12,288) and (M)'s (flash at the video self-attention, B1
+            L = S = 27,280, 32 heads of 128, its text cross, the audio
+            self-attention at 251 tokens, 32 heads of 64, and the a2v / v2a
+            crosses; W8 at the video q/k/v/out and FFN at M = 27,280 and
+            the audio FFN; the fp32 tile kernels, W8 and W4, at the adaLN
+            tables, M = 31 / 251, and patchify / proj_out, M = 27,280,
+            beside torch.matmul on the fp32 weight; the GEMV at the prompt
+            adaLN), each with its launches per forward.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
             1280x720x81f: (A) quantize="int4a8", attention_mode="sol", all
             40 layers; (B) quantize="int4", attention_mode="radial",
-            B_LAYERS = 40 layers; then 2 krea2_raw requests at 1024x1024,
+            B_LAYERS = 10 of its 40 layers; then 2 krea2_raw requests at 1024x1024,
             all 28 layers (12.8 B parameters, bf16), guidance 3.5, 2 steps,
             each writing a PNG.  Every launch counter is reset just before
             each model's requests and read just after; the launches per
@@ -202,7 +220,27 @@ the repository).  Phases, each printing one JSON line:
                 (asserted): 54 flash, 440 W8 and 110 fp32 W8 GEMV launches
                 a forward, none padded; init, write, load, LM, byT5, CLIP,
                 step, decode and request seconds and the load, denoise and
-                decode peaks.
+                decode peaks;
+            (M) ltx2_22B_distilled (LTX-2 22B: 48 blocks, video 32 x 128,
+                audio 32 x 64, gated attention, prompt adaLN) at
+                1280x704x241 (the definition's 1280x720 does not divide by
+                the 32-pixel stride), its guidance 1 and 2 of its 8
+                distilled steps: Gemma-3 12B random on the card, through an
+                in-memory state dict and its loader at full depth, encodes
+                the prompt's bytes (per-token RMS features, a random caption
+                projection) and is freed; the DiT random on the card,
+                exported to an in-memory quanto-int8 state dict (every
+                linear) and read back by the loader; the untiled video
+                decode, the audio decode and vocoder; one AVI with a stereo
+                24 kHz PCM16 stream (asserted): 288 flash, 1,636 W8, 22 fp32
+                tile-kernel and 6 fp32 GEMV launches a forward, none padded;
+                Gemma init, export/load and encode, DiT init, export and
+                load, step, decode, audio and request seconds and the encode,
+                load, denoise and decode peaks.  Then the DiT at 2 blocks
+                (quanto int8, under the definition's second URL), the video
+                VAE (bf16), the audio VAE, the vocoder and the caption
+                projection as files, loaded through the service's resolver
+                and held to the written tensors bit for bit.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. kernels  every ported kernel with its check, launches and times.
 
@@ -230,7 +268,7 @@ PEAK_INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 STEPS = 2                       # denoise steps per service request
-B_LAYERS = 40                   # depth of the 14B request (B): all 40
+B_LAYERS = 10                   # depth of the 14B request (B), of 40
 FLASH_MEAN_REL, FLASH_MAX_REL = 2e-2, 2e-1     # of mean|ref|, max|ref|
 LSE_MAX_ABS = 1e-2
 MM_REL_FRO = 1e-2               # int8 / int4 / W8A8 / W4A8 matmuls
@@ -257,6 +295,19 @@ L_W, L_H, L_FRAMES = 832, 480, 97
 L_IMG = ((L_FRAMES - 1) // 4 + 1) * (L_H // 32) * (L_W // 32)
 L_TXT = 256 + 256
 L_TOKENS = L_IMG + L_TXT
+# (M): ltx2_22B_distilled at 1280x704x241 (its definition's 1280x720 gives
+# 22.5 latent rows, which the (8, 32, 32) stride does not divide): 31 x 22 x
+# 40 = 27,280 video tokens, 241 / 24 s x 25 = 251 audio tokens, the
+# prompt's UTF-8 bytes as Gemma ids
+M_W, M_H, M_FRAMES = 1280, 704, 241
+M_GRID = ((M_FRAMES - 1) // 8 + 1, M_H // 32, M_W // 32)
+M_TOKENS = M_GRID[0] * M_GRID[1] * M_GRID[2]
+M_AUDIO = int(M_FRAMES / 24 * 25)
+M_PROMPT = ("a red fox trots through fresh snow at dawn, its breath "
+            "steaming; crows call from the pines and the snow creaks")
+# (M)'s DiT file (written after the request, loaded back): its depth
+M_FILE_LAYERS = 2
+F32_REL_FRO = 1e-5              # the fp32 tile kernel: only the sum order
 REPO = os.path.dirname(os.path.abspath(__file__))
 # logs and the (deleted after checking) outputs, beside the built kernels
 OUT = os.path.join(REPO, "wan2gp_tpu_torch", "_build", "chip_smoke")
@@ -386,6 +437,8 @@ TOLERANCE = {"flash_attention": _ATTN_TOL,
              "act_quant": "x_q and the bits of sx equal the plain version's",
              "matmul_w8_gemv": f"rel_fro<={GEMV_REL_FRO}",
              "matmul_w4_gemv": f"rel_fro<={GEMV_REL_FRO}",
+             "matmul_w8_f32": f"rel_fro<={F32_REL_FRO}",
+             "matmul_w4_f32": f"rel_fro<={F32_REL_FRO}",
              "vae22_decode": f"max_abs<={VAE22_MAX_ABS} against the CPU"}
 
 
@@ -404,7 +457,9 @@ def counters():
             "matmul_w4a8": (Q, "w4a8_launches"),
             "act_quant": (Q, "act_quant_launches"),
             "matmul_w8_gemv": (Q, "w8_gemv_launches"),
-            "matmul_w4_gemv": (Q, "w4_gemv_launches")}
+            "matmul_w4_gemv": (Q, "w4_gemv_launches"),
+            "matmul_w8_f32": (Q, "w8_f32_launches"),
+            "matmul_w4_f32": (Q, "w4_f32_launches")}
 
 
 def reset_pads():
@@ -449,6 +504,10 @@ def phase_check():
         "ti2v_5B_n24_l1000_s512": (2, 1000, 512, 24, 128),
         # HunyuanVideo 1.5's 16 heads over a ragged joint sequence
         "hv15_n16_l1000": (2, 1000, 1000, 16, 128),
+        # (M)'s audio -> video and video -> audio cross-attentions: 32 heads
+        # of 64 between the 27,280 video and 251 audio tokens
+        "ltx2_a2v_d64": (1, M_TOKENS, M_AUDIO, 32, 64),
+        "ltx2_v2a_d64": (1, M_AUDIO, M_TOKENS, 32, 64),
     }
     flash = {}
     for name, (b, l, s, n, d) in flash_cases.items():
@@ -632,15 +691,16 @@ def phase_check():
     for m, k in ((151200, 13824), (3, 20000)):
         aq[f"{m}x{k}"] = act_quant_check(a8_rows(randn((m, k), gen)))
     gemv = gemv_checks(gen)
+    f32 = f32_checks(gen)
     vae22 = vae22_check()
     emit("check", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
          matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, vae22_decode=vae22,
-         **gemv, tolerance=TOLERANCE)
+         **gemv, **f32, tolerance=TOLERANCE)
     return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
             "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8,
-            "act_quant": aq, **gemv}
+            "act_quant": aq, **gemv, **f32}
 
 
 def _gemv_kernels():
@@ -676,6 +736,48 @@ def gemv_checks(gen):
                 raise AssertionError(f"{kernel} {name}: not one launch")
             out[kernel][name] = mm_check(kernel, name, got,
                                          ref_fn(x, wq, sc), GEMV_REL_FRO)
+    return out
+
+
+def _f32_kernels():
+    """(kernel, quantize, wrapper, plain version) of the two fp32 tile
+    kernels (csrc/wo_f32_matmul.cu: fp32 x above GEMV_MAX_M rows)."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    return (("matmul_w8_f32", Q.quantize_int8, Q.matmul_w8,
+             Q.matmul_w8_ref),
+            ("matmul_w4_f32", Q.quantize_int4, Q.matmul_w4,
+             Q.matmul_w4_ref))
+
+
+def f32_checks(gen):
+    """The fp32 W8 and W4 tile kernels against their plain versions in
+    fp32 (relative Frobenius error <= F32_REL_FRO), one launch each and
+    none of the GEMV: M = 17 (the first above the GEMV), 31 and 251 ((M)'s
+    per-frame and per-audio-step adaLN rows) and a ragged 1,001, at K 256 /
+    2048 / 4096 and ragged N; W4 also with K < 2 KH."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    cases = {"17x256x4096": (17, 256, 4096), "31x256x4096": (31, 256, 4096),
+             "31x4096x36864": (31, 4096, 36864),
+             "251x2048x18432": (251, 2048, 18432),
+             "1001x2048x1000": (1001, 2048, 1000),
+             "1001x4096x4100": (1001, 4096, 4100),
+             "251x1000x1001": (251, 1000, 1001)}
+    out = {}
+    for kernel, qfn, fn, ref_fn in _f32_kernels():
+        counter = counters()[kernel]
+        out[kernel] = {}
+        for name, (m, k, n) in cases.items():
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            wq, sc = qfn(torch.randn((k, n), generator=gen, device="cuda"))
+            before = (getattr(*counter), Q.w8_gemv_launches,
+                      Q.w4_gemv_launches)
+            got = fn(x, wq, sc)
+            if (getattr(*counter), Q.w8_gemv_launches,
+                    Q.w4_gemv_launches) != (before[0] + 1, *before[1:]) \
+                    or got.dtype != torch.float32:
+                raise AssertionError(f"{kernel} {name}: not one launch")
+            out[kernel][name] = mm_check(kernel, name, got,
+                                         ref_fn(x, wq, sc), F32_REL_FRO)
     return out
 
 
@@ -917,7 +1019,9 @@ def phase_dit():
     out["krea2"] = dit_krea2()
     out["flux"] = dit_flux()
     out["hv15"] = dit_hv15()
+    out["ltx2"], int4_launches = dit_ltx2()
     emit("dit", tolerance="max_abs<=3e-2*max|ref|", **out)
+    return {"ltx2_int4": int4_launches}
 
 
 def dit_i2v():
@@ -1181,6 +1285,94 @@ def dit_hv15():
                       "blocks, batch 2 (a fully masked text item)", **out}
 
 
+# (M)'s small forward: grid and audio tokens of phase 3 (17 frames, so that
+# the per-frame adaLN products run at M = 17 > GEMV_MAX_M)
+M_CHECK_GRID, M_CHECK_AUDIO = (17, 2, 2), 20
+
+
+def dit_ltx2():
+    """An LTX-2 22B forward at full width (video 32 x 128, audio 32 x 64,
+    caption 3840, gated attention, prompt adaLN) with 2 blocks, audio on,
+    card against CPU: in bf16 (12 flash); int8 from a quanto state dict
+    with every linear quantized, read back by `load_ltx2_params` (72 W8,
+    22 fp32 W8 above 16 rows: patchify, proj_out and the adaLN tables at
+    M = 17 / 20, 6 fp32 GEMVs: the prompt adaLN at M = 1); int4 with every
+    linear quantized (the same counts on the W4 kernels); and a CFG batch 2
+    in bf16 over contexts of 7 and 4 rows padded to 7 with a key mask (8
+    flash, 4 kv-masked text crosses).  Returns the results and the int4
+    forward's launches."""
+    from wan2gp_tpu_torch.families.ltx2 import LTX2FamilyHandler
+    from wan2gp_tpu_torch.io.ltx2_checkpoint import (load_ltx2_params,
+                                                     ltx2_state_dict)
+    from wan2gp_tpu_torch.models.ltx2 import dit as ld
+    from wan2gp_tpu_torch.models.ltx2 import pipeline as lp
+    from wan2gp_tpu_torch.ops.quant import quantize_params_tree
+    cfg = dataclasses.replace(LTX2FamilyHandler.dit_config("ltx2_22B"),
+                              num_layers=2)
+    rng = np.random.default_rng(6)
+    f, h, w = M_CHECK_GRID
+    tv = f * h * w
+    vt, at = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+              for s in ((2, tv, cfg.in_channels),
+                        (2, M_CHECK_AUDIO, cfg.audio_in_channels)))
+    ctx = torch.from_numpy(rng.standard_normal((2, 7, cfg.caption_dim),
+                                               dtype=np.float32))
+    mask2 = torch.tensor([[1] * 7, [1] * 4 + [0] * 3], dtype=torch.int32)
+    ctx[1, 4:] = 0.0
+    t_v = torch.linspace(0.2, 0.9, f)[None].repeat(2, 1)
+    t_a = torch.full((2, M_CHECK_AUDIO), 0.6)
+    p = ld.init_ltx2_dit(torch.Generator(device="cuda").manual_seed(7), cfg)
+    blocks = 34 * cfg.num_layers + 4
+    quant = {"bf16": p,
+             "int8": load_ltx2_params(ltx2_state_dict(p, cfg, quanto=True),
+                                      cfg, device="cuda")[0],
+             "int4": quantize_params_tree(_nodes(p), bits=4, min_dim=1)}
+    wants = {"bf16": {"flash_attention": 12},
+             "int8": {"flash_attention": 12, "matmul_w8": blocks,
+                      "matmul_w8_f32": 22, "matmul_w8_gemv": 6},
+             "int4": {"flash_attention": 12, "matmul_w4": blocks,
+                      "matmul_w4_f32": 22, "matmul_w4_gemv": 6},
+             "cfg_masked": {"flash_attention": 8,
+                            "flash_attention_kvmask": 4}}
+    out, int4_launches = {}, None
+    for mode, want in wants.items():
+        pm = quant["bf16" if mode == "cfg_masked" else mode]
+        b = 2 if mode == "cfg_masked" else 1
+        res = {}
+        for dev in ("cpu", "cuda"):
+            pd = _tree_to(pm, "cpu") if dev == "cpu" else pm
+            ropes = lp.build_ltx2_ropes(cfg, M_CHECK_GRID, M_CHECK_AUDIO,
+                                        device=dev)
+            before = read_counts()
+            v, a = ld.ltx2_dit_forward(
+                pd, cfg, vt[:b].to(dev), t_v[:b].to(dev), ctx[:b].to(dev),
+                ropes[0], ropes[2], audio_tokens=at[:b].to(dev),
+                t_audio=t_a[:b].to(dev), audio_rope=ropes[1],
+                audio_cross_rope=ropes[3],
+                context_mask=mask2.to(dev) if b == 2 else None)
+            res[dev] = torch.cat([v.flatten(), a.flatten()]).float().cpu()
+            launched = {k: n - before[k] for k, n in read_counts().items()
+                        if n != before[k]}
+            del pd
+        ref_max = res["cpu"].abs().max().item()
+        err = (res["cuda"] - res["cpu"]).abs().max().item()
+        out[mode] = {"video_tokens": b * tv, "audio_tokens": b * M_CHECK_AUDIO,
+                     "max_abs": err, "ref_max": ref_max, "launches": launched,
+                     "finite": bool(torch.isfinite(res["cuda"]).all())}
+        if not (out[mode]["finite"] and err <= 3e-2 * ref_max
+                and launched == want):
+            raise AssertionError(f"small LTX-2 forward ({mode}): "
+                                 f"{out[mode]}, want launches {want}")
+        if mode == "int4":
+            int4_launches = launched
+    del p, quant
+    torch.cuda.empty_cache()
+    return {"config": "22B: video 32 x 128, audio 32 x 64, caption 3840, "
+                      "gated, prompt adaLN, 2 blocks, 68 video + 20 audio "
+                      "tokens; CFG batch 2 with contexts of 7 and 4 rows",
+            **out}, int4_launches
+
+
 def _nodes(tree):
     """tree's dicts and lists anew, its tensors shared."""
     if isinstance(tree, dict):
@@ -1372,27 +1564,30 @@ def time_w8(name, m, k, n):
 
 
 def time_gemv(kernel, m, k, n):
-    """An fp32 GEMV at one modulation shape, each launch on another of
+    """An fp32 GEMV (or, above GEMV_MAX_M rows, the fp32 tile kernel) at
+    one modulation shape, each launch on another of
     four weights (the four exceed the 50 MB L2, as the forward finds the
     weight cold), beside torch.matmul on the weight dequantized to fp32
     beforehand (four copies, taken in turn too)."""
     import itertools
     from wan2gp_tpu_torch.ops import quant as Q
-    _, qfn, fn, ref_fn = next(g for g in _gemv_kernels() if g[0] == kernel)
+    _, qfn, fn, ref_fn = next(g for g in (*_gemv_kernels(), *_f32_kernels())
+                              if g[0] == kernel)
     gen = torch.Generator(device="cuda").manual_seed(12)
     x = torch.randn((m, k), generator=gen, device="cuda")
     ws = [qfn(torch.randn((k, n), generator=gen, device="cuda"))
           for _ in range(4)]
     name = f"{m}x{k}x{n}"
     err = mm_check(kernel, name, fn(x, *ws[0]), ref_fn(x, *ws[0]),
-                   GEMV_REL_FRO)
+                   GEMV_REL_FRO if m <= Q.GEMV_MAX_M else F32_REL_FRO)
     it = itertools.cycle(ws)
-    ms = cuda_ms(lambda: fn(x, *next(it)), 200)
-    plain_ms = cuda_ms(lambda: ref_fn(x, *next(it)), 20)
-    deq = [wq.float() * sc if kernel == "matmul_w8_gemv"
+    reps = 200 if m <= 256 else 10
+    ms = cuda_ms(lambda: fn(x, *next(it)), reps)
+    plain_ms = cuda_ms(lambda: ref_fn(x, *next(it)), 20 if m <= 256 else 3)
+    deq = [wq.float() * sc if kernel.startswith("matmul_w8")
            else Q.unpack_int4(wq, sc, k) for wq, sc in ws]
     dit = itertools.cycle(deq)
-    library_ms = cuda_ms(lambda: torch.matmul(x, next(dit)), 200)
+    library_ms = cuda_ms(lambda: torch.matmul(x, next(dit)), reps)
     w_bytes = ws[0][0].numel()
     bound_ms, by = bound(2.0 * m * k * n, 4 * m * k + w_bytes + 4 * n
                          + 4 * m * n, peak=PEAK_FP32_FLOPS)
@@ -1404,7 +1599,8 @@ def time_gemv(kernel, m, k, n):
                             "beforehand (reads 4 bytes per weight)",
             "bound_ms": bound_ms, "bound_by": by,
             "bound_share": bound_ms / ms, "over_library": ms / library_ms,
-            "splits": Q.gemv_splits(w_bytes // n, n), "err": err}
+            **({"splits": Q.gemv_splits(w_bytes // n, n)}
+               if m <= Q.GEMV_MAX_M else {}), "err": err}
 
 
 def _pairs(kv_idx, counts, l, s_len, block_q, block_kv):
@@ -1734,6 +1930,7 @@ def phase_time(tokens: int):
                      for n in (18432, 9216)}
             for kernel in ("matmul_w8_gemv", "matmul_w4_gemv")}
     time_l(flash, w8, gemv)
+    f32 = time_m(flash, w8, gemv)
     for table in (flash, w8, *gemv.values()):
         for case, t in table.items():
             if case in K_PER_FORWARD:
@@ -1752,12 +1949,12 @@ def phase_time(tokens: int):
         (flash if case in flash else w8)[case]["launches_per_forward_J"] = n
     emit("time", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
-         matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, **gemv,
+         matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, **gemv, **f32,
          tolerance=TOLERANCE)
     return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
             "sol_flash": sol, "matmul_w4": w4, "matmul_w4a8": w4a8,
-            "act_quant": aq, **gemv}
+            "act_quant": aq, **gemv, **f32}
 
 
 def time_l(flash, w8, gemv):
@@ -1777,6 +1974,63 @@ def time_l(flash, w8, gemv):
         for case, t in table.items():
             if case in L_PER_FORWARD:
                 t["launches_per_forward_L"] = L_PER_FORWARD[case]
+
+
+# launches per DiT forward of (M) (LTX-2 22B at 1280x704x241, int8 from a
+# quanto state dict with every linear quantized, batch 1): per block 6
+# flash (video self 27,280 N32 D128, its text cross, audio self 251 N32
+# D64, its text cross, a2v, v2a); W8 on q, k, v, out and the gate of each
+# of the 6 attentions and on the two FFNs (34 a block) and the 4 caption
+# projection linears; the fp32 tile kernel on patchify and proj_out of both
+# streams and the 6 adaLN tables' 3 linears at M = 31 / 251 (22); the fp32
+# GEMV on the 2 prompt adaLN tables' 3 linears at M = 1 (6)
+M_KERNELS = {"flash_attention": 6 * 48, "matmul_w8": 34 * 48 + 4,
+             "matmul_w8_f32": 22, "matmul_w8_gemv": 6}
+M_PER_FORWARD = {"self_ltx2_M": 48, "text_cross_ltx2_M": 48,
+                 "audio_self_ltx2_M": 48, "a2v_ltx2_M": 48,
+                 "v2a_ltx2_M": 48,
+                 f"{M_TOKENS}x4096x4096": 6 * 48,
+                 f"{M_TOKENS}x4096x16384": 48, f"{M_TOKENS}x16384x4096": 48,
+                 f"{M_AUDIO}x2048x8192": 48,
+                 f"{M_GRID[0]}x4096x36864": 1, f"{M_AUDIO}x2048x18432": 1,
+                 f"{M_TOKENS}x128x4096": 1, f"{M_TOKENS}x4096x128": 1,
+                 "1x4096x8192": 1}
+
+
+def time_m(flash, w8, gemv):
+    """(M)'s rows: flash at the video self-attention (B1 L = S = 27,280,
+    32 heads of 128), its text cross (S = the prompt's bytes), the audio
+    self-attention (251, 32 x 64) and the a2v / v2a crosses; W8 at the
+    video q/k/v/out (K = N = 4096), the FFN (4096 x 16,384 and back) and the
+    audio FFN; the fp32 tile kernel (W8 and W4) at the video and audio adaLN
+    tables (M = 31, K 4096, N 9 x 4096; M = 251, K 2048, N 9 x 2048) and at
+    patchify / proj_out (M = 27,280); the fp32 GEMV at the prompt adaLN
+    (M = 1).  Returns the tile kernel's rows."""
+    n_txt = len(M_PROMPT.encode())
+    for name, shape in (
+            ("self_ltx2_M", (1, M_TOKENS, M_TOKENS, 32, 128)),
+            ("text_cross_ltx2_M", (1, M_TOKENS, n_txt, 32, 128)),
+            ("audio_self_ltx2_M", (1, M_AUDIO, M_AUDIO, 32, 64)),
+            ("a2v_ltx2_M", (1, M_TOKENS, M_AUDIO, 32, 64)),
+            ("v2a_ltx2_M", (1, M_AUDIO, M_TOKENS, 32, 64))):
+        flash[name] = time_flash(name, *shape)
+    w8.update({f"{m}x{k}x{n}": time_w8(f"{m}x{k}x{n}", m, k, n)
+               for m, k, n in ((M_TOKENS, 4096, 4096),
+                               (M_TOKENS, 4096, 16384),
+                               (M_TOKENS, 16384, 4096),
+                               (M_AUDIO, 2048, 8192))})
+    f32 = {kernel: {} for kernel in ("matmul_w8_f32", "matmul_w4_f32")}
+    for m, k, n in ((M_GRID[0], 4096, 36864), (M_AUDIO, 2048, 18432),
+                    (M_TOKENS, 128, 4096), (M_TOKENS, 4096, 128)):
+        for kernel in f32:
+            f32[kernel][f"{m}x{k}x{n}"] = time_gemv(kernel, m, k, n)
+    gemv["matmul_w8_gemv"]["1x4096x8192"] = time_gemv("matmul_w8_gemv", 1,
+                                                      4096, 8192)
+    for table in (flash, w8, gemv["matmul_w8_gemv"], *f32.values()):
+        for case, t in table.items():
+            if case in M_PER_FORWARD:
+                t["launches_per_forward_M"] = M_PER_FORWARD[case]
+    return f32
 
 
 # the denoise steps of (C): the fewest at which a TeaCache plan for 1.75x
@@ -2329,6 +2583,256 @@ def run_l(out_dir, timed, split, seen):
             "definition_steps": merged["num_inference_steps"],
             "tokens": L_TOKENS, "launches": counts,
             "launches_per_forward": dict(L_KERNELS), "padded_launches": 0,
+            **out}
+
+
+def run_m(out_dir, timed, split, seen):
+    """(M): ltx2_22B_distilled (LTX-2 22B, all 48 blocks, 19.5 B
+    parameters in the DiT) at 1280x704x241 (the definition's 1280x720
+    gives 22.5 latent rows; the handler refuses it): 31 x 22 x 40 = 27,280
+    video and 251 audio tokens.  Gemma-3 12B random on the card, through an
+    in-memory HF state dict and `load_gemma3_params` at full depth, encodes
+    the prompt's bytes through a random caption projection (per-token RMS,
+    the 22B's) and is freed; the DiT random on the card, exported to an
+    in-memory quanto-int8 state dict (every linear, the top-level ones too)
+    and read back by `load_ltx2_params` (the loaded tree re-exported equals
+    it); the 22B video VAE, the audio VAE and the vocoder random.  One
+    request through the service: the definition's guidance 1, 2 of its 8
+    distilled steps, the untiled decode, the audio decode and vocoder, an
+    AVI with its stereo stream at 24 kHz (asserted).  Launches asserted:
+    288 flash, 1,636 W8, 22 fp32 W8 above 16 rows and 6 fp32 GEMVs a
+    forward, none padded.  Then the DiT at M_FILE_LAYERS blocks (quanto
+    int8, under the definition's second URL), the video VAE (bf16), the
+    audio VAE, the vocoder and the caption projection (bf16) as files,
+    loaded through the service's resolver and held to the written tensors
+    bit for bit."""
+    from wan2gp_tpu_torch.families import ltx2 as lfam
+    from wan2gp_tpu_torch.io.downloads import make_checkpoints_resolver
+    from wan2gp_tpu_torch.io.ltx2_checkpoint import (load_ltx2_params,
+                                                     ltx2_state_dict)
+    from wan2gp_tpu_torch.io.safetensors_reader import (load_weights,
+                                                        save_safetensors)
+    from wan2gp_tpu_torch.models.ltx2 import audio_vae as lav
+    from wan2gp_tpu_torch.models.ltx2 import dit as ld
+    from wan2gp_tpu_torch.models.ltx2 import gemma as lg
+    from wan2gp_tpu_torch.models.ltx2 import pipeline as lp
+    from wan2gp_tpu_torch.models.ltx2 import vae as lv
+    from wan2gp_tpu_torch.runtime import service as svc_mod
+    from wan2gp_tpu_torch.utils import media
+    handler = lfam.LTX2FamilyHandler
+    model_type = "ltx2_22B_distilled"
+    bf16 = torch.bfloat16
+    out = {}
+    svc = svc_mod.GenerationService(init_random_weights=True,
+                                    output_dir=out_dir)
+    model_def = svc.registry.get(model_type)
+    merged = svc.registry.default_settings(model_type)
+    if (merged["resolution"], merged["video_length"],
+            merged["num_inference_steps"], merged["guidance_scale"]) != (
+            "1280x720", M_FRAMES, 8, 1.0):
+        raise AssertionError(f"(M): the definition's settings {merged}")
+    ckdir = os.path.join(OUT, "ckpts")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    specs = {f["role"]: f["urls"] for f in handler.query_model_files(
+        "ltx2_22B", model_def)}
+    paths = {role: os.path.join(ckdir, os.path.basename(urls[0]))
+             for role, urls in specs.items()}
+    paths["transformer"] = os.path.join(
+        ckdir, os.path.basename(specs["transformer"][1]))
+    if "quanto_int8" not in paths["transformer"]:
+        raise AssertionError(f"(M): the definition's URLs {specs}")
+    written = {}
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # 1. Gemma-3 12B, random on the card, through its loader; the prompt
+    gcfg = lg.Gemma3Config()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    t0 = time.perf_counter()
+    gp = lg.init_gemma3(gen, gcfg)
+    out["gemma_init_s"] = sync_s(t0)
+    out["gemma_params"] = sum(v.numel() for v in _leaves(gp))
+    t0 = time.perf_counter()
+    sd = lg.gemma3_state_dict(gp, gcfg)
+    del gp
+    gp, left = lg.load_gemma3_params(sd, gcfg, device="cuda")
+    del sd
+    out["gemma_export_load_s"] = sync_s(t0)
+    if left:
+        raise AssertionError(f"(M) gemma: left over {left[:4]}")
+    d_in = gcfg.dim * (gcfg.n_layers + 1)
+    proj_w = torch.randn((d_in, 3840), generator=gen,
+                         device="cuda").div_(math.sqrt(d_in))
+    written["text_projection"] = {
+        "aggregate_embed.weight": proj_w.t().to(bf16).contiguous()}
+    proj_w = written["text_projection"]["aggregate_embed.weight"].float().t()
+    encode = lg.make_caption_encoder(gp, gcfg, proj_w,
+                                     handler.caption_mode("ltx2_22B"),
+                                     device="cuda")
+    encode([M_PROMPT])                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx, cmask = encode([M_PROMPT])
+    out["encode_s"] = sync_s(t0)
+    out["encode_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    n_txt = len(M_PROMPT.encode())
+    if tuple(ctx.shape) != (1, n_txt, 3840) or not bool(
+            torch.isfinite(ctx).all()) or int(cmask.sum()) != n_txt:
+        raise AssertionError(f"(M) encode: {tuple(ctx.shape)}")
+    del gp, proj_w, encode
+    torch.cuda.empty_cache()
+    # 2. the DiT: random, a quanto-int8 state dict in memory, the loader
+    cfg = handler.dit_config("ltx2_22B")
+    gen.manual_seed(43)
+    t0 = time.perf_counter()
+    params = ld.init_ltx2_dit(gen, cfg)
+    out["init_s"] = sync_s(t0)
+    out["dit_params"] = sum(v.numel() for v in _leaves(params))
+    t0 = time.perf_counter()
+    sd = ltx2_state_dict(params, cfg, quanto=True)
+    out["export_s"] = sync_s(t0)
+    del params
+    out["state_dict_gb"] = sum(v.numel() * v.element_size()
+                               for v in sd.values()) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dp, left = load_ltx2_params(sd, cfg, device="cuda")
+    out["load_s"] = sync_s(t0)
+    out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if left:
+        raise AssertionError(f"(M) dit: left over {left[:4]}")
+    again = ltx2_state_dict(dp, cfg, quanto=True)
+    if sorted(again) != sorted(sd) or any(
+            not torch.equal(again[k], v.to(again[k].dtype))
+            for k, v in sd.items()):
+        raise AssertionError("(M) dit: the loaded tree is not the state dict")
+    out["tensors_equal"] = len(sd)
+    del sd, again
+    torch.cuda.empty_cache()
+    # 3. the decoders, random on the card
+    vcfg = handler.vae_config("ltx2_22B")
+    acfg, wcfg = lav.LTX2AudioVAEConfig(), lav.LTX2VocoderConfig()
+    gen.manual_seed(44)
+    vp = lv.init_ltx2_vae(gen, vcfg)
+    ap = lav.init_ltx2_audio_vae(gen, acfg)
+    wp = lav.init_ltx2_vocoder(gen, wcfg)
+    out["vae_params"] = sum(v.numel() for v in _leaves(vp))
+    written["video_vae"] = {k: v.to(bf16) for k, v in
+                            lv.ltx2_vae_state_dict(vp, vcfg).items()}
+    written["audio_vae"] = lav.ltx2_audio_vae_state_dict(ap, acfg)
+    written["vocoder"] = lav.ltx2_vocoder_state_dict(wp, wcfg)
+    vp = lv.load_ltx2_vae_params(written["video_vae"], vcfg,
+                                 device="cuda")[0]
+    pipe = lp.LTX2Pipeline(
+        dp, cfg,
+        vae_decode=timed("decode", lambda z: lv.ltx2_vae_decode(vp, vcfg, z)),
+        audio_decode=timed("audio_decode",
+                           lambda z: lav.ltx2_audio_decode(ap, acfg, z)),
+        vocoder=timed("vocoder", lambda m: lav.ltx2_vocoder(wp, wcfg, m)),
+        device="cuda")
+    pipe.distilled = True
+    svc._pipelines[model_type] = pipe
+    audio = []
+    real_denoise, real_save = lp.ltx2_denoise, media.save_video
+
+    def save_with_audio(frames_, path, **kw):
+        audio.append((kw.get("audio").shape, kw.get("audio_sample_rate")))
+        return real_save(frames_, path, **kw)
+    lp.ltx2_denoise = timed("denoise", real_denoise)
+    media.save_video = save_with_audio
+    try:
+        reset_counts()
+        reset_pads()
+        seen.clear()
+        split.clear()
+        t0 = time.perf_counter()
+        got = svc.generate({"model_type": model_type, "prompt": M_PROMPT,
+                            "resolution": f"{M_W}x{M_H}", "seed": 7,
+                            "num_inference_steps": STEPS,
+                            "_text_context": ctx})
+        req_s = time.perf_counter() - t0
+    finally:
+        lp.ltx2_denoise, media.save_video = real_denoise, real_save
+    counts = read_counts()
+    want = {k: M_KERNELS.get(k, 0) * STEPS for k in counts}
+    if counts != want or read_pads():
+        raise AssertionError(f"(M): launches {counts}, want {want}, padded "
+                             f"{read_pads()}")
+    samples = (4 * M_AUDIO - 3) * wcfg.hop
+    pcm, rate = media.read_avi_audio(got[0])
+    ok = (len(got) == 1 and seen and seen[-1]["finite"]
+          and seen[-1]["shape"] == [M_FRAMES, M_H, M_W, 3]
+          and audio == [((2, samples), 24000)] and rate == 24000
+          and pcm.shape == (samples, 2))
+    if not ok:
+        raise AssertionError(f"(M): {got} {seen} audio {audio} {rate} "
+                             f"{pcm.shape}")
+    out["request"] = {
+        "steps": STEPS, "request_s": req_s, **split,
+        "step_s": split["denoise_s"] / STEPS,
+        "audio_s": split["audio_decode_s"] + split["vocoder_s"],
+        "video_bytes": os.path.getsize(got[0]), "audio_samples": samples,
+        "audio_rate": rate}
+    os.remove(got[0])
+    svc.release_model()
+    del svc, pipe, dp, vp, ap, wp, ctx
+    torch.cuda.empty_cache()
+    # 4. the files, at M_FILE_LAYERS blocks, through the resolver
+    cfg2 = dataclasses.replace(cfg, num_layers=M_FILE_LAYERS)
+    gen.manual_seed(45)
+    p2 = ld.init_ltx2_dit(gen, cfg2)
+    written["transformer"] = ltx2_state_dict(p2, cfg2, quanto=True)
+    del p2
+    t0 = time.perf_counter()
+    for role, sd in written.items():
+        save_safetensors(paths[role], sd)
+    out["write_s"] = time.perf_counter() - t0
+    out["files_bytes"] = {os.path.basename(paths[r]): os.path.getsize(
+        paths[r]) for r in written}
+    resolver = make_checkpoints_resolver(
+        [ckdir], quantization="int8",
+        roles=("transformer", "video_vae", "audio_vae", "vocoder"))
+    svc = svc_mod.GenerationService(checkpoints_resolver=resolver,
+                                    output_dir=out_dir)
+    arch = lfam._ARCH["ltx2_22B"]
+    lfam._ARCH["ltx2_22B"] = {**arch, "num_layers": M_FILE_LAYERS}
+    try:
+        t0 = time.perf_counter()
+        pipe = svc.get_pipeline(model_type)
+        out["read_s"] = sync_s(t0)
+    finally:
+        lfam._ARCH["ltx2_22B"] = arch
+    proj = lfam.load_text_projection(load_weights(paths["text_projection"]),
+                                     device="cuda")
+    back = {"transformer": ltx2_state_dict(pipe.dit_params, cfg2,
+                                           quanto=True),
+            "video_vae": lv.ltx2_vae_state_dict(pipe.vae_params, vcfg),
+            "audio_vae": lav.ltx2_audio_vae_state_dict(pipe.audio_vae_params,
+                                                       acfg),
+            "vocoder": lav.ltx2_vocoder_state_dict(pipe.vocoder_params, wcfg),
+            "text_projection": {"aggregate_embed.weight": proj.t()}}
+    for role, sd in written.items():
+        if sorted(back[role]) != sorted(sd) or any(
+                not torch.equal(back[role][k], v.to(back[role][k].dtype))
+                for k, v in sd.items()):
+            raise AssertionError(f"(M) {role}: read back differs")
+    out["files_equal"] = {r: len(sd) for r, sd in written.items()}
+    svc.release_model()
+    del svc, pipe, written, back, proj
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"label": "(M) ltx2_22B_distilled 1280x704x241, int8 (quanto "
+                     "state dict), guidance 1, audio on",
+            "resolution": f"{M_W}x{M_H}", "frames": M_FRAMES,
+            "latent_grid": list(M_GRID), "video_tokens": M_TOKENS,
+            "audio_tokens": M_AUDIO, "text_tokens": n_txt,
+            "guidance_scale": merged["guidance_scale"],
+            "definition_steps": merged["num_inference_steps"],
+            "file_layers": M_FILE_LAYERS, "launches": counts,
+            "launches_per_forward": dict(M_KERNELS), "padded_launches": 0,
             **out}
 
 
@@ -3147,6 +3651,7 @@ def phase_service(frames: int):
         results["14B_vace_multitalk_J"] = run_j()
         results["flux_schnell_K"] = run_k(out_dir, timed, split, seen)
         results["hv15_t2v_L"] = run_l(out_dir, timed, split, seen)
+        results["ltx2_22B_distilled_M"] = run_m(out_dir, timed, split, seen)
     finally:
         media.save_video, media.save_image = real_save, real_save_image
         pipe_mod.wan_dit_forward = real_forward
@@ -3213,7 +3718,7 @@ def main(argv=None):
     t_start = time.perf_counter()
     phase_env()
     checks = phase_check()
-    phase_dit()
+    dit_launches = phase_dit()
     tokens = ((args.frames - 1) // 4 + 1) * 30 * 52
     times = phase_time(tokens)
     svc = phase_service(args.frames)
@@ -3249,7 +3754,16 @@ def main(argv=None):
         ("matmul_w4_gemv", "wo_gemv.cu",
          "wan2gp_tpu/ops/quant.py:127 (_w4_kernel on fp32 x)",
          "flux_schnell_K", "1x3072x18432"),
+        ("matmul_w8_f32", "wo_f32_matmul.cu",
+         "wan2gp_tpu/ops/quant.py:32 (_w8_kernel on fp32 x, M > 16)",
+         "ltx2_22B_distilled_M", f"{M_GRID[0]}x4096x36864"),
+        # no service path runs W4 on fp32 x above 16 rows: its launches are
+        # those of phase 3's int4 LTX-2 forward
+        ("matmul_w4_f32", "wo_f32_matmul.cu",
+         "wan2gp_tpu/ops/quant.py:127 (_w4_kernel on fp32 x, M > 16)",
+         "ltx2_int4", f"{M_GRID[0]}x4096x36864"),
     )
+    svc = {**svc, **{k: {"launches": v} for k, v in dit_launches.items()}}
     kernels = []
     for name, src, replaces, run, case in table:
         # errors over every case of the check and time phases

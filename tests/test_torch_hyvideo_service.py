@@ -3,8 +3,9 @@ the JAX package's behaviour, on the CPU.
 
 The DiT loader reads bf16 files (fused and split qkv) and a quanto-int8
 file written by the port's exporter to the same tree as JAX's loader
-(equal leaves); a quanto `final_layer.linear`, which JAX loads and runs,
-is refused.  Through `GenerationService`: a tiny `hunyuan_1_5_480_t2v`
+(equal leaves); a quanto `final_layer.linear` loads as JAX's does (a
+quanto `byt5_in.fc1`, which JAX leaves unread, is refused).  Through
+`GenerationService`: a tiny `hunyuan_1_5_480_t2v`
 (random weights) at the definition's guidance 6.0 writes a video where
 the JAX handler raises a TypeError (no null states); 1280x720 raises a
 ValueError naming 1280x704 before any work, where JAX's patchify raises a
@@ -125,30 +126,59 @@ def test_dit_loader_matches_jax_loader(tmp_path, quanto, split):
         _tree_equal(got, p)
 
 
-def test_quanto_top_level_fp32_linear_is_refused(tmp_path):
-    """A quanto final_layer.linear (fp32 x at M = tokens): JAX loads it and
-    its forward runs (XLA dequantizes); the port has no kernel for fp32 x
-    at M > 16 and refuses the file, naming the ROADMAP item."""
+def _quanto_entry(sd, name):
+    from wan2gp_tpu_torch.ops.quant import quantize_int8
+    w = sd.pop(f"{name}.weight")
+    w_q, scale = quantize_int8(w.t())
+    sd[f"{name}.weight._data"] = w_q.t().contiguous()
+    sd[f"{name}.weight._scale"] = scale.reshape(-1, 1)
+    return w
+
+
+def test_quanto_final_layer_loads_and_matches_jax(tmp_path):
+    """A quanto final_layer.linear (fp32 x at M = the image tokens): both
+    loaders read it as {w_q, scale}, the trees are equal, and the port's
+    product on fp32 x at M = 20 rows (the fp32 tile kernel on the card, its
+    plain version here) equals JAX's within 1e-5 relative Frobenius."""
     cfg = dit.HunyuanConfig(**HV15W)
     p = dit.init_hunyuan(torch.Generator().manual_seed(2), cfg,
                          torch.float32)
     sd = hunyuan_dit_state_dict(p, cfg)
-    w = sd.pop("final_layer.linear.weight")
-    from wan2gp_tpu_torch.ops.quant import quantize_int8
-    w_q, scale = quantize_int8(w.t())
-    sd["final_layer.linear.weight._data"] = w_q.t().contiguous()
-    sd["final_layer.linear.weight._scale"] = scale.reshape(-1, 1)
-    with pytest.raises(ValueError, match="final_layer.linear.*item 15"):
-        load_hunyuan_dit_params(sd, cfg, device="cpu")
+    _quanto_entry(sd, "final_layer.linear")
+    got, left = load_hunyuan_dit_params(sd, cfg, dtype=torch.float32,
+                                        device="cpu")
+    assert left == [] and "w_q" in got["final"]["linear"]
     jcfg = jdit.HunyuanConfig(**HV15W, compute_dtype=jnp.float32)
-    jp, _ = jload({k: v.numpy() for k, v in sd.items()}, jcfg, jnp.float32)
-    assert "w_q" in jp["final"]["linear"]
-    # the JAX head's product on fp32 x at M = 20 rows
+    jp, jleft = jload({k: v.numpy() for k, v in sd.items()}, jcfg,
+                      jnp.float32)
+    assert jleft == []
+    _tree_equal(got["final"], jp["final"])
     x = np.random.default_rng(3).standard_normal((20, 256)).astype(
         np.float32)
-    out = jdit._dense(jnp.asarray(x), jp["final"]["linear"], jnp.float32)
-    np.testing.assert_allclose(np.asarray(out), x @ w.t().numpy(), rtol=0,
-                               atol=2e-2 * np.abs(x @ w.t().numpy()).max())
+    want = np.asarray(jdit._dense(jnp.asarray(x), jp["final"]["linear"],
+                                  jnp.float32))
+    out = dit._dense(torch.from_numpy(x), got["final"]["linear"],
+                     torch.float32).numpy()
+    assert np.linalg.norm(out - want) <= 1e-5 * np.linalg.norm(want)
+
+
+def test_quanto_top_level_fp32_linear_is_refused(tmp_path):
+    """A quanto byt5_in.fc1 (the glyph mapper, fp32): the JAX loader does
+    not read it (it looks for a float byt5_in.fc1.weight and leaves the
+    quanto entries over, so its tree has no byT5 mapper); the port refuses
+    the file, naming the entry."""
+    cfg = dit.HunyuanConfig(**HV15W)
+    p = dit.init_hunyuan(torch.Generator().manual_seed(2), cfg,
+                         torch.float32)
+    sd = hunyuan_dit_state_dict(p, cfg)
+    _quanto_entry(sd, "byt5_in.fc1")
+    with pytest.raises(ValueError, match="byt5_in.fc1.weight._data"):
+        load_hunyuan_dit_params(sd, cfg, device="cpu")
+    jcfg = jdit.HunyuanConfig(**HV15W, compute_dtype=jnp.float32)
+    jp, jleft = jload({k: v.numpy() for k, v in sd.items()}, jcfg,
+                      jnp.float32)
+    assert "byt5_in" not in jp
+    assert "byt5_in.fc1.weight._data" in jleft
 
 
 def test_service_guidance_6_writes_a_video(tiny_row, tmp_path, monkeypatch):

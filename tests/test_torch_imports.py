@@ -44,6 +44,16 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.models.hyvideo.vae15",
     "wan2gp_tpu_torch.models.qwen.text_encoder",
     "wan2gp_tpu_torch.io.hyvideo_dit_checkpoint",
+    "wan2gp_tpu_torch.families.ltx2",
+    "wan2gp_tpu_torch.models.ltx2.rope",
+    "wan2gp_tpu_torch.models.ltx2.dit",
+    "wan2gp_tpu_torch.models.ltx2.pipeline",
+    "wan2gp_tpu_torch.models.ltx2.vae",
+    "wan2gp_tpu_torch.models.ltx2.audio_vae",
+    "wan2gp_tpu_torch.models.ltx2.gemma",
+    "wan2gp_tpu_torch.models.ltxv.vae",
+    "wan2gp_tpu_torch.models.minimax.audio_vae",
+    "wan2gp_tpu_torch.io.ltx2_checkpoint",
     "wan2gp_tpu_torch.models.krea2.dit",
     "wan2gp_tpu_torch.models.krea2.pipeline",
     "wan2gp_tpu_torch.models.flux.dit",
@@ -141,6 +151,13 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
     from wan2gp_tpu_torch.models.qwen.text_encoder import (
         QwenLMConfig, load_qwen_lm_params)
     from wan2gp_tpu_torch.families.krea2 import Krea2FamilyHandler
+    from wan2gp_tpu_torch.families.ltx2 import LTX2FamilyHandler
+    from wan2gp_tpu_torch.io.ltx2_checkpoint import load_ltx2_params
+    from wan2gp_tpu_torch.models.ltx2.dit import LTX2Config
+    from wan2gp_tpu_torch.models.ltx2.gemma import (Gemma3Config,
+                                                    load_gemma3_params,
+                                                    make_caption_encoder)
+    from wan2gp_tpu_torch.models.ltx2.pipeline import LTX2Pipeline
     from wan2gp_tpu_torch.families.wan import WanFamilyHandler
     from wan2gp_tpu_torch.io.wan_checkpoint import (load_wan_vae_params,
                                                     load_wan22_vae_params)
@@ -191,6 +208,14 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
         "load_hunyuan15_vae_params": lambda: load_hunyuan15_vae_params({}),
         "load_qwen_lm_params": lambda: load_qwen_lm_params(
             {}, QwenLMConfig()),
+        "LTX2Pipeline": lambda: LTX2Pipeline({}, LTX2Config()),
+        "ltx2 load_model": lambda: LTX2FamilyHandler.load_model(
+            "ltx2_22B", {}, init_random=True),
+        "load_ltx2_params": lambda: load_ltx2_params({}, LTX2Config()),
+        "load_gemma3_params": lambda: load_gemma3_params({},
+                                                         Gemma3Config()),
+        "make_caption_encoder": lambda: make_caption_encoder(
+            {}, Gemma3Config(), None, "per_token_rms"),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -227,6 +252,8 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
     for fn, wq in ((quant.matmul_w8, w), (quant.matmul_w4, w[:16])):
         with pytest.raises(ValueError, match="CUDA"):       # the GEMV
             fn(x.float(), wq, s)
+        with pytest.raises(ValueError, match="CUDA"):       # the fp32 tile
+            fn(torch.empty((40, 32), device="meta"), wq, s)
     with pytest.raises(ValueError, match="CUDA"):           # padded D
         attention.attention(q[..., :40], q[..., :40], q[..., :40])
     for act in ("bf16", "int8"):
@@ -246,6 +273,7 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
     assert attention.launches == attention.kvmask_launches == 0
     assert attention.flash_pad_launches == 0
     assert quant.w8_gemv_launches == quant.w4_gemv_launches == 0
+    assert quant.w8_f32_launches == quant.w4_f32_launches == 0
     assert quant.launches == quant.w8a8_launches == 0
     assert quant.w4_launches == quant.w4a8_launches == 0
     assert sparse.launches == sol.launches == 0

@@ -14,7 +14,8 @@ flash attention (dense and kv-masked), block-sparse and Sol flash max abs
 err <= 2e-2 and mean abs err <= 2e-3 (bf16 rounding of q*scale and of P,
 and the summation order), Sol's logsumexp max abs err <= 1e-2; int8, int4,
 W8A8 and W4A8 matmuls relative Frobenius error <= 1e-2; the fp32 W8 and W4
-GEMVs <= 1e-5 (fp32 throughout: only the summation order differs).  The
+GEMVs and tile kernels <= 1e-5 (fp32 throughout: only the summation order
+differs).  The
 GEMV's K split is a pure function too, tested on the CPU.
 """
 import math
@@ -498,11 +499,52 @@ def test_fp32_gemv_kernels_match_plain(gen, kernel, m, k, n):
 
 @pytest.mark.cuda
 def test_fp32_gemv_refuses_large_m(gen):
+    """The GEMV takes no more than GEMV_MAX_M rows: fp32 x at M = 17 goes
+    to csrc/wo_f32_matmul.cu instead."""
     x = torch.randn((17, 256), generator=gen, device="cuda")
     wq, s = quant.quantize_int8(torch.randn((256, 256), generator=gen,
                                             device="cuda"))
-    with pytest.raises(ValueError, match="M <= 16"):
-        quant.matmul_w8(x, wq, s)
+    before = (quant.w8_gemv_launches, quant.w8_f32_launches)
+    quant.matmul_w8(x, wq, s)
+    torch.cuda.synchronize()
+    assert (quant.w8_gemv_launches, quant.w8_f32_launches) == (
+        before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,k,n", [
+    ("w8", 17, 256, 4096),          # the smallest M it takes
+    ("w8", 31, 256, 4096),          # LTX-2 adaLN t1 at 241 frames
+    ("w8", 31, 4096, 36864),        # the 22B video adaLN table (9 x 4096)
+    ("w8", 251, 2048, 18432),       # the audio adaLN table
+    ("w8", 1001, 2048, 1000),       # ragged M and N
+    ("w8", 2000, 4096, 128),        # proj_out at many tokens
+    ("w4", 31, 256, 4096),
+    ("w4", 251, 2048, 18432),
+    ("w4", 1001, 1000, 1001)])      # K < 2 KH: x's high half is short
+def test_fp32_matmul_kernels_match_plain(gen, kernel, m, k, n):
+    """fp32 x above 16 rows through csrc/wo_f32_matmul.cu: relative
+    Frobenius error <= 1e-5 against the plain version in fp32 (only the
+    summation order differs), two launches bit-equal, the GEMV not
+    launched."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    if kernel == "w8":
+        wq, s = quant.quantize_int8(w)
+        fn, ref_fn = quant.matmul_w8, quant.matmul_w8_ref
+    else:
+        wq, s = quant.quantize_int4(w)
+        fn, ref_fn = quant.matmul_w4, quant.matmul_w4_ref
+    counters = (f"{kernel}_f32_launches", f"{kernel}_gemv_launches")
+    before = [getattr(quant, c) for c in counters]
+    got = fn(x, wq, s)
+    again = fn(x, wq, s)
+    torch.cuda.synchronize()
+    assert [getattr(quant, c) for c in counters] == [before[0] + 2,
+                                                     before[1]]
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    ref = ref_fn(x, wq, s)
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-5
 
 
 @pytest.mark.parametrize("rows,n", [(3072, 18432), (3072, 9216),

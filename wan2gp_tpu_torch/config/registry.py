@@ -67,9 +67,15 @@ class ModelRegistry:
         return self.handlers[self.base_model_type(model_type)]
 
     def default_settings(self, model_type: str) -> Dict[str, Any]:
-        """Handler defaults, overlaid with the model file's settings."""
+        """Handler defaults (by base model type, then, where the handler
+        has `definition_settings`, by the definition), overlaid with the
+        model file's settings."""
         base = self.base_model_type(model_type)
-        settings = dict(self.handler_for(model_type).default_settings(base))
+        handler = self.handler_for(model_type)
+        settings = dict(handler.default_settings(base))
+        per_definition = getattr(handler, "definition_settings", None)
+        if per_definition is not None:
+            settings.update(per_definition(base, self.get(model_type)))
         settings.update(self.get(model_type)["settings"])
         settings["model_type"] = model_type
         return settings

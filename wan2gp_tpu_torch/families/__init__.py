@@ -1,11 +1,12 @@
-"""Family handlers of the port: Wan, Krea 2, Flux and HunyuanVideo."""
+"""Family handlers of the port: Wan, Krea 2, Flux, HunyuanVideo and LTX-2."""
 from .flux import FluxFamilyHandler
 from .hyvideo import HunyuanFamilyHandler
 from .krea2 import Krea2FamilyHandler
+from .ltx2 import LTX2FamilyHandler
 from .wan import WanFamilyHandler
 
 _HANDLER_CLASSES = (WanFamilyHandler, Krea2FamilyHandler, FluxFamilyHandler,
-                    HunyuanFamilyHandler)
+                    HunyuanFamilyHandler, LTX2FamilyHandler)
 
 
 def build_handler_map():

@@ -16,11 +16,12 @@ load as {w_q, scale}.  Linears become [K, N] in the loader's dtype (fp32
 for the embedders, the refiner's adaLN, the glyph mapper and the final
 layer), biases in the same dtype, norms fp32.
 
-Refusals: a quanto entry on a top-level linear that runs on fp32 x at
-M > 16 rows (`final_layer.linear`, `byt5_in.fc1/2/3`), for which the port
-has no kernel yet (ROADMAP Queue 1 item 15: the JAX package runs them,
-dequantizing under XLA); the HunyuanCustom / Avatar modules (ROADMAP
-Queue 1 item 5).
+A quanto `final_layer.linear` (fp32 x at M = the image tokens) loads as
+{w_q, scale} and runs through ops/quant.py's fp32 tile kernel, as the JAX
+loader reads it.  Refusals: a quanto `byt5_in.fc1/2/3`, which the JAX
+loader does not read (it looks for `byt5_in.fc1.weight` only, and leaves
+the entries over); the HunyuanCustom / Avatar modules (ROADMAP Queue 1
+item 5).
 """
 from __future__ import annotations
 
@@ -31,8 +32,7 @@ import torch
 from ..ops.quant import quantize_int8
 from .wan_checkpoint import _Reader, _stack, _tensor
 
-_F32_X_LARGE_M = ("final_layer.linear", "byt5_in.fc1", "byt5_in.fc2",
-                  "byt5_in.fc3")
+_QUANTO_UNREAD = ("byt5_in.fc1", "byt5_in.fc2", "byt5_in.fc3")
 _CUSTOM_KEYS = ("ref_in.", "bg_in.", "bg_proj.", "before_proj.",
                 "motion_exp.", "motion_pose.", "fps_proj.", "audio_proj.",
                 "audio_models.", "audio_adapter_blocks.")
@@ -50,13 +50,12 @@ def _strip(sd: Dict[str, Any]) -> Dict[str, Any]:
 def _refuse_unported(keys):
     """Raises for the keys this loader does not read by design."""
     keys = list(keys)
-    for name in _F32_X_LARGE_M:
+    for name in _QUANTO_UNREAD:
         if f"{name}.weight._data" in keys:
             raise ValueError(
-                f"{name}.weight._data: a quanto-int8 {name} runs on fp32 "
-                "activations at more than 16 rows, for which the port has no "
-                "kernel yet (ROADMAP Queue 1 item 15); keep it in bf16 / "
-                "fp32 in the file")
+                f"{name}.weight._data: a quanto-int8 byT5 mapper is not read "
+                "(the JAX loader reads only a float byt5_in and leaves these "
+                "entries over); keep it in fp32 in the file")
     custom = sorted(k for k in keys if k.startswith(_CUSTOM_KEYS))
     if custom:
         raise NotImplementedError(

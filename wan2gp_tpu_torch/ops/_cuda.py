@@ -20,7 +20,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNEL_SOURCES = ("flash_attention", "w8_matmul", "sparse_flash",
-                  "w4_matmul", "act_quant", "wo_gemv")
+                  "w4_matmul", "act_quant", "wo_gemv", "wo_f32_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -61,6 +61,11 @@ ENTRY_POINTS = {
         "wg_w8_gemv_f32": [_P] * 5 + [_I] * 4 + [_P],
         # x, w_p, scale, y, part, M, N, K, KP/2, splits, stream
         "wg_w4_gemv_f32": [_P] * 5 + [_I] * 5 + [_P]},
+    "wo_f32_matmul": {
+        # x, w_q, scale, y, M, N, K, stream
+        "wg_w8_matmul_f32": [_P] * 4 + [_I] * 3 + [_P],
+        # x, w_p, scale, y, M, N, K, KP/2, stream
+        "wg_w4_matmul_f32": [_P] * 4 + [_I] * 4 + [_P]},
 }
 
 _libs = {}

@@ -9,7 +9,9 @@ launch the kernels of csrc/w8_matmul.cu, `matmul_w4` / `matmul_w4a8`
 those of csrc/w4_matmul.cu and `quantize_act_int8` that of
 csrc/act_quant.cu; `matmul_w8` / `matmul_w4` on fp32 x of at most
 GEMV_MAX_M rows (the Flux blocks' modulation linears) launch those of
-csrc/wo_gemv.cu.  On a CPU tensor each runs its plain version
+csrc/wo_gemv.cu, and on fp32 x of more rows (LTX-2's per-frame adaLN
+tables, its patchify and proj_out, HunyuanVideo's final layer) those of
+csrc/wo_f32_matmul.cu.  On a CPU tensor each runs its plain version
 (`matmul_w8_ref`, `matmul_w8a8_ref`, `matmul_w4_ref`, `matmul_w4a8_ref`,
 `quantize_act_int8_ref`).  The matmul kernels read through TMA maps, which
 take only some sizes (`wo_layout`, `a8_layout`); their wrappers zero-pad
@@ -35,13 +37,16 @@ w4a8_launches = 0       # matmul_w4a8
 act_quant_launches = 0  # quantize_act_int8
 w8_gemv_launches = 0    # matmul_w8 on fp32 x (csrc/wo_gemv.cu)
 w4_gemv_launches = 0    # matmul_w4 on fp32 x
+w8_f32_launches = 0     # matmul_w8 on fp32 x above GEMV_MAX_M rows
+w4_f32_launches = 0     # (csrc/wo_f32_matmul.cu), matmul_w4 likewise
 # launches of the matmul kernels whose operands had to be padded
 w8_pad_launches = 0
 w4_pad_launches = 0
 w8a8_pad_launches = 0
 w4a8_pad_launches = 0
 
-# fp32 x takes the weight-only GEMV kernel up to this many rows
+# fp32 x takes the weight-only GEMV kernel up to this many rows, and the
+# fp32 tile kernel above
 GEMV_MAX_M = 16
 # rows of the weight (W4: packed rows) one GEMV CTA reads, at most; and the
 # CTAs the GEMV's K split aims for (two a streaming multiprocessor)
@@ -162,16 +167,31 @@ def gemv_splits(rows: int, n: int) -> int:
     return -(-rows // -(-rows // splits))
 
 
-def _gemv_f32(name, x, w, scale, kh=None):
-    """fp32 x [M <= GEMV_MAX_M, K] against the int8 (kh None) or packed int4
-    weight: the kernel of csrc/wo_gemv.cu, fp32 out."""
+def _matmul_f32(name, x, w, scale, kh=None):
+    """fp32 x [M, K] against the int8 (kh None) or packed int4 weight, fp32
+    out: the GEMV of csrc/wo_gemv.cu up to GEMV_MAX_M rows, the tile kernel
+    of csrc/wo_f32_matmul.cu above."""
     global w8_gemv_launches, w4_gemv_launches
+    global w8_f32_launches, w4_f32_launches
     m, k = x.shape
-    if m > GEMV_MAX_M:
-        raise ValueError(f"{name}: fp32 x runs the GEMV kernel, which takes "
-                         f"M <= {GEMV_MAX_M}; got M={m} (bf16 x takes the "
-                         f"matmul kernel)")
     rows, n = w.shape
+    if m > GEMV_MAX_M:
+        if -(-m // 64) > 65535:
+            raise ValueError(f"{name}: M={m} exceeds the fp32 kernel's grid")
+        y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        lib = _cuda.library("wo_f32_matmul")
+        stream = _cuda.stream_handle(x)
+        if kh is None:
+            _cuda.check(lib.wg_w8_matmul_f32(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                m, n, k, stream), f"{name} launch")
+            w8_f32_launches += 1
+        else:
+            _cuda.check(lib.wg_w4_matmul_f32(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                m, n, k, kh, stream), f"{name} launch")
+            w4_f32_launches += 1
+        return y
     splits = gemv_splits(rows, n)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
@@ -194,13 +214,14 @@ def matmul_w8(x, w_q, scale):
     """x: [M, K]; w_q: [K, N] int8; scale: [N] -> [M, N] in x.dtype.
     CPU tensors run `matmul_w8_ref`; CUDA tensors launch the kernel (bf16
     x, any M, N, K; padded per `wo_layout` where needed), or the GEMV
-    kernel (fp32 x, M <= GEMV_MAX_M), or raise."""
+    kernel (fp32 x, M <= GEMV_MAX_M), or the fp32 tile kernel (fp32 x,
+    more rows), or raise."""
     global launches, w8_pad_launches
     if x.device.type == "cpu":
         return matmul_w8_ref(x, w_q, scale)
     if x.dtype == torch.float32:
         _check_w8_inputs("matmul_w8", x, w_q, scale, torch.float32)
-        return _gemv_f32("matmul_w8", x, w_q, scale)
+        return _matmul_f32("matmul_w8", x, w_q, scale)
     _check_w8_inputs("matmul_w8", x, w_q, scale, torch.bfloat16)
     m = x.shape[0]
     n = w_q.shape[1]
@@ -385,14 +406,15 @@ def matmul_w4(x, w_p, scale):
     """x: [M, K]; w_p: packed int4 [KP/2, N]; scale: [N] -> [M, N] in
     x.dtype.  CPU tensors run `matmul_w4_ref`; CUDA tensors launch the
     kernel (bf16 x, any M, N, K <= KP; padded per `wo_layout` where
-    needed), or the GEMV kernel (fp32 x, M <= GEMV_MAX_M), or raise."""
+    needed), or the GEMV kernel (fp32 x, M <= GEMV_MAX_M), or the fp32
+    tile kernel (fp32 x, more rows), or raise."""
     global w4_launches, w4_pad_launches
     if x.device.type == "cpu":
         return matmul_w4_ref(x, w_p, scale)
     if x.dtype == torch.float32:
         _check_w4_inputs("matmul_w4", x, w_p, scale, torch.float32,
                          row_multiple=1)
-        return _gemv_f32("matmul_w4", x, w_p, scale, kh=w_p.shape[0])
+        return _matmul_f32("matmul_w4", x, w_p, scale, kh=w_p.shape[0])
     _check_w4_inputs("matmul_w4", x, w_p, scale, torch.bfloat16,
                      row_multiple=1)
     m = x.shape[0]

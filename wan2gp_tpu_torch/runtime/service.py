@@ -1,12 +1,13 @@
 """GenerationService: settings dict -> video or image files.
 
 Counterpart of wan2gp_tpu/runtime/service.py for the Wan t2v/i2v, VACE and
-Multitalk, HunyuanVideo 1.5 t2v, and the Krea 2 and Flux text-to-image
-paths: model resolution and a pipeline cache, settings merge, resolution
+Multitalk, HunyuanVideo 1.5 t2v, LTX-2 text-to-audio+video, and the Krea 2
+and Flux text-to-image paths: model resolution and a pipeline cache, settings merge, resolution
 alignment, family dispatch (models whose definition has `image_outputs` go
 through the handler's
 `generate_image` and are saved as PNG) and saving with embedded settings
-(and a handler's `audio` as the AVI's PCM16 stream).  Settings keys follow
+(and a handler's `audio` as the AVI's PCM16 stream, at its
+`audio_sample_rate`: Multitalk's 16 kHz mono, LTX-2's 24 kHz stereo).  Settings keys follow
 the reference task format (prompt, negative_prompt, resolution "WxH",
 video_length, num_inference_steps, guidance_scale, flow_shift,
 sample_solver, seed, model_type, ...).
@@ -40,8 +41,10 @@ def quantize_dit_params(params, mode: str):
     under a *blocks* path with K, N >= 256 becomes {"w_q"|"w_q4",
     "scale"}, the blocks' modulation linears among them (Flux's and
     HunyuanVideo's `mod`, HunyuanVideo's refiner `ada`: fp32 products at
-    M = batch, which take the fp32 GEMV kernel); the embedders, the patch
-    embedding, the final layer and the norms stay float.
+    M = batch, which take the fp32 GEMV kernel), and LTX-2's blocks (the
+    JAX service quantizes a `dit_params` that its LTX-2 pipeline does not
+    have, so there nothing changes); the embedders, the patch embedding,
+    the final layer and the norms stay float.
     Modes: "int8" (or "quanto_int8"), "int4", and "int8a8" / "int4a8",
     which store the weights as "int8" / "int4" do; their int8 activations
     are the DiT config's `act_quant` (see `activation_mode`), never a
