@@ -43,13 +43,18 @@ the repository).  Phases, each printing one JSON line:
             (k, v rows 132 elements apart; q 8 bytes off), each counted as
             a padded launch.  The fp32 W8 and W4 GEMVs (csrc/wo_gemv.cu):
             relative Frobenius error <= 1e-5 (only the sum order differs)
-            at (K)'s and (L)'s modulation shapes and at M = 2, 3 with
-            N = 1,001.  Dense flash also at HunyuanVideo 1.5's 16 heads
+            at (K)'s and (L)'s modulation shapes, at M = 2, 3 with
+            N = 1,001, at M = 16 and with x's rows scaled by 1e-20, 1 and
+            1e20 (each row held to the limit); two launches bit-equal.
+            Dense flash also at HunyuanVideo 1.5's 16 heads
             over a ragged L = S = 1,000, and at (M)'s a2v / v2a shapes
             (27,280 x 251 and 251 x 27,280, 32 heads of 64).  The fp32 W8
-            and W4 tile kernels (csrc/wo_f32_matmul.cu) at M = 17, 31, 251
-            and 1,001, K 256 / 1000 / 2048 / 4096, N ragged: relative
-            Frobenius error <= 1e-5, the GEMV not launched.
+            and W4 tile kernels (csrc/wo_f32_matmul.cu: x split into three
+            exact bf16 parts for bf16 wgmma) at M = 17, 31, 251 and 1,001,
+            the token tiles' edges 32, 33, 64, 65, K 128 / 256 / 1000 /
+            2048 / 4096, N ragged, and rows scaled by 1e-20, 1 and 1e20:
+            relative Frobenius error <= 1e-5, the GEMV not launched, two
+            launches bit-equal.
             The Wan2.2 VAE decode at full width (random
             weights) against the same decode on the CPU for one small tile
             (2 x 4 x 4 latents): max abs err <= 1e-3.
@@ -113,14 +118,19 @@ the repository).  Phases, each printing one JSON line:
             and (L)'s (the joint attention at B2 L = S = 10,262, 16 heads;
             W8 at the image stream's four linears, M = 19,500, and the text
             stream's qkv, M = 1,024; the fp32 W8 GEMV at M = 2, K = 2048,
-            N = 12,288) and (M)'s (flash at the video self-attention, B1
-            L = S = 27,280, 32 heads of 128, its text cross, the audio
-            self-attention at 251 tokens, 32 heads of 64, and the a2v / v2a
-            crosses; W8 at the video q/k/v/out and FFN at M = 27,280 and
-            the audio FFN; the fp32 tile kernels, W8 and W4, at the adaLN
-            tables, M = 31 / 251, and patchify / proj_out, M = 27,280,
-            beside torch.matmul on the fp32 weight; the GEMV at the prompt
-            adaLN), each with its launches per forward.
+            N = 12,288 and 4,096) and (M)'s (flash at the video
+            self-attention, B1 L = S = 27,280, 32 heads of 128, its text
+            cross, the audio self-attention at 251 tokens, 32 heads of 64,
+            and the a2v / v2a crosses; W8 at the video q/k/v/out and FFN at
+            M = 27,280 and the audio FFN; the fp32 W8 tile kernel at all
+            twelve shapes (M) runs it at (the adaLN tables' t1, t2 and
+            linear at M = 31 / 251, patchify and proj_out of both streams),
+            the W4 one at the largest four, beside torch.matmul on the fp32
+            weight; the GEMV at the prompt tables' six), each with its
+            launches per forward.  The fp32 rows time the call (in turns
+            with the library call) and the kernel alone (a CUDA graph of
+            the launches); the tile kernel's bound is three bf16 products
+            or the bytes, with the fp32-SIMT bound beside it.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
@@ -468,12 +478,14 @@ def reset_pads():
     A.flash_pad_launches = 0
     Q.w8_pad_launches = Q.w4_pad_launches = 0
     Q.w8a8_pad_launches = Q.w4a8_pad_launches = 0
+    Q.w8_f32_pad_launches = Q.w4_f32_pad_launches = 0
 
 
 def read_pads() -> int:
     from wan2gp_tpu_torch.ops import attention as A, quant as Q
     return (A.flash_pad_launches + Q.w8_pad_launches + Q.w4_pad_launches
-            + Q.w8a8_pad_launches + Q.w4a8_pad_launches)
+            + Q.w8a8_pad_launches + Q.w4a8_pad_launches
+            + Q.w8_f32_pad_launches + Q.w4_f32_pad_launches)
 
 
 def reset_counts():
@@ -712,12 +724,53 @@ def _gemv_kernels():
              Q.matmul_w4_ref))
 
 
+def scaled_rows(x):
+    """x with its rows scaled by 1e-20, 1 and 1e20 in turn."""
+    scales = torch.tensor([1e-20, 1.0, 1e20], device=x.device)
+    return x * scales[torch.arange(x.shape[0], device=x.device) % 3, None]
+
+
+def f32_case(kernel, name, qfn, fn, ref_fn, m, k, n, gen, limit, counter,
+             scaled=False):
+    """One fp32 GEMV or tile-kernel case: one launch of the kernel (and of
+    no other fp32 kernel), fp32 out, two launches bit-equal, the relative
+    Frobenius error against the plain version in fp32 <= limit (scaled:
+    x's rows at 1e-20, 1 and 1e20 in turn, each row held to the limit)."""
+    from wan2gp_tpu_torch.ops import quant as Q
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    if scaled:
+        x = scaled_rows(x)
+    wq, sc = qfn(torch.randn((k, n), generator=gen, device="cuda"))
+    names = ("w8_gemv_launches", "w4_gemv_launches", "w8_f32_launches",
+             "w4_f32_launches")
+    before = {a: getattr(Q, a) for a in names}
+    got = fn(x, wq, sc)
+    want = {a: before[a] + (a == counter[1]) for a in names}
+    if {a: getattr(Q, a) for a in names} != want \
+            or got.dtype != torch.float32:
+        raise AssertionError(f"{kernel} {name}: not one launch")
+    if not torch.equal(got, fn(x, wq, sc)):
+        raise AssertionError(f"{kernel} {name}: two launches differ")
+    ref = ref_fn(x, wq, sc)
+    if not scaled:
+        return mm_check(kernel, name, got, ref, limit)
+    diff = ref - got
+    # rel_fro: the worst row's; max_abs: over the rows at scale 1
+    e = {"rel_fro": (diff.norm(dim=1) / ref.norm(dim=1)).max().item(),
+         "max_abs": diff[1::3].abs().max().item()}
+    if not (e["rel_fro"] <= limit and torch.isfinite(got).all()):
+        raise AssertionError(f"{kernel} {name}: {e}")
+    return e
+
+
 def gemv_checks(gen):
     """The fp32 W8 and W4 GEMVs against their plain versions in fp32: at
     (K)'s modulation shapes (M = 1, K = 3072, N = 18,432 and 9,216), at
-    (L)'s (M = 2, K = 2048, N = 12,288), and at
-    M = 2 and 3 with N = 1,001 (not a multiple of the 1,024-column tile,
-    nor of the 4 columns a thread loads) and, for W4, K = 1,000 < 2 KH."""
+    (L)'s (M = 2, K = 2048, N = 12,288), at M = 2 and 3 with N = 1,001 (not
+    a multiple of the columns a thread loads) and, for W4, K = 1,000 < 2 KH,
+    at M = 16 (the most the GEMV takes) and with x's rows at 1e-20, 1 and
+    1e20 (each row held to the limit).  One launch a case, two launches
+    bit-equal."""
     out = {}
     for kernel, qfn, fn, ref_fn in _gemv_kernels():
         counter = counters()[kernel]
@@ -727,15 +780,13 @@ def gemv_checks(gen):
                                 "m2_3072x1001": (2, 3072, 1001),
                                 # (L): HV1.5's modulation at CFG batch 2
                                 "hv15_mod_2x2048x12288": (2, 2048, 12288),
-                                "m3_1000x1001": (3, 1000, 1001)}.items():
-            x = torch.randn((m, k), generator=gen, device="cuda")
-            wq, sc = qfn(torch.randn((k, n), generator=gen, device="cuda"))
-            before = getattr(*counter)
-            got = fn(x, wq, sc)
-            if getattr(*counter) != before + 1 or got.dtype != torch.float32:
-                raise AssertionError(f"{kernel} {name}: not one launch")
-            out[kernel][name] = mm_check(kernel, name, got,
-                                         ref_fn(x, wq, sc), GEMV_REL_FRO)
+                                "m3_1000x1001": (3, 1000, 1001),
+                                "m16_2048x4096": (16, 2048, 4096),
+                                "scaled_3x3072x9216": (3, 3072, 9216)
+                                }.items():
+            out[kernel][name] = f32_case(
+                kernel, name, qfn, fn, ref_fn, m, k, n, gen, GEMV_REL_FRO,
+                counter, scaled=name.startswith("scaled"))
     return out
 
 
@@ -752,32 +803,31 @@ def _f32_kernels():
 def f32_checks(gen):
     """The fp32 W8 and W4 tile kernels against their plain versions in
     fp32 (relative Frobenius error <= F32_REL_FRO), one launch each and
-    none of the GEMV: M = 17 (the first above the GEMV), 31 and 251 ((M)'s
-    per-frame and per-audio-step adaLN rows) and a ragged 1,001, at K 256 /
-    2048 / 4096 and ragged N; W4 also with K < 2 KH."""
-    from wan2gp_tpu_torch.ops import quant as Q
+    none of the GEMV, two launches bit-equal: M = 17 (the first above the
+    GEMV), 31 and 251 ((M)'s per-frame and per-audio-step adaLN rows), the
+    token tiles' edges 32, 33, 64 and 65, and a ragged 1,001, at K 256 /
+    2048 / 4096 and ragged N; W4 also with K < 2 KH and at K = 128 <= KH
+    (patchify: the low half only); x's rows at 1e-20, 1 and 1e20 (each row
+    held to the limit)."""
     cases = {"17x256x4096": (17, 256, 4096), "31x256x4096": (31, 256, 4096),
+             "32x256x4096": (32, 256, 4096), "33x256x4096": (33, 256, 4096),
+             "64x2048x4096": (64, 2048, 4096),
+             "65x2048x4096": (65, 2048, 4096),
              "31x4096x36864": (31, 4096, 36864),
              "251x2048x18432": (251, 2048, 18432),
              "1001x2048x1000": (1001, 2048, 1000),
              "1001x4096x4100": (1001, 4096, 4100),
-             "251x1000x1001": (251, 1000, 1001)}
+             "251x1000x1001": (251, 1000, 1001),
+             "2000x128x4096": (2000, 128, 4096),
+             "scaled_40x4096x4096": (40, 4096, 4096)}
     out = {}
     for kernel, qfn, fn, ref_fn in _f32_kernels():
         counter = counters()[kernel]
         out[kernel] = {}
         for name, (m, k, n) in cases.items():
-            x = torch.randn((m, k), generator=gen, device="cuda")
-            wq, sc = qfn(torch.randn((k, n), generator=gen, device="cuda"))
-            before = (getattr(*counter), Q.w8_gemv_launches,
-                      Q.w4_gemv_launches)
-            got = fn(x, wq, sc)
-            if (getattr(*counter), Q.w8_gemv_launches,
-                    Q.w4_gemv_launches) != (before[0] + 1, *before[1:]) \
-                    or got.dtype != torch.float32:
-                raise AssertionError(f"{kernel} {name}: not one launch")
-            out[kernel][name] = mm_check(kernel, name, got,
-                                         ref_fn(x, wq, sc), F32_REL_FRO)
+            out[kernel][name] = f32_case(
+                kernel, name, qfn, fn, ref_fn, m, k, n, gen, F32_REL_FRO,
+                counter, scaled=name.startswith("scaled"))
     return out
 
 
@@ -1563,12 +1613,38 @@ def time_w8(name, m, k, n):
             "over_library": ms / library_ms, "err": err}
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one fn() in ms: reps calls captured in a CUDA graph
+    and replayed between two events, so no host work lies between the
+    launches (cuda_ms's back-to-back calls also measure the host's call
+    rate)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / reps
+
+
 def time_gemv(kernel, m, k, n):
     """An fp32 GEMV (or, above GEMV_MAX_M rows, the fp32 tile kernel) at
-    one modulation shape, each launch on another of
-    four weights (the four exceed the 50 MB L2, as the forward finds the
-    weight cold), beside torch.matmul on the weight dequantized to fp32
-    beforehand (four copies, taken in turn too)."""
+    one main-path shape, each launch on another of four weights (the four
+    exceed the 50 MB L2, as the forward finds the weight cold), beside
+    torch.matmul on the weight dequantized to fp32 beforehand (four copies,
+    taken in turn too).  ms: the call (events around back-to-back calls,
+    host included; in turns with the library call, each the mean of two
+    runs); device_ms: the kernel alone (graph_ms).  The tile
+    kernel's bound is three bf16 products (its fp32-exact method) or the
+    bytes; the fp32-SIMT bound beside it is labelled as such."""
     import itertools
     from wan2gp_tpu_torch.ops import quant as Q
     _, qfn, fn, ref_fn = next(g for g in (*_gemv_kernels(), *_f32_kernels())
@@ -1578,29 +1654,51 @@ def time_gemv(kernel, m, k, n):
     ws = [qfn(torch.randn((k, n), generator=gen, device="cuda"))
           for _ in range(4)]
     name = f"{m}x{k}x{n}"
+    tile = m > Q.GEMV_MAX_M
     err = mm_check(kernel, name, fn(x, *ws[0]), ref_fn(x, *ws[0]),
-                   GEMV_REL_FRO if m <= Q.GEMV_MAX_M else F32_REL_FRO)
+                   F32_REL_FRO if tile else GEMV_REL_FRO)
     it = itertools.cycle(ws)
     reps = 200 if m <= 256 else 10
-    ms = cuda_ms(lambda: fn(x, *next(it)), reps)
-    plain_ms = cuda_ms(lambda: ref_fn(x, *next(it)), 20 if m <= 256 else 3)
     deq = [wq.float() * sc if kernel.startswith("matmul_w8")
            else Q.unpack_int4(wq, sc, k) for wq, sc in ws]
     dit = itertools.cycle(deq)
-    library_ms = cuda_ms(lambda: torch.matmul(x, next(dit)), reps)
+    # the call and the library's in turns (library, kernel, kernel,
+    # library): where the host sets both, the order moves them
+    turns = [cuda_ms(lambda: torch.matmul(x, next(dit)), reps, 5),
+             cuda_ms(lambda: fn(x, *next(it)), reps, 5),
+             cuda_ms(lambda: fn(x, *next(it)), reps, 5),
+             cuda_ms(lambda: torch.matmul(x, next(dit)), reps, 5)]
+    ms, library_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    device_ms = graph_ms(lambda: fn(x, *next(it)), reps)
+    plain_ms = cuda_ms(lambda: ref_fn(x, *next(it)), 20 if m <= 256 else 3)
     w_bytes = ws[0][0].numel()
-    bound_ms, by = bound(2.0 * m * k * n, 4 * m * k + w_bytes + 4 * n
-                         + 4 * m * n, peak=PEAK_FP32_FLOPS)
+    rows = ws[0][0].shape[0]
+    nbytes = 4 * m * k + w_bytes + 4 * n + 4 * m * n
+    simt_ms, simt_by = bound(2.0 * m * k * n, nbytes, peak=PEAK_FP32_FLOPS)
+    if tile:
+        bound_ms, by = bound(3 * 2.0 * m * k * n, nbytes)
+        extra = {"bound_method": "3 bf16 products (x split in 3 exact bf16 "
+                                 "parts) at 989 TFLOP/s, or bytes",
+                 "bound_fp32_simt_ms": simt_ms, "bound_fp32_simt_by": simt_by,
+                 "plan_tile_split": list(Q.f32_plan(
+                     m, -(-n // 16) * 16,
+                     Q.f32_steps(k, None if kernel.startswith("matmul_w8")
+                                 else rows)))}
+    else:
+        bound_ms, by = simt_ms, simt_by
+        rows = rows if kernel.startswith("matmul_w8") else min(rows, k)
+        extra = {"bound_method": "fp32 FMAs at 67 TFLOP/s, or bytes",
+                 "plan_cp_cluster": list(Q.gemv_plan(m, rows, n))}
     del ws, deq, dit, it
     torch.cuda.empty_cache()
-    return {"shape": [m, k, n], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+    return {"shape": [m, k, n], "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "library_call": "torch.matmul on an fp32 weight dequantized "
                             "beforehand (reads 4 bytes per weight)",
-            "bound_ms": bound_ms, "bound_by": by,
-            "bound_share": bound_ms / ms, "over_library": ms / library_ms,
-            **({"splits": Q.gemv_splits(w_bytes // n, n)}
-               if m <= Q.GEMV_MAX_M else {}), "err": err}
+            "bound_ms": bound_ms, "bound_by": by, **extra,
+            "bound_share": bound_ms / ms,
+            "device_bound_share": bound_ms / device_ms,
+            "over_library": ms / library_ms, "err": err}
 
 
 def _pairs(kv_idx, counts, l, s_len, block_q, block_kv):
@@ -1960,16 +2058,18 @@ def phase_time(tokens: int):
 def time_l(flash, w8, gemv):
     """(L)'s rows: the joint attention at B2 L = S = 10,262 over 16 heads,
     W8 at the image stream's four linears (M = 19,500) and the text
-    stream's qkv (M = 1,024), the fp32 W8 GEMV at the modulation (M = 2),
-    each with its launches per (L) forward."""
+    stream's qkv (M = 1,024), the fp32 W8 GEMV at the modulations and the
+    refiner's adaLN (M = 2, N 12,288 and 4,096), each with its launches per
+    (L) forward."""
     flash["self_hv15_L"] = time_flash("self_hv15_L", 2, L_TOKENS, L_TOKENS,
                                       16, 128)
     for m, k, n in ((2 * L_IMG, *L_LINEARS[0]), (2 * L_IMG, *L_LINEARS[1]),
                     (2 * L_IMG, *L_LINEARS[2]), (2 * L_IMG, *L_LINEARS[3]),
                     (2 * L_TXT, *L_LINEARS[0])):
         w8[f"{m}x{k}x{n}"] = time_w8(f"{m}x{k}x{n}", m, k, n)
-    gemv["matmul_w8_gemv"]["2x2048x12288"] = time_gemv("matmul_w8_gemv", 2,
-                                                       2048, 12288)
+    for n in (12288, 4096):
+        gemv["matmul_w8_gemv"][f"2x2048x{n}"] = time_gemv("matmul_w8_gemv", 2,
+                                                          2048, n)
     for table in (flash, w8, gemv["matmul_w8_gemv"]):
         for case, t in table.items():
             if case in L_PER_FORWARD:
@@ -1982,19 +2082,31 @@ def time_l(flash, w8, gemv):
 # D64, its text cross, a2v, v2a); W8 on q, k, v, out and the gate of each
 # of the 6 attentions and on the two FFNs (34 a block) and the 4 caption
 # projection linears; the fp32 tile kernel on patchify and proj_out of both
-# streams and the 6 adaLN tables' 3 linears at M = 31 / 251 (22); the fp32
-# GEMV on the 2 prompt adaLN tables' 3 linears at M = 1 (6)
+# streams and the 6 adaLN tables' t1, t2 and linear at M = 31 / 251 (22);
+# the fp32 GEMV on the 2 prompt adaLN tables' t1, t2 and linear at M = 1
+# (6)
 M_KERNELS = {"flash_attention": 6 * 48, "matmul_w8": 34 * 48 + 4,
              "matmul_w8_f32": 22, "matmul_w8_gemv": 6}
+# the tile kernel's shapes: video tables (adaLN 9 x 4096, the a/v cross
+# scale-shift 4 x 4096, the a2v gate 4096; t1 from the 256 sinusoid, t2
+# 4096 x 4096), audio tables likewise at 2048, patchify and proj_out
+M_F32 = {f"{M_GRID[0]}x256x4096": 3, f"{M_GRID[0]}x4096x4096": 4,
+         f"{M_GRID[0]}x4096x36864": 1, f"{M_GRID[0]}x4096x16384": 1,
+         f"{M_AUDIO}x256x2048": 3, f"{M_AUDIO}x2048x2048": 4,
+         f"{M_AUDIO}x2048x18432": 1, f"{M_AUDIO}x2048x8192": 1,
+         f"{M_TOKENS}x128x4096": 1, f"{M_AUDIO}x128x2048": 1,
+         f"{M_TOKENS}x4096x128": 1, f"{M_AUDIO}x2048x128": 1}
+# the GEMV's: the video and audio prompt tables (2 x 4096, 2 x 2048)
+M_GEMV = {"1x256x4096": 1, "1x4096x4096": 1, "1x4096x8192": 1,
+          "1x256x2048": 1, "1x2048x2048": 1, "1x2048x4096": 1}
+assert sum(M_F32.values()) == M_KERNELS["matmul_w8_f32"]
+assert sum(M_GEMV.values()) == M_KERNELS["matmul_w8_gemv"]
 M_PER_FORWARD = {"self_ltx2_M": 48, "text_cross_ltx2_M": 48,
                  "audio_self_ltx2_M": 48, "a2v_ltx2_M": 48,
                  "v2a_ltx2_M": 48,
                  f"{M_TOKENS}x4096x4096": 6 * 48,
                  f"{M_TOKENS}x4096x16384": 48, f"{M_TOKENS}x16384x4096": 48,
-                 f"{M_AUDIO}x2048x8192": 48,
-                 f"{M_GRID[0]}x4096x36864": 1, f"{M_AUDIO}x2048x18432": 1,
-                 f"{M_TOKENS}x128x4096": 1, f"{M_TOKENS}x4096x128": 1,
-                 "1x4096x8192": 1}
+                 f"{M_AUDIO}x2048x8192": 48}
 
 
 def time_m(flash, w8, gemv):
@@ -2002,10 +2114,11 @@ def time_m(flash, w8, gemv):
     32 heads of 128), its text cross (S = the prompt's bytes), the audio
     self-attention (251, 32 x 64) and the a2v / v2a crosses; W8 at the
     video q/k/v/out (K = N = 4096), the FFN (4096 x 16,384 and back) and the
-    audio FFN; the fp32 tile kernel (W8 and W4) at the video and audio adaLN
-    tables (M = 31, K 4096, N 9 x 4096; M = 251, K 2048, N 9 x 2048) and at
-    patchify / proj_out (M = 27,280); the fp32 GEMV at the prompt adaLN
-    (M = 1).  Returns the tile kernel's rows."""
+    audio FFN; the fp32 W8 tile kernel at every shape (M) runs it at
+    (M_F32: the adaLN tables' t1, t2 and linear at M = 31 / 251, patchify
+    and proj_out of both streams), the W4 one at the largest four; the fp32
+    GEMV at the prompt tables' (M_GEMV, M = 1).  Returns the tile kernel's
+    rows."""
     n_txt = len(M_PROMPT.encode())
     for name, shape in (
             ("self_ltx2_M", (1, M_TOKENS, M_TOKENS, 32, 128)),
@@ -2019,17 +2132,25 @@ def time_m(flash, w8, gemv):
                                (M_TOKENS, 4096, 16384),
                                (M_TOKENS, 16384, 4096),
                                (M_AUDIO, 2048, 8192))})
-    f32 = {kernel: {} for kernel in ("matmul_w8_f32", "matmul_w4_f32")}
-    for m, k, n in ((M_GRID[0], 4096, 36864), (M_AUDIO, 2048, 18432),
-                    (M_TOKENS, 128, 4096), (M_TOKENS, 4096, 128)):
-        for kernel in f32:
-            f32[kernel][f"{m}x{k}x{n}"] = time_gemv(kernel, m, k, n)
-    gemv["matmul_w8_gemv"]["1x4096x8192"] = time_gemv("matmul_w8_gemv", 1,
-                                                      4096, 8192)
-    for table in (flash, w8, gemv["matmul_w8_gemv"], *f32.values()):
+    f32 = {"matmul_w8_f32": {case: time_gemv("matmul_w8_f32",
+                                             *map(int, case.split("x")))
+                             for case in M_F32},
+           # no path runs W4 on fp32 x above 16 rows: the largest shapes
+           "matmul_w4_f32": {case: time_gemv("matmul_w4_f32",
+                                             *map(int, case.split("x")))
+                             for case in (f"{M_GRID[0]}x4096x36864",
+                                          f"{M_AUDIO}x2048x18432",
+                                          f"{M_TOKENS}x128x4096",
+                                          f"{M_TOKENS}x4096x128")}}
+    for case in M_GEMV:
+        gemv["matmul_w8_gemv"][case] = time_gemv("matmul_w8_gemv",
+                                                 *map(int, case.split("x")))
+    for table, per_forward in ((flash, M_PER_FORWARD), (w8, M_PER_FORWARD),
+                               (gemv["matmul_w8_gemv"], M_GEMV),
+                               (f32["matmul_w8_f32"], M_F32)):
         for case, t in table.items():
-            if case in M_PER_FORWARD:
-                t["launches_per_forward_M"] = M_PER_FORWARD[case]
+            if case in per_forward:
+                t["launches_per_forward_M"] = per_forward[case]
     return f32
 
 

@@ -15,8 +15,9 @@ err <= 2e-2 and mean abs err <= 2e-3 (bf16 rounding of q*scale and of P,
 and the summation order), Sol's logsumexp max abs err <= 1e-2; int8, int4,
 W8A8 and W4A8 matmuls relative Frobenius error <= 1e-2; the fp32 W8 and W4
 GEMVs and tile kernels <= 1e-5 (fp32 throughout: only the summation order
-differs).  The
-GEMV's K split is a pure function too, tested on the CPU.
+differs).  The fp32 tile kernel's split of x into three bf16 parts, its
+numerics (emulated in plain torch, against the plain versions and the JAX
+package's) and the two fp32 kernels' host plans are tested on the CPU.
 """
 import math
 
@@ -519,8 +520,15 @@ def test_fp32_gemv_refuses_large_m(gen):
     ("w8", 251, 2048, 18432),       # the audio adaLN table
     ("w8", 1001, 2048, 1000),       # ragged M and N
     ("w8", 2000, 4096, 128),        # proj_out at many tokens
+    ("w8", 32, 256, 4096),          # the 32-row tile, full
+    ("w8", 33, 256, 4096),          # the first M of the 64-row tile
+    ("w8", 64, 256, 4096),
+    ("w8", 65, 256, 4096),          # 64-row tiles, the second ragged
+    ("w8", 300, 512, 8192),         # 5 ragged 64-row tiles x 64 CTAs
     ("w4", 31, 256, 4096),
     ("w4", 251, 2048, 18432),
+    ("w4", 300, 512, 8192),
+    ("w4", 2000, 128, 4096),        # patchify-like: K <= KH, low half only
     ("w4", 1001, 1000, 1001)])      # K < 2 KH: x's high half is short
 def test_fp32_matmul_kernels_match_plain(gen, kernel, m, k, n):
     """fp32 x above 16 rows through csrc/wo_f32_matmul.cu: relative
@@ -547,17 +555,225 @@ def test_fp32_matmul_kernels_match_plain(gen, kernel, m, k, n):
     assert ((got - ref).norm() / ref.norm()).item() <= 1e-5
 
 
-@pytest.mark.parametrize("rows,n", [(3072, 18432), (3072, 9216),
-                                    (1536, 18432), (1000, 1001), (7, 5),
-                                    (65536, 256)])
-def test_fp32_gemv_split_on_cpu(rows, n):
-    """The K split: no split empty, at most 256 rows each, and a grid of at
-    least half the 264 CTAs it aims for (rows allowing)."""
-    splits = quant.gemv_splits(rows, n)
-    r = -(-rows // splits)
-    tiles = -(-n // 1024)
-    assert r <= 256 and (splits - 1) * r < rows
-    assert tiles * splits >= min(264, tiles * rows) / 2
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,k,n", [
+    ("w8", 3, 3072, 9216),          # the GEMV
+    ("w4", 2, 3072, 9216),
+    ("w8", 40, 2048, 4096),         # the tile kernel
+    ("w4", 40, 2048, 4096)])
+def test_fp32_kernels_on_scaled_rows(gen, kernel, m, k, n):
+    """Rows of x scaled by 1e-20, 1 and 1e20 in turn: each row of y within
+    1e-5 relative Frobenius error of the plain version's (the tile kernel's
+    three bf16 parts of x hold it exactly at every such magnitude)."""
+    scales = torch.tensor([1e-20, 1.0, 1e20], device="cuda")
+    x = torch.randn((m, k), generator=gen, device="cuda") \
+        * scales[torch.arange(m, device="cuda") % 3, None]
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    if kernel == "w8":
+        wq, s = quant.quantize_int8(w)
+        got, ref = quant.matmul_w8(x, wq, s), quant.matmul_w8_ref(x, wq, s)
+    else:
+        wq, s = quant.quantize_int4(w)
+        got, ref = quant.matmul_w4(x, wq, s), quant.matmul_w4_ref(x, wq, s)
+    torch.cuda.synchronize()
+    rel = (got - ref).norm(dim=1) / ref.norm(dim=1)
+    assert torch.isfinite(got).all() and rel.max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(3, 3072, 9216), (40, 2048, 4096)])
+def test_fp32_kernels_allocate_y_only(gen, m, k, n):
+    """A GEMV call (and a tile-kernel call whose operands need no padding)
+    makes one allocation: y."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    wq, s = quant.quantize_int8(torch.randn((k, n), generator=gen,
+                                            device="cuda"))
+    quant.matmul_w8(x, wq, s)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    y = quant.matmul_w8(x, wq, s)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == before + 1
+    assert y.shape == (m, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,k,n,kh", [
+    ("w8", 3, 1000, 1000, None), ("w8", 40, 1000, 1000, None),
+    ("w8", 300, 512, 8192, None), ("w4", 2, 1024, 1536, 512),
+    ("w4", 70, 1024, 1536, 512), ("w4", 70, 256, 384, 512)])
+def test_fp32_kernels_exact_on_structured_weights(gen, kernel, m, k, n,
+                                                  kh):
+    """fp32 x of small integers against patterned weights: every product
+    and sum is exact in fp32 (and x's low bf16 parts are zero), so the
+    GEMV and the tile kernel must return the plain version's bits.  A wrong
+    swizzle, nibble or k order moves a weight element elsewhere."""
+    rng = np.random.default_rng(m + k)
+    x = torch.from_numpy(rng.integers(-3, 4, (m, k))).float().cuda()
+    scale = torch.from_numpy(1.0 + rng.random(n)).float().cuda()
+    if kernel == "w8":
+        wq = torch.from_numpy(((np.arange(k)[:, None] * 31
+                                + np.arange(n)[None] * 17) % 255 - 127)
+                              .astype(np.int8)).cuda()
+        got, ref = quant.matmul_w8(x, wq, scale), \
+            quant.matmul_w8_ref(x, wq, scale)
+    else:
+        wp = _structured_int4(k, n, kh).cuda()
+        got, ref = quant.matmul_w4(x, wp, scale), \
+            quant.matmul_w4_ref(x, wp, scale)
+    torch.cuda.synchronize()
+    bad = (got != ref).nonzero()
+    assert bad.shape[0] == 0, \
+        f"{bad.shape[0]} elements differ, first {bad[:4]}"
+
+
+def _split_bf16x3(x):
+    """The tile kernel's split of fp32 x into three bf16 parts (round to
+    nearest, each difference exact in fp32)."""
+    x0 = x.to(torch.bfloat16)
+    r = x - x0.float()
+    x1 = r.to(torch.bfloat16)
+    x2 = (r - x1.float()).to(torch.bfloat16)
+    return x0, x1, x2
+
+
+def _emulated_f32(x, w, scale, k):
+    """The tile kernel's numerics in plain torch: three bf16 products with
+    the exact weight (W4: unpacked to its K rows), fp32 sums, the scale at
+    the end."""
+    wf = (w if w.shape[0] == k else quant._unpack_nibbles(w, k)).float()
+    acc = sum(p.float() @ wf for p in _split_bf16x3(x))
+    return acc * scale
+
+
+@pytest.mark.parametrize("mag", [0.0, 1e-20, 1e-10, 1.0, 1e10, 1e20, 1e30])
+def test_fp32_split_is_exact_on_cpu(mag):
+    """x0 + x1 + x2 == x bit for bit in fp32, the parts bf16, over
+    magnitudes 1e-20 .. 1e30, negative values and zeros (every third
+    value)."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((64, 257))).float() * mag
+    x[:, ::3] = 0.0
+    parts = _split_bf16x3(x)
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    total = (parts[0].float() + parts[1].float()) + parts[2].float()
+    assert torch.equal(total, x) and (x < 0).any() == (mag > 0)
+
+
+def test_fp32_split_underflow_bound_on_cpu():
+    """At 1e-30 the low parts underflow in bf16: the split's error stays
+    under 2^-126 absolute."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((64, 257))).float() * 1e-30
+    parts = _split_bf16x3(x)
+    total = (parts[0].float() + parts[1].float()) + parts[2].float()
+    assert (total - x).abs().max().item() < 2.0 ** -126
+
+
+@pytest.mark.parametrize("kernel,m,k,n,block_k", [
+    ("w8", 17, 40, 33, None), ("w8", 33, 100, 70, None),
+    ("w4", 20, 50, 30, 16),     # KH = 32 < K < 2 KH
+    ("w4", 18, 20, 24, 16)])    # K <= KH: the low half only
+def test_fp32_emulated_numerics_match_plain_on_cpu(kernel, m, k, n,
+                                                   block_k):
+    """Three bf16 products of the split x, fp32 sums: within 1e-6
+    relative Frobenius error of the plain fp32 version."""
+    rng = np.random.default_rng(m * k)
+    x = torch.from_numpy(rng.standard_normal((m, k))).float()
+    w = torch.from_numpy(rng.standard_normal((k, n))).float()
+    if kernel == "w8":
+        wq, s = quant.quantize_int8(w)
+        ref = quant.matmul_w8_ref(x, wq, s)
+    else:
+        wq, s = quant.quantize_int4(w, block_k=block_k)
+        ref = quant.matmul_w4_ref(x, wq, s)
+    got = _emulated_f32(x, wq, s, k)
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-6
+
+
+@pytest.mark.parametrize("kernel", ["w8", "w4"])
+def test_fp32_emulated_numerics_match_jax_on_cpu(kernel):
+    """The same emulation against the JAX package's matmul_w8 / matmul_w4
+    on f32 x (the Pallas kernels in interpret mode, as its own tests run
+    them): within 1e-6 relative Frobenius error."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from wan2gp_tpu.ops import quant as jq
+    rng = np.random.default_rng(11)
+    m, k, n = 20, 64, 48
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    # on the CPU in full fp32, wherever JAX would place it by default
+    with jax.default_device(jax.devices("cpu")[0]), \
+            jax.default_matmul_precision("highest"):
+        if kernel == "w8":
+            wq, s = jq.quantize_int8(w)
+            ref = jq.matmul_w8(jnp.asarray(x), jnp.asarray(wq),
+                               jnp.asarray(s), block_m=8, block_n=16,
+                               block_k=32, interpret=True)
+        else:
+            wq, s = jq.quantize_int4(w, block_k=32)
+            ref = jq.matmul_w4(jnp.asarray(x), jnp.asarray(wq),
+                               jnp.asarray(s), k_orig=k, block_m=8,
+                               block_n=16, block_k=32, interpret=True)
+        ref = torch.from_numpy(np.array(ref))
+    got = _emulated_f32(torch.from_numpy(x), torch.from_numpy(wq),
+                        torch.from_numpy(s), k)
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-6
+
+
+# (M): LTX-2 22B at 1280x704x241 (31 video, 251 audio timestep rows,
+# 27,280 video tokens): patchify, proj_out and the adaLN tables' t1, t2 and
+# linear; HunyuanVideo's final layer at (L)'s 19,500 image tokens
+F32_SHAPES = [(31, 256, 4096), (31, 4096, 4096), (31, 4096, 36864),
+              (31, 4096, 16384), (251, 256, 2048), (251, 2048, 2048),
+              (251, 2048, 18432), (251, 2048, 8192), (27280, 128, 4096),
+              (251, 128, 2048), (27280, 4096, 128), (251, 2048, 128),
+              (19500, 2048, 128)]
+
+
+@pytest.mark.parametrize("m,k,n", F32_SHAPES)
+def test_fp32_tile_plan_on_cpu(m, k, n):
+    """The tile kernel's plan: a token tile of 32 rows up to 32 (31 pads
+    to 32, not 64), else 64; a K split of 1, 2, 4 or 8 CTAs, each share at
+    least 4 steps and a slab of 8 rows; and at least 132 CTAs wherever the
+    largest such split gives that many."""
+    steps = quant.f32_steps(k)
+    tile, split = quant.f32_plan(m, n, steps)
+    assert tile == (32 if m <= 32 else 64)
+
+    def ok(c):
+        return c <= min(8, tile // 8) and (c == 1 or steps >= 4 * c)
+    assert split in (1, 2, 4, 8) and ok(split)
+    most = max(c for c in (1, 2, 4, 8) if ok(c))
+    tiles = -(-m // tile) * -(-n // 128)
+    assert tiles * split >= min(132, tiles * most)
+
+
+# (K) flux_schnell's modulations (W8 and W4: K = 3072, W4's KH = 1536),
+# (L) HunyuanVideo 1.5's at CFG batch 2 and its refiner's adaLN, (M)
+# LTX-2's two prompt adaLN tables (t1, t2, linear), and two ragged ones
+GEMV_SHAPES = [(1, 3072, 18432), (1, 3072, 9216), (1, 1536, 18432),
+               (1, 1536, 9216), (2, 2048, 12288), (2, 2048, 4096),
+               (1, 256, 4096), (1, 4096, 4096), (1, 4096, 8192),
+               (1, 256, 2048), (1, 2048, 2048), (1, 2048, 4096),
+               (3, 1000, 1001), (16, 7, 5)]
+
+
+@pytest.mark.parametrize("m,rows,n", GEMV_SHAPES)
+def test_fp32_gemv_plan_on_cpu(m, rows, n):
+    """The GEMV's plan: columns a thread as M allows (a thread holds at
+    most 64 sums), a cluster of at most 8 CTAs with no empty share of the
+    rows, and at least 132 CTAs wherever 128-column tiles and a cluster of
+    8 give that many."""
+    cp, cluster = quant.gemv_plan(m, rows, n)
+    mt = 1 << (m - 1).bit_length()
+    assert cp in (16, 8, 4) and mt * cp <= 64
+    assert 1 <= cluster <= 8
+    r = -(-rows // cluster)
+    assert (cluster - 1) * r < rows
+    ctas = -(-n // (32 * cp)) * cluster
+    assert ctas >= min(132, -(-n // 128) * min(8, rows))
 
 
 def _structured_int4(k, n, kh):

@@ -10,6 +10,9 @@ package's behaviour, on the CPU at tiny widths.
   (JAX floors it); `quantize="int8"` quantizes the LTX-2 blocks (the JAX
   service quantizes nothing there); the distilled definitions run the
   distilled defaults (JAX gives them the dev ones).
+- The dev row asked for 4 steps samples dev_schedule(4, tokens), 5
+  sigmas; the JAX handler keeps the 41 linear sigmas of its load_model
+  whatever num_inference_steps asks.
 - From files (quanto-int8 DiT, video VAE, audio VAE, vocoder, Gemma, the
   caption projection): the dev row `ltx2_22B` at guidance 4 and audio
   guidance 7 over a prompt and the default negative prompt of other byte
@@ -236,6 +239,42 @@ def test_distilled_definitions_get_distilled_defaults(tiny):
     sampling = fam.LTX2FamilyHandler.sampling(
         p, {"num_inference_steps": 8}, 8, 24.0)
     assert sampling.sigmas == fam.DISTILLED_SIGMA_VALUES
+
+
+def test_dev_row_step_count_beside_jax(tiny, monkeypatch):
+    """The dev row asked for 4 steps: the port samples dev_schedule(4,
+    tokens), 5 sigmas; the JAX handler builds its dev sigmas once in
+    load_model, linspace(1, 0, 41), and generate_video replaces only the
+    guidance scales and the fps, so it samples 40 steps whatever
+    num_inference_steps asks.  Both pipelines are built; no forward
+    runs (the JAX pipeline's generate is replaced by a recorder)."""
+    svc = GenerationService(init_random_weights=True, device="cpu")
+    p = svc.get_pipeline("ltx2_22B")
+    assert not p.distilled
+    tokens = 2 * 4 * 4
+    got = fam.LTX2FamilyHandler.sampling(p, {"num_inference_steps": 4},
+                                         tokens, 24.0)
+    assert got.sigmas == tuple(fam.dev_schedule(4, tokens).tolist())
+    assert len(got.sigmas) == 5
+    monkeypatch.setattr(jfam, "_ARCH", {k: dict(v)
+                                        for k, v in ROW_ARCH.items()})
+    monkeypatch.setattr(jfam, "init_ltx2_dit", lambda key, cfg, dtype: to_jax(
+        dit.init_ltx2_dit(torch.Generator().manual_seed(0),
+                          dataclasses.replace(p.dit_cfg, act_quant="bf16"))))
+    jp = jservice.GenerationService(
+        init_random_weights=True).get_pipeline("ltx2_22B")
+    seen = []
+
+    def generate(**kw):
+        seen.append(kw["sampling"])
+        return {"video": np.zeros((1, 9, 128, 128, 3), np.float32)}
+
+    monkeypatch.setattr(jp, "generate", generate)
+    jfam.LTX2FamilyHandler.generate_video(
+        jp, {"num_inference_steps": 4, "guidance_scale": 4.0,
+             "prompt": "a fox"}, 128, 128, 9, 0)
+    assert len(seen) == 1 and len(seen[0].sigmas) == 41
+    assert seen[0].sigmas == tuple(np.linspace(1.0, 0.0, 41).tolist())
 
 
 def _write_files(ckdir, arch, model_def, quanto=True):

@@ -57,18 +57,21 @@ ENTRY_POINTS = {
         # x, x_q, sx, M, K, stream
         "wg_act_quant_int8": [_P] * 3 + [_I] * 2 + [_P]},
     "wo_gemv": {
-        # x, w_q, scale, y, part, M, N, K, splits, stream
-        "wg_w8_gemv_f32": [_P] * 5 + [_I] * 4 + [_P],
-        # x, w_p, scale, y, part, M, N, K, KP/2, splits, stream
-        "wg_w4_gemv_f32": [_P] * 5 + [_I] * 5 + [_P]},
+        # x, w_q, scale, y, M, N, K, columns a thread, cluster, stream
+        "wg_w8_gemv_f32": [_P] * 4 + [_I] * 5 + [_P],
+        # x, w_p, scale, y, M, N, K, KP/2, columns a thread, cluster, stream
+        "wg_w4_gemv_f32": [_P] * 4 + [_I] * 6 + [_P]},
     "wo_f32_matmul": {
-        # x, w_q, scale, y, M, N, K, stream
-        "wg_w8_matmul_f32": [_P] * 4 + [_I] * 3 + [_P],
-        # x, w_p, scale, y, M, N, K, KP/2, stream
-        "wg_w4_matmul_f32": [_P] * 4 + [_I] * 4 + [_P]},
+        # x, w_q, scale, y, M, N, K, x row stride, token tile, K split,
+        # stream
+        "wg_w8_matmul_f32": [_P] * 4 + [_I] * 6 + [_P],
+        # x, w_p, scale, y, M, N, K, x row stride, KP/2, token tile, K
+        # split, stream
+        "wg_w4_matmul_f32": [_P] * 4 + [_I] * 7 + [_P]},
 }
 
 _libs = {}
+_fns = {}
 _lock = threading.Lock()
 
 
@@ -143,7 +146,11 @@ def build_all(names=KERNEL_SOURCES) -> dict:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of csrc/<name>.cu, built if needed, with
-    its entry points' argument and result types declared."""
+    its entry points' argument and result types declared.  The lock is
+    taken only until the library is loaded."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -158,11 +165,20 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def function(name: str, symbol: str):
+    """The entry point `symbol` of csrc/<name>.cu, resolved once."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = _fns[(name, symbol)] = getattr(library(name), symbol)
+    return fn
+
+
 def check(status: int, what: str):
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
-def stream_handle(t) -> ctypes.c_void_p:
+def stream_handle(t) -> int:
+    """The raw handle of PyTorch's current stream on t's device."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

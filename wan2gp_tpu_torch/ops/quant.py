@@ -24,6 +24,8 @@ process-wide setting: a service created after another keeps its own.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -44,14 +46,20 @@ w8_pad_launches = 0
 w4_pad_launches = 0
 w8a8_pad_launches = 0
 w4a8_pad_launches = 0
+w8_f32_pad_launches = 0
+w4_f32_pad_launches = 0
 
 # fp32 x takes the weight-only GEMV kernel up to this many rows, and the
 # fp32 tile kernel above
 GEMV_MAX_M = 16
-# rows of the weight (W4: packed rows) one GEMV CTA reads, at most; and the
-# CTAs the GEMV's K split aims for (two a streaming multiprocessor)
-_GEMV_ROWS = 256
-_GEMV_CTAS = 264
+# the streaming multiprocessors of the card the fp32 kernels are planned
+# for (H100 SXM), and the most CTAs of a GEMV cluster (the portable limit)
+_SMS = 132
+_GEMV_CLUSTER = 8
+# the fewest K steps a CTA of the fp32 tile kernel takes when a cluster
+# splits K: the split's epilogue (two cluster barriers, the ranks' sums
+# read across the cluster) costs a few steps' time
+_F32_SHARE = 4
 # packed-row block of the int4 layout: K is padded to a multiple of 2x this
 W4_BLOCK_K = 512
 # rows per pass of quantize_act_int8, so its fp32 temporaries stay ~256 MB
@@ -79,10 +87,11 @@ def matmul_w8_ref(x, w_q, scale):
 
 
 def _check_w8_inputs(name, x, w_q, scale, x_dtype):
-    if not (x.is_cuda and w_q.is_cuda and scale.is_cuda):
+    dev = x.get_device()                # -1 on the CPU
+    if dev < 0 or w_q.get_device() < 0 or scale.get_device() < 0:
         raise ValueError(f"{name}: x, w_q and scale must all be CUDA "
                          f"tensors")
-    if len({x.device, w_q.device, scale.device}) != 1:
+    if not dev == w_q.get_device() == scale.get_device():
         raise ValueError(f"{name}: inputs on different devices")
     if x.dtype != x_dtype or w_q.dtype != torch.int8 \
             or scale.dtype != torch.float32:
@@ -157,56 +166,108 @@ def pad_w8_operands(x, w_q, scale, layout=wo_layout):
             _zero_pad(scale[None], 1, n_to)[0], True)
 
 
-def gemv_splits(rows: int, n: int) -> int:
-    """The K split of the fp32 GEMV over `rows` weight (W4: packed) rows
-    and N columns: enough splits that the grid of 1,024-column tiles
-    reaches _GEMV_CTAS CTAs and each split reads at most _GEMV_ROWS rows,
-    none of them empty."""
-    tiles = -(-n // 1024)
-    splits = min(rows, max(-(-rows // _GEMV_ROWS), -(-_GEMV_CTAS // tiles)))
-    return -(-rows // -(-rows // splits))
+@functools.lru_cache(maxsize=256)
+def f32_plan(m: int, n: int, steps: int):
+    """(tile, split) of the fp32 tile kernel for x [m, K] against N weight
+    columns in `steps` K steps (64 columns of K a step; W4: 32 packed
+    rows): the token tile, 32 rows up to 32 (LTX-2's 31 per-frame rows pad
+    to 32, not 64) and 64 above; split, the CTAs of a cluster that share a
+    tile's K steps: the least power of two that gives the grid of row tiles
+    x 128-column tiles one CTA an SM, at most 8, each share a slab of at
+    least 8 token rows (the epilogue's) and at least _F32_SHARE steps."""
+    tile = 32 if m <= 32 else 64
+    tiles = -(-m // tile) * -(-n // 128)
+    split = 1
+    while tiles * split < _SMS and 2 * split <= min(8, tile // 8) \
+            and steps >= 2 * split * _F32_SHARE:
+        split *= 2
+    return tile, split
+
+
+def f32_steps(k: int, kh=None) -> int:
+    """The fp32 tile kernel's K steps: 64 columns of K (W8), or 32 packed
+    rows (W4, over the min(KH, K) that hold weights)."""
+    return -(-k // 64) if kh is None else -(-min(kh, k) // 32)
+
+
+@functools.lru_cache(maxsize=256)
+def gemv_plan(m: int, rows: int, n: int):
+    """(cp, cluster) of the fp32 GEMV for x [m, K] against `rows` weight
+    rows that hold weights (W4: min(KH, K) packed rows) and N columns: a
+    thread takes cp columns (16, 8 or 4, so that it holds at most 64 sums:
+    16 or 8 columns at 4 rows of x, 4 above), a CTA 32 * cp; the widest cp
+    whose column tiles, times a full cluster, reach one CTA an SM; then a
+    cluster of up to 8 CTAs that split K, with at most two CTAs an SM (one
+    wave) and no CTA's share of the rows empty."""
+    mt = 1 << (m - 1).bit_length()
+    cps = (16, 8, 4) if mt <= 2 else (8, 4) if mt == 4 else (4,)
+    cp = next((c for c in cps
+               if -(-n // (32 * c)) * _GEMV_CLUSTER >= _SMS), cps[-1])
+    tiles = -(-n // (32 * cp))
+    cluster = max(1, min(_GEMV_CLUSTER, 2 * _SMS // tiles, rows))
+    while (cluster - 1) * -(-rows // cluster) >= rows:
+        cluster -= 1
+    return cp, cluster
+
+
+def pad_f32_operands(x, w, scale):
+    """(x, w, scale, padded) as the fp32 tile kernel takes them: x's rows
+    zero-padded to a multiple of 4 columns (16 bytes; the kernel still reads
+    K of them), w (int8 or packed int4) and scale along N to a multiple of
+    16, and copies where a base is not 16-byte aligned."""
+    m, k = x.shape
+    rows, n = w.shape
+    if not (k % 4 or n % 16
+            or (x.data_ptr() | w.data_ptr() | scale.data_ptr()) % 16):
+        return x, w, scale, False
+    k_to, n_to = -(-k // 4) * 4, -(-n // 16) * 16
+    return (_zero_pad(x, m, k_to), _zero_pad(w, rows, n_to),
+            _zero_pad(scale[None], 1, n_to)[0], True)
 
 
 def _matmul_f32(name, x, w, scale, kh=None):
     """fp32 x [M, K] against the int8 (kh None) or packed int4 weight, fp32
     out: the GEMV of csrc/wo_gemv.cu up to GEMV_MAX_M rows, the tile kernel
-    of csrc/wo_f32_matmul.cu above."""
+    of csrc/wo_f32_matmul.cu above.  One allocation (y) unless the tile
+    kernel's operands need padding."""
     global w8_gemv_launches, w4_gemv_launches
     global w8_f32_launches, w4_f32_launches
+    global w8_f32_pad_launches, w4_f32_pad_launches
     m, k = x.shape
     rows, n = w.shape
-    if m > GEMV_MAX_M:
-        if -(-m // 64) > 65535:
-            raise ValueError(f"{name}: M={m} exceeds the fp32 kernel's grid")
-        y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        lib = _cuda.library("wo_f32_matmul")
-        stream = _cuda.stream_handle(x)
-        if kh is None:
-            _cuda.check(lib.wg_w8_matmul_f32(
-                x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                m, n, k, stream), f"{name} launch")
-            w8_f32_launches += 1
-        else:
-            _cuda.check(lib.wg_w4_matmul_f32(
-                x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                m, n, k, kh, stream), f"{name} launch")
-            w4_f32_launches += 1
-        return y
-    splits = gemv_splits(rows, n)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    lib = _cuda.library("wo_gemv")
     stream = _cuda.stream_handle(x)
+    if m > GEMV_MAX_M:
+        x, w, scale, padded = pad_f32_operands(x, w, scale)
+        n_to = w.shape[1]
+        y = x.new_empty((m, n_to))
+        tile, split = f32_plan(m, n_to, f32_steps(k, kh))
+        if kh is None:
+            status = _cuda.function("wo_f32_matmul", "wg_w8_matmul_f32")(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                m, n_to, k, x.shape[1], tile, split, stream)
+            w8_f32_launches += 1
+            w8_f32_pad_launches += padded
+        else:
+            status = _cuda.function("wo_f32_matmul", "wg_w4_matmul_f32")(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                m, n_to, k, x.shape[1], kh, tile, split, stream)
+            w4_f32_launches += 1
+            w4_f32_pad_launches += padded
+        _cuda.check(status, name)
+        return y[:, :n].contiguous() if padded else y
+    cp, cluster = gemv_plan(m, rows if kh is None else min(rows, k), n)
+    y = x.new_empty((m, n))
     if kh is None:
-        _cuda.check(lib.wg_w8_gemv_f32(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            part.data_ptr(), m, n, k, splits, stream), f"{name} launch")
+        status = _cuda.function("wo_gemv", "wg_w8_gemv_f32")(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n,
+            k, cp, cluster, stream)
         w8_gemv_launches += 1
     else:
-        _cuda.check(lib.wg_w4_gemv_f32(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            part.data_ptr(), m, n, k, kh, splits, stream), f"{name} launch")
+        status = _cuda.function("wo_gemv", "wg_w4_gemv_f32")(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n,
+            k, kh, cp, cluster, stream)
         w4_gemv_launches += 1
+    _cuda.check(status, name)
     return y
 
 
@@ -217,7 +278,7 @@ def matmul_w8(x, w_q, scale):
     kernel (fp32 x, M <= GEMV_MAX_M), or the fp32 tile kernel (fp32 x,
     more rows), or raise."""
     global launches, w8_pad_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return matmul_w8_ref(x, w_q, scale)
     if x.dtype == torch.float32:
         _check_w8_inputs("matmul_w8", x, w_q, scale, torch.float32)
@@ -306,7 +367,7 @@ def quantize_act_int8(x):
     version; CUDA tensors (x taken as bf16) launch the one-pass kernel of
     csrc/act_quant.cu, bit-equal to it, or raise."""
     global act_quant_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return quantize_act_int8_ref(x)
     if x.ndim != 2 or not x.is_cuda:
         raise ValueError(f"quantize_act_int8: x must be a 2-D CUDA tensor; "
@@ -356,10 +417,11 @@ def _check_act(name, xq, sx):
 
 
 def _check_w4_inputs(name, x, w_p, scale, x_dtype, row_multiple=64):
-    if not (x.is_cuda and w_p.is_cuda and scale.is_cuda):
+    dev = x.get_device()                # -1 on the CPU
+    if dev < 0 or w_p.get_device() < 0 or scale.get_device() < 0:
         raise ValueError(f"{name}: x, w_p and scale must all be CUDA "
                          f"tensors")
-    if len({x.device, w_p.device, scale.device}) != 1:
+    if not dev == w_p.get_device() == scale.get_device():
         raise ValueError(f"{name}: inputs on different devices")
     if x.dtype != x_dtype or w_p.dtype != torch.int8 \
             or scale.dtype != torch.float32:
@@ -409,7 +471,7 @@ def matmul_w4(x, w_p, scale):
     needed), or the GEMV kernel (fp32 x, M <= GEMV_MAX_M), or the fp32
     tile kernel (fp32 x, more rows), or raise."""
     global w4_launches, w4_pad_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return matmul_w4_ref(x, w_p, scale)
     if x.dtype == torch.float32:
         _check_w4_inputs("matmul_w4", x, w_p, scale, torch.float32,
@@ -442,7 +504,7 @@ def matmul_w4a8(x, w_p, scale, xq=None):
     out, any M, N, K <= KP; padded per `a8_layout` where needed) or
     raise."""
     global w4a8_launches, w4a8_pad_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         if xq is None:
             return matmul_w4a8_ref(x, w_p, scale)
         return w4a8_product_ref(*xq, w_p, scale, x.dtype)
@@ -504,7 +566,7 @@ def matmul_w8a8(x, w_q, scale, xq=None):
     plain versions; CUDA tensors launch the kernel (bf16 out, any M, N, K;
     padded per `a8_layout` where needed) or raise."""
     global w8a8_launches, w8a8_pad_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         if xq is None:
             return matmul_w8a8_ref(x, w_q, scale)
         return w8a8_product_ref(*xq, w_q, scale, x.dtype)
