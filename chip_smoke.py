@@ -89,8 +89,9 @@ the repository).  Phases, each printing one JSON line:
             Sol's mean count over its table width, both with their share
             of the bound and their time per attended (query, key, head)
             against the dense kernel's at 14B; Krea 2's masked
-            self-attention at 1024x1024 beside the dense kernel, and its
-            layer-wise text blocks through the dense kernel; W8 and W8A8
+            self-attention and text refiner at (O)'s 512 text slots beside
+            the dense kernel, and its layer-wise text blocks through the
+            dense kernel; W8 and W8A8
             at the 1.3B linears and cross k/v (M = 1,024), W8A8 at the 14B
             ones.  W8 and W4 rows add their share of the bound and their
             time over cuBLAS's.  A8 rows time the call (with its
@@ -127,20 +128,25 @@ the repository).  Phases, each printing one JSON line:
             linear at M = 31 / 251, patchify and proj_out of both streams),
             the W4 one at the largest four, beside torch.matmul on the fp32
             weight; the GEMV at the prompt tables' six), each with its
-            launches per forward.  The fp32 rows time the call (in turns
+            launches per forward.  (O)'s: the masked kernel at Krea 2's
+            self-attention under the Qwen3 encoder (CFG batch 2 over 512
+            text slots, of which the prompt's and the negative prompt's
+            tokens are valid, then 4,096 image tokens) and at its text
+            refiner (512 slots), the dense kernel at its layer-wise blocks
+            (512 items of 12 layers).  The fp32 rows time the call (in turns
             with the library call) and the kernel alone (a CUDA graph of
             the launches); the tile kernel's bound is three bf16 products
             or the bytes, with the fp32-SIMT bound beside it.
 5. service  GenerationService on cuda answers 2 t2v_1.3B requests (832x480,
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
-            1280x720x81f: (A) quantize="int4a8", attention_mode="sol", all
-            40 layers; (B) quantize="int4", attention_mode="radial",
-            B_LAYERS = 10 of its 40 layers; then 2 krea2_raw requests at 1024x1024,
-            all 28 layers (12.8 B parameters, bf16), guidance 3.5, 2 steps,
-            each writing a PNG.  Every launch counter is reset just before
-            each model's requests and read just after; the launches per
-            DiT forward (Krea 2: and per request) are asserted, and that no
+            1280x720x81f: (A) quantize="int4a8", attention_mode="sol",
+            A_LAYERS = 30 of its 40 layers; (B) quantize="int4",
+            attention_mode="radial",
+            B_LAYERS = 10 of its 40 layers.  Every launch counter is reset
+            just before each model's requests and read just after; the
+            launches per DiT forward (Krea 2: and per request) are
+            asserted, and that no
             W8, W4, W8A8 or W4A8 launch of a Wan request padded its
             operands.  Then three paths whose forwards are recorded one by
             one (launches, seconds, whether it ran the block stack), each
@@ -162,16 +168,48 @@ the repository).  Phases, each printing one JSON line:
                 frames, overlap 5 (its last 5 frames encoded to the 2
                 latent frames pinned at the window's start, asserted),
                 2 UniPC steps, stitched to 233 frames;
+            (N) t2v (Wan2.1 14B) in bf16, dense, all 40 layers, at
+                1280x720x81 through the service with the profile "wan/
+                Lightx2v t2v Cfg Step Distill Rank32 - 4 Steps" (guidance
+                1, so batch 1; flow_shift 2), STEPS of its 4 UniPC steps:
+                its rank-32 LoRA, written from random weights under the
+                profile URL's basename in <lora_root>/wan (every self- and
+                cross-attention q/k/v/o and ffn.0/ffn.2 of the 40 blocks
+                with alpha, four .diff_b keys and a text_embedding pair),
+                found by the resolver and merged at multiplier 1 (400
+                paths matched, 1 unmatched, asserted); 80 flash launches a
+                forward and no W8; a merged q and fc1 slice within one
+                bf16 ulp of the port's CPU merge from the file; after the
+                service restores the base weights (what a request without
+                LoRA does first) every DiT leaf's checksum equal to its
+                value before the merge; LoRA write, read and merge, step,
+                decode, request and restore seconds, the 4-step projection,
+                the load, denoise and decode peaks and the host bytes held
+                for the restore;
+            (O) krea2_raw (Krea 2, all 28 layers, 12.8 B parameters) from
+                its files at 1024x1024, guidance 3.5 (CFG as batch 2), 2
+                steps, two requests writing PNGs: the DiT random on the
+                card, exported block by block to a host state dict in the
+                reference names and read back by load_krea2_params; the
+                Qwen3-4B tower (36 layers, width 2560) random on the card,
+                exported in HF names and read back by load_qwen_lm_params;
+                the image VAE as qwen_vae.safetensors (bf16); all three
+                through the service's checkpoints resolver and the
+                handler's loaders (the loaded DiT re-exported equal to the
+                state dict); the prompt hashed into Qwen3's vocabulary, 12
+                hidden layers over the 512-token template: 28 masked flash
+                launches a forward, 4 masked and 4 dense a request;
             (F) i2v (Wan2.1 14B image-to-video) at 832x480x81, bf16, dense,
-                all 40 layers, a full-width CLIP ViT-H/14, from a 640x360
-                PNG (so both resizes run), 2 UniPC steps, guidance 5.0:
-                CLIP, encode, step and decode seconds and peaks; 120 flash
-                launches a forward;
+                F_LAYERS = 20 of its 40 layers, a full-width CLIP ViT-H/14,
+                from a 640x360 PNG (so both resizes run), 2 UniPC steps,
+                guidance 5.0: CLIP, encode, step and decode seconds and
+                peaks; 3 flash launches a layer a forward;
             (G) i2v_2_2 (Wan2.2 A14B) at 1280x720x81, quantize="int8" on
-                both experts, dense, all 40 layers, the definition's two
-                phases over 2 UniPC steps: the high-noise expert on the
-                first forward and the low-noise one on the second
-                (asserted), 80 flash and 400 W8 launches a forward, none
+                both experts, dense, G_LAYERS = 10 of each expert's 40
+                layers, the definition's two phases over 2 UniPC steps:
+                the high-noise expert on the first forward and the
+                low-noise one on the second (asserted), 2 flash and 10 W8
+                launches a layer a forward, none
                 padded; the 720p frame-chunked encode's seconds and peak;
             (I) ti2v_2_2 (Wan2.2 TI2V 5B: dim 3072, 24 heads, 30 layers,
                 48 latent channels) from its files, as (D): a quanto-int8
@@ -184,8 +222,9 @@ the repository).  Phases, each printing one JSON line:
                 spatial tiles (asserted) of at most 31 x 16 x 16 latents:
                 write, load, step, decode and request seconds and the
                 load, denoise and decode peaks;
-            (J) vace_multitalk_14B (14B, 40 layers, 20 VACE blocks, the
-                multitalk module's audio cross-attention in every block)
+            (J) vace_multitalk_14B (14B, J_LAYERS = 10 of its 40 layers,
+                5 VACE blocks, the multitalk module's audio
+                cross-attention in every block)
                 at 832x480x81 through WanPipeline.generate_multitalk with a
                 VACE context: the DiT random and quantized int8 in
                 process, the multitalk module (bf16) and a wav2vec2-base
@@ -194,8 +233,8 @@ the repository).  Phases, each printing one JSON line:
                 written ones); a 16 kHz WAV of 81 / 25 s through wav2vec2,
                 a control video with a half-frame mask through
                 build_vace_conditioning, 2 UniPC steps at guidance 1 and
-                audio guidance 4 (one batch-2 forward a step: 160 flash and
-                740 W8 launches, none padded), the Wan2.1 decode: init,
+                audio guidance 4 (one batch-2 forward a step: 40 flash and
+                185 W8 launches, none padded), the Wan2.1 decode: init,
                 write, read, quantize, wav2vec2, encode, step, decode and
                 request seconds and the load, encode, denoise and decode
                 peaks;
@@ -252,7 +291,9 @@ the repository).  Phases, each printing one JSON line:
                 projection as files, loaded through the service's resolver
                 and held to the written tensors bit for bit.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
-7. kernels  every ported kernel with its check, launches and times.
+7. disk     the bytes the script wrote (checkpoints, LoRA, outputs; files
+            it deleted included).
+8. kernels  every ported kernel with its check, launches and times.
 
 Then the card's `nvidia-smi` name and power limit, and the last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code 1) before it.
@@ -279,6 +320,21 @@ PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 STEPS = 2                       # denoise steps per service request
 B_LAYERS = 10                   # depth of the 14B request (B), of 40
+# depths cut to keep the script inside its 1200 s with (N) and (O) (each:
+# the depth before -> now, of the model's own)
+A_LAYERS = 30                   # (A) and (C) t2v 14B: 40 -> 30 of 40 layers
+F_LAYERS = 20                   # (F) i2v 14B: 40 -> 20 of 40 layers
+G_LAYERS = 10                   # (G) i2v_2_2: 40 -> 10 of each expert's 40
+J_LAYERS = 10                   # (J) vace_multitalk_14B: 40 -> 10 of 40
+# (N): t2v 14B in bf16 at 1280x720x81 through the Lightx2v profile (one
+# rank-32 LoRA at multiplier 1, guidance 1, flow_shift 2, 4 steps), its
+# LoRA written from random weights under the URL's basename
+N_PROFILE = "wan/Lightx2v t2v Cfg Step Distill Rank32 - 4 Steps"
+N_RANK = 32
+N_PROFILE_STEPS = 4
+# (O): krea2_raw from its files: 12 Qwen3 hidden layers over the 512-token
+# template; 4,096 image tokens after them
+O_TEXT = 512
 FLASH_MEAN_REL, FLASH_MAX_REL = 2e-2, 2e-1     # of mean|ref|, max|ref|
 LSE_MAX_ABS = 1e-2
 MM_REL_FRO = 1e-2               # int8 / int4 / W8A8 / W4A8 matmuls
@@ -323,8 +379,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "wan2gp_tpu_torch", "_build", "chip_smoke")
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, the seconds since the script started, and
+    the phase's fields."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - T_START,
+                      **fields}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1487,13 +1549,17 @@ def time_flash_audio(frames, tokens, n=40, d=128, s=32):
             "bound_by": by, **rates(flops, ms, bound_ms), "err": err}
 
 
-def time_kvmask(name, b, l, n, d, valid):
-    """The masked kernel at a Krea 2 shape (L = S, the first `valid` keys
-    valid, the rest padding), beside the dense kernel at the same shape."""
+def time_kvmask(name, b, l, n, d, valid, text):
+    """The masked kernel at a Krea 2 shape (L = S), beside the dense kernel
+    at the same shape: the keys [0, text) are a text slot of which each
+    batch item's first valid[i] are valid, and every key after them is
+    (Krea 2's packed [text, image] sequence under the Qwen3 encoder's 512
+    slots)."""
     from wan2gp_tpu_torch.ops import attention as A
     gen = torch.Generator(device="cuda").manual_seed(6)
     q, k, v = (randn((b, l, n, d), gen) for _ in range(3))
-    mask = torch.arange(l, device="cuda")[None].expand(b, l) < valid
+    pos = torch.arange(l, device="cuda")[None].expand(b, l)
+    mask = (pos < torch.tensor(valid, device="cuda")[:, None]) | (pos >= text)
     scale = _scale(q)
     err = kvmask_check(name, q, k, v, mask,
                        A.flash_attention(q, k, v, scale, mask))
@@ -1507,13 +1573,45 @@ def time_kvmask(name, b, l, n, d, valid):
                                    scale=scale),
                            " with the [B, 1, 1, S] bool mask")
     del qt, kt, vt
-    # the work this mask needs: the valid keys only
-    flops = 4.0 * b * n * l * valid * d
-    bound_ms, by = bound(flops, 2.0 * 4 * b * l * n * d + b * l)
-    return {"shape": [b, l, l, n, d], "valid_keys": valid, "ms": ms,
+    # the work and the bytes this mask needs: q and o in full, k and v at
+    # the valid keys only, and the mask
+    keys = int(mask.sum())
+    flops = 4.0 * n * l * d * keys
+    bound_ms, by = bound(flops, 2.0 * (2 * b * l * n * d + 2 * keys * n * d)
+                         + b * l)
+    return {"shape": [b, l, l, n, d], "valid_keys": valid,
+            "text_slots": text, "ms": ms,
             "dense_kernel_ms": dense_ms, "plain_ms": plain_ms, **library,
             "bound_ms": bound_ms, "bound_by": by,
             **rates(flops, ms, bound_ms), "err": err}
+
+
+def time_o(flash, kvmask):
+    """(O)'s shapes: Krea 2 from its files, the Qwen3 encoder's 512 text
+    slots of which the prompt's and the negative prompt's tokens are
+    valid, then 4,096 image tokens (4,608, a multiple of 256: no padding);
+    the text refiner over the 512 slots; the layer-wise blocks as 512
+    items of the 12 collected layers."""
+    o_valid = o_text_tokens()
+    kvmask["self_krea2_O"] = time_kvmask("self_krea2_O", 2, O_TEXT + 4096,
+                                         48, 128, o_valid, text=O_TEXT)
+    kvmask["refiner_krea2_O"] = time_kvmask(
+        "refiner_krea2_O", 1, O_TEXT, 20, 128, o_valid[:1], text=O_TEXT)
+    kvmask["self_krea2_O"]["launches_per_forward_O"] = 28
+    kvmask["refiner_krea2_O"]["launches_per_request_O"] = 4
+    flash["layerwise_krea2_O"] = time_flash("layerwise_krea2_O", O_TEXT, 12,
+                                            12, 20, 128)
+    flash["layerwise_krea2_O"]["launches_per_request_O"] = 4
+
+
+def o_text_tokens():
+    """The valid tokens of (O)'s prompt and negative prompt in the Krea 2
+    template, as the handler's hash tokenizer counts them."""
+    from wan2gp_tpu_torch.families import krea2 as kfam
+    from wan2gp_tpu_torch.utils.tokenizer import load_tokenizer
+    tok = load_tokenizer(None, vocab_size=151936)
+    return [int(tok([kfam.TEMPLATE.format(p)], O_TEXT)[1].sum())
+            for p in ("a red fox 0", "")]
 
 
 def time_a8(kernel, x, w, sc, w_int, reps):
@@ -1855,21 +1953,32 @@ def time_w4a8(m, k, n):
 # (5120x5120), fc1 and fc2 at M = 75,600, cross k and v at M = 512; one
 # quantization for q/k/v, one for each other input at M = 75,600 and one
 # for the 512 text tokens
-C_PER_FORWARD = {"sol_720p_b1": 40, "cross_14B_720p_b1": 40,
-                 "75600x5120x5120": 240, "75600x5120x13824": 40,
-                 "75600x13824x5120": 40, "75600x5120": 200,
-                 "75600x13824": 40, "512x5120x5120": 80, "512x5120": 40}
+C_PER_FORWARD = {"sol_720p_b1": A_LAYERS, "cross_14B_720p_b1": A_LAYERS,
+                 "75600x5120x5120": 6 * A_LAYERS,
+                 "75600x5120x13824": A_LAYERS,
+                 "75600x13824x5120": A_LAYERS, "75600x5120": 5 * A_LAYERS,
+                 "75600x13824": A_LAYERS, "512x5120x5120": 2 * A_LAYERS,
+                 "512x5120": A_LAYERS}
+# (A) and (C), each computed forward: per layer one Sol and one cross
+# flash, ten W4A8 products from seven quantizations
+A_KERNELS = {"sol_flash": A_LAYERS, "flash_attention": A_LAYERS,
+             "matmul_w4a8": 10 * A_LAYERS, "act_quant": 7 * A_LAYERS}
 # launches per DiT forward of (F) (14B i2v, 832x480, bf16, CFG batch 2):
 # per layer self, text cross and image cross flash
-F_PER_FORWARD = {"self_14B_480p": 40, "cross_14B_480p": 40,
-                 "image_cross_14B_480p": 40}
+F_PER_FORWARD = {"self_14B_480p": F_LAYERS, "cross_14B_480p": F_LAYERS,
+                 "image_cross_14B_480p": F_LAYERS}
 # launches per DiT forward of (G) (Wan2.2 i2v at 1280x720, int8, CFG
 # batch 2), either expert: per layer one self and one cross flash; W8 on
 # q, k, v, o of the self-attention and q, o of the cross-attention, fc1,
 # fc2 at M = 151,200 and cross k, v at M = 1,024
-G_PER_FORWARD = {"self_14B_720p_b2": 40, "cross_14B_720p": 40,
-                 "151200x5120x5120": 240, "151200x5120x13824": 40,
-                 "151200x13824x5120": 40, "1024x5120x5120": 80}
+G_PER_FORWARD = {"self_14B_720p_b2": G_LAYERS, "cross_14B_720p": G_LAYERS,
+                 "151200x5120x5120": 6 * G_LAYERS,
+                 "151200x5120x13824": G_LAYERS,
+                 "151200x13824x5120": G_LAYERS,
+                 "1024x5120x5120": 2 * G_LAYERS}
+# launches per DiT forward of (N) (t2v 14B at 1280x720, bf16, guidance 1:
+# batch 1): per layer one self and one text cross flash, no W8
+N_PER_FORWARD = {"self_14B_720p": 40, "cross_14B_720p_b1": 40}
 
 
 # launches per DiT forward of (I) (Wan2.2 5B at 1280x704x121, int8 from its
@@ -1882,18 +1991,24 @@ I_PER_FORWARD = {"self_5B": 30, "cross_5B": 30,
                  f"{2 * I_TOKENS}x3072x14336": 30,
                  f"{2 * I_TOKENS}x14336x3072": 30, "1024x3072x3072": 60}
 # launches per DiT forward of (J) (vace_multitalk_14B at 832x480x81, int8,
-# the two audio-CFG branches as batch 2): per main block a self, a text
-# cross and an audio cross flash, per VACE block (20) a self and a text
-# cross; W8 at M = 65,520 on self q, k, v, o and cross q, o of the 60
-# blocks, the 40 audio q, o and the 20 after_proj; fc1, fc2 of the 60
-# blocks; cross k, v at M = 1,024; the audio kv at M = 42 x 32
+# the two audio-CFG branches as batch 2) at J_LAYERS main blocks and a
+# VACE block every second layer: per main block a self, a text cross and
+# an audio cross flash, per VACE block a self and a text cross; W8 at M =
+# 65,520 on self q, k, v, o and cross q, o of every block, the audio q, o
+# and the VACE after_proj; fc1, fc2 of every block; cross k, v at M =
+# 1,024; the audio kv at M = 42 x 32
 J_TOKENS = 21 * 30 * 52
-J_PER_FORWARD = {"self_14B_480p": 60, "cross_14B_480p": 60,
-                 "audio_cross_J": 40,
-                 f"{2 * J_TOKENS}x5120x5120": 6 * 60 + 2 * 40 + 20,
-                 f"{2 * J_TOKENS}x5120x13824": 60,
-                 f"{2 * J_TOKENS}x13824x5120": 60,
-                 "1024x5120x5120": 2 * 60, "1344x768x10240": 40}
+J_VACE = J_LAYERS // 2
+J_BLOCKS = J_LAYERS + J_VACE
+J_PER_FORWARD = {"self_14B_480p": J_BLOCKS, "cross_14B_480p": J_BLOCKS,
+                 "audio_cross_J": J_LAYERS,
+                 f"{2 * J_TOKENS}x5120x5120": (6 * J_BLOCKS + 2 * J_LAYERS
+                                               + J_VACE),
+                 f"{2 * J_TOKENS}x5120x13824": J_BLOCKS,
+                 f"{2 * J_TOKENS}x13824x5120": J_BLOCKS,
+                 "1024x5120x5120": 2 * J_BLOCKS, "1344x768x10240": J_LAYERS}
+J_KERNELS = {"flash_attention": 2 * J_BLOCKS + J_LAYERS,
+             "matmul_w8": 10 * J_BLOCKS + 3 * J_LAYERS + J_VACE}
 
 
 # launches per DiT forward of (K) (flux_schnell at 1280x720, batch 1, at
@@ -1938,10 +2053,7 @@ def phase_time(tokens: int):
         ("self_1.3B", (2, tokens, tokens, 12, 128)),
         ("cross_1.3B", (2, tokens, 512, 12, 128)),
         ("self_14B_720p", (1, 75600, 75600, 40, 128)),
-        ("cross_14B_720p", (2, 75600, 512, 40, 128)),
-        # Krea 2's layer-wise text blocks at 1024x1024: 64 text tokens, so
-        # 64 items of L = S = 12 layers, 20 heads (txtdim 2560)
-        ("layerwise_krea2", (KREA2_TEXT, 12, 12, 20, 128)))}
+        ("cross_14B_720p", (2, 75600, 512, 40, 128)))}
     w8 = {f"{k}x{n}": time_w8(f"{k}x{n}", 2 * tokens, k, n)
           for k, n in ((1536, 1536), (1536, 8960), (8960, 1536))}
     # cross-attention k/v: 2 x 512 text tokens
@@ -1967,13 +2079,8 @@ def phase_time(tokens: int):
         t = time_w4(m, k, n)
         w4[f"{m}x{k}x{n}"] = t["matmul_w4"]
         w4a8[f"{m}x{k}x{n}"] = t["matmul_w4a8"]
-    # Krea 2 at 1024x1024: 64 text + 4,096 image tokens padded to 4,352;
-    # CFG as batch 2 (self-attention) and one prompt (text refiner)
-    krea_l = 4352
-    kvmask = {"self_krea2": time_kvmask("self_krea2", 2, krea_l, 48, 128,
-                                        KREA2_TEXT + 4096),
-              "refiner_krea2": time_kvmask("refiner_krea2", 1, KREA2_TEXT,
-                                           20, 128, KREA2_TEXT)}
+    kvmask = {}
+    time_o(flash, kvmask)
     w8a8 = {f"{k}x{n}": time_w8a8(2 * tokens, k, n)
             for k, n in ((1536, 1536), (1536, 8960), (8960, 1536))}
     w8a8["1024x1536x1536"] = time_w8a8(1024, 1536, 1536)
@@ -2039,6 +2146,8 @@ def phase_time(tokens: int):
                 t["launches_per_forward_C"] = C_PER_FORWARD[case]
     for case, n in F_PER_FORWARD.items():
         flash[case]["launches_per_forward_F"] = n
+    for case, n in N_PER_FORWARD.items():
+        flash[case]["launches_per_forward_N"] = n
     for case, n in G_PER_FORWARD.items():
         (flash if case in flash else w8)[case]["launches_per_forward_G"] = n
     for case, n in I_PER_FORWARD.items():
@@ -2317,6 +2426,60 @@ def vae22_state_dict(p):
                 sd.resample(f"{pre}.{len(stage['blocks'])}",
                             stage["resample"])
     return sd.around_towers(p)
+
+
+def leaf_checksums(tree):
+    """{leaf path: a position-weighted sum of its bits}, on the card, one
+    layer slice at a time: equal leaves give equal sums, and a changed
+    element, or two swapped, changes it."""
+    out = {}
+    for path, t in _flat(tree):
+        total = 0
+        for part in (t if t.dim() >= 3 else [t]):
+            x = part.contiguous().reshape(-1).view(torch.int16).long()
+            w = torch.arange(1, x.numel() + 1, device=x.device) % 65521
+            total += int((x * w).sum())
+        out[path] = total
+    return out
+
+
+def n_lora_state_dict(cfg, seed: int = 31):
+    """(N)'s LoRA on the host, in the key layout of the public
+    Wan21_T2V_14B_lightx2v_cfg_step_distill_lora_rank32 file
+    (diffusion_model.blocks.N.*.lora_down / lora_up + alpha): every self-
+    and cross-attention q, k, v, o and ffn.0 / ffn.2 of the blocks at rank
+    N_RANK (bf16, N(0, 0.02^2)), four `.diff_b` keys (dropped by the
+    conversion) and a `text_embedding.0` pair (no weight of the tree:
+    unmatched)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, f, r = cfg.dim, cfg.ffn_dim, N_RANK
+    sd = {}
+
+    def rnd(shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.02).to(torch.bfloat16).cpu()
+
+    def put(path, din, dout):
+        sd[f"diffusion_model.{path}.lora_down.weight"] = rnd((r, din))
+        sd[f"diffusion_model.{path}.lora_up.weight"] = rnd((dout, r))
+        sd[f"diffusion_model.{path}.alpha"] = torch.tensor(float(r))
+    for i in range(cfg.num_layers):
+        for attn in ("self_attn", "cross_attn"):
+            for x in "qkvo":
+                put(f"blocks.{i}.{attn}.{x}", d, d)
+        put(f"blocks.{i}.ffn.0", d, f)
+        put(f"blocks.{i}.ffn.2", f, d)
+    put("text_embedding.0", cfg.text_dim, d)
+    for i in range(4):
+        sd[f"diffusion_model.blocks.{i}.self_attn.q.diff_b"] = rnd((d,))
+    return sd
+
+
+def bf16_ulps(got, ref):
+    """|got - ref| in bf16 ulps of ref, elementwise (fp32 on the host)."""
+    g, r = got.float(), ref.float()
+    e = torch.floor(torch.log2(r.abs().clamp_min(1e-30)))
+    return (g - r).abs() / torch.exp2(e - 7)
 
 
 def run_k(out_dir, timed, split, seen):
@@ -3103,8 +3266,7 @@ def phase_service(frames: int):
         if plan.all():
             raise AssertionError(f"(C): the TeaCache plan {plan} skips "
                                  "no step")
-        per_forward = {"sol_flash": 40, "flash_attention": 40,
-                       "matmul_w4a8": 400, "act_quant": 280}
+        per_forward = dict(A_KERNELS)
         try:
             out = recorded_request(
                 "(C)", lambda: pipe.generate(
@@ -3364,10 +3526,10 @@ def phase_service(frames: int):
 
     def run_g(png):
         """(G): i2v_2_2 (Wan2.2 A14B image-to-video) at 1280x720x81 with
-        quantize="int8" on both experts, dense attention, all 40 layers,
-        the definition's two phases (switch_threshold 900, guidance
-        3.5 / 3.5, flow_shift 5) over 2 UniPC steps: t = 999 runs the
-        high-noise expert, t = 833 the low-noise one."""
+        quantize="int8" on both experts, dense attention, G_LAYERS of each
+        expert's 40 layers, the definition's two phases (switch_threshold
+        900, guidance 3.5 / 3.5, flow_shift 5) over 2 UniPC steps: t = 999
+        runs the high-noise expert, t = 833 the low-noise one."""
         from wan2gp_tpu_torch.models.wan.pipeline import plan_phases
         from wan2gp_tpu_torch.schedulers import make_schedule
         svc = svc_mod.GenerationService(init_random_weights=True,
@@ -3380,14 +3542,20 @@ def phase_service(frames: int):
         phases = plan_phases(sched.timesteps, sampling, True)
         if [p[3] for p in phases] != [0, 1]:
             raise AssertionError(f"(G): phases {phases}")
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        pipe = svc.get_pipeline("i2v_2_2")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        arch = fam._ARCH["i2v_2_2"]
+        fam._ARCH["i2v_2_2"] = {**arch, "num_layers": G_LAYERS}
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe = svc.get_pipeline("i2v_2_2")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            load_peak = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            fam._ARCH["i2v_2_2"] = arch
         reset_pads()
-        per_forward = {"flash_attention": 80, "matmul_w8": 400}
+        per_forward = {"flash_attention": 2 * G_LAYERS,
+                       "matmul_w8": 10 * G_LAYERS}
         out = recorded_request("(G)", lambda: svc.generate({
             "model_type": "i2v_2_2", "prompt": "a red fox",
             "resolution": "1280x720", "video_length": frames,
@@ -3406,6 +3574,7 @@ def phase_service(frames: int):
         torch.cuda.empty_cache()
         return {"label": "(G) Wan2.2 i2v A14B 720p, int8 on both experts, "
                          "two phases", "steps": STEPS,
+                "layers": f"{G_LAYERS} of each expert's 40 (cut from 40)",
                 "timesteps": sched.timesteps.tolist(),
                 "phases": [list(p) for p in phases],
                 "experts_by_forward": experts, "load_s": load_s,
@@ -3524,8 +3693,9 @@ def phase_service(frames: int):
     def run_j():
         """(J): vace_multitalk_14B (Wan2.1 14B with VACE and the multitalk
         module) at 832x480x81, through WanPipeline.generate_multitalk with
-        a VACE context (the JAX handler never passes one).  The DiT, with
-        its 20 VACE blocks, is random and quantized int8 in process; the
+        a VACE context (the JAX handler never passes one).  The DiT
+        (J_LAYERS of its 40 layers, a VACE block every second layer) is
+        random and quantized int8 in process; the
         multitalk module (reference key names, bf16) and a wav2vec2-base
         (HF key names, fp32) are written from random weights under
         `ckpts`, read back by their loaders and placed in the pipeline as
@@ -3551,8 +3721,13 @@ def phase_service(frames: int):
             raise AssertionError(f"(J): the definition {defaults}")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        pipe = fam.WanFamilyHandler.load_model(
-            "vace_multitalk_14B", model_def, init_random=True, seed=21)
+        arch = fam._ARCH["vace_multitalk_14B"]
+        fam._ARCH["vace_multitalk_14B"] = {**arch, "num_layers": J_LAYERS}
+        try:
+            pipe = fam.WanFamilyHandler.load_model(
+                "vace_multitalk_14B", model_def, init_random=True, seed=21)
+        finally:
+            fam._ARCH["vace_multitalk_14B"] = arch
         cfg = pipe.dit_cfg
         # the module (load_model's random one) and wav2vec2 as files
         module_sd = mt.multitalk_module_state_dict(
@@ -3639,7 +3814,7 @@ def phase_service(frames: int):
                 "a person talking", emb[0], width=w, height=h,
                 frame_num=frames, sampling=sampling, seed=9,
                 audio_guide_scale=4.0, vace_context=vctx)
-        per_forward = {"flash_attention": 160, "matmul_w8": 740}
+        per_forward = dict(J_KERNELS)
         reset_pads()
         out = recorded_request("(J)", request, [1] * STEPS, per_forward, {},
                                frames, h, w)
@@ -3659,6 +3834,7 @@ def phase_service(frames: int):
                          "frame mask) + audio (wav2vec2 from a WAV), int8, "
                          "guidance 1, audio guidance 4",
                 "layers": cfg.num_layers, "vace_blocks": len(cfg.vace_layers),
+                "depth": f"{J_LAYERS} of 40 layers (cut from 40)",
                 "steps": STEPS, "solver": "unipc", "init_s": init_s,
                 "write_s": write_s, "read_s": read_s,
                 "quantize_s": quantize_s, "files_bytes": files,
@@ -3668,40 +3844,274 @@ def phase_service(frames: int):
                 "padded_launches": padded,
                 "launches_per_forward": per_forward, **out}
 
-    def run_krea2(n_req, size):
-        """n_req krea2_raw requests (guidance 3.5: CFG as batch 2) at all
-        28 layers.  Per request of STEPS steps: 28 masked self-attentions
-        per forward, plus per prompt (the prompt and the negative one) 2
-        masked text-refiner calls and 2 dense layer-wise text calls."""
+    def run_n():
+        """(N): t2v (Wan2.1 14B) in bf16, dense, all 40 layers, at
+        1280x720x81 through GenerationService with the Lightx2v profile:
+        its rank-32 LoRA (n_lora_state_dict, written under the profile
+        URL's basename in <lora_root>/wan) merged at multiplier 1,
+        guidance 1 (batch 1), flow_shift 2, STEPS of the profile's 4
+        UniPC steps.  Checks: a merged q and fc1 slice within one bf16 ulp
+        of the port's CPU merge from the same file; once the service has
+        restored the base weights (what a request without LoRA does
+        first), every DiT leaf bit-equal to its value before the merge (a
+        checksum of each)."""
+        from wan2gp_tpu_torch import lora as L
+        from wan2gp_tpu_torch.config.profiles import load_profile
+        from wan2gp_tpu_torch.io.safetensors_reader import save_safetensors
+        prof = load_profile(*N_PROFILE.split("/", 1))
+        if (prof["guidance_scale"], prof["flow_shift"],
+                prof["num_inference_steps"], prof["loras_multipliers"]) != (
+                    1, 2, N_PROFILE_STEPS, "1"):
+            raise AssertionError(f"(N): the profile {prof}")
+        lora_root = os.path.join(OUT, "loras")
+        shutil.rmtree(lora_root, ignore_errors=True)
+        lora_path = os.path.join(lora_root, "wan", os.path.basename(
+            prof["activated_loras"][0]))
+        os.makedirs(os.path.dirname(lora_path))
         svc = svc_mod.GenerationService(init_random_weights=True,
-                                        output_dir=out_dir)
+                                        output_dir=out_dir,
+                                        lora_root=lora_root)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        pipe = svc.get_pipeline("krea2_raw")
+        pipe = svc.get_pipeline("t2v")
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         load_peak = torch.cuda.max_memory_allocated() / 1e9
-        pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
         cfg = pipe.dit_cfg
-        n_params = sum(t.numel() for t in _leaves(pipe.dit_params))
+        t0 = time.perf_counter()
+        before = leaf_checksums(pipe.dit_params)
+        checksum_s = time.perf_counter() - t0
+        blocks = pipe.dit_params["blocks"]
+        probes = {"blocks.7.self_attn.q": ("self_attn", "q", 7),
+                  "blocks.39.ffn.0": ("ffn", "fc1", 39)}
+        base = {p: blocks[a][b]["w"][i].cpu()
+                for p, (a, b, i) in probes.items()}
+        t0 = time.perf_counter()
+        sd = n_lora_state_dict(cfg)
+        save_safetensors(lora_path, sd)
+        write_s = time.perf_counter() - t0
+        lora_keys, lora_bytes = len(sd), os.path.getsize(lora_path)
+        del sd
+        info = {}
+        real_read, real_merge = L.read_lora, L.MergedLoras.merge
+
+        def read(path):
+            d = real_read(path)
+            info["paths"] = len(d)
+            return d
+
+        def merge(self, *a, **kw):
+            info["unmatched"] = real_merge(self, *a, **kw)
+            return info["unmatched"]
+        real_reserve = L.MergedLoras.reserve
+
+        def reserve(self, slots):
+            t0 = time.perf_counter()
+            real_reserve(self, slots)
+            info["reserve_s"] = time.perf_counter() - t0
+        L.read_lora = timed("lora_read", read)
+        L.MergedLoras.merge = timed("lora_merge", merge)
+        L.MergedLoras.reserve = reserve
+        status = []
+        try:
+            out = recorded_request("(N)", lambda: svc.generate({
+                "model_type": "t2v", "prompt": "a red fox",
+                "resolution": "1280x720", "video_length": frames,
+                "profile": N_PROFILE, "num_inference_steps": STEPS,
+                "seed": 11}, on_progress=lambda k, m: status.append(m)),
+                [1] * STEPS, {"flash_attention": 80}, {}, frames, 720, 1280)
+        finally:
+            L.read_lora, L.MergedLoras.merge = real_read, real_merge
+            L.MergedLoras.reserve = real_reserve
+        out.pop("forward_params")
+        matched = info["paths"] - len(info["unmatched"])
+        if (matched, info["unmatched"]) != (10 * cfg.num_layers,
+                                            ["text_embedding.0"]) \
+                or "1 unmatched LoRA keys" not in status:
+            raise AssertionError(f"(N): {info} {status}")
+        state = svc._merged["t2v"]
+        host_bytes = state.host_bytes
+        arena = state._arena.buf
+        arena_bytes, pinned = arena.numel(), arena.is_pinned()
+        del arena
+        # a merged slice on the card against the port's CPU merge
+        lora_cpu = L.read_lora(lora_path)
+        merge_check = {}
+        for path, (a, b, i) in probes.items():
+            sub = path.split(".", 2)[2]
+            node = {"w": base[path][None].clone()}
+            L.merge_lora({"blocks": {a: {b: node}}},
+                         {f"blocks.0.{sub}": lora_cpu[path]}, 1.0)
+            card = blocks[a][b]["w"][i].cpu()
+            ulps = bf16_ulps(card, node["w"][0])
+            merge_check[path] = {
+                "max_ulps": float(ulps.max()),
+                "bit_equal_share": float((card == node["w"][0]).float()
+                                         .mean()),
+                "changed_share": float((card != base[path]).float().mean())}
+            if merge_check[path]["max_ulps"] > 1 \
+                    or merge_check[path]["changed_share"] < 0.5:
+                raise AssertionError(f"(N) {path}: {merge_check[path]}")
+        # what a request without LoRA does first: the base weights back
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.sync_loras("t2v", pipe, None)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        after = leaf_checksums(pipe.dit_params)
+        if after != before or state.host_bytes:
+            raise AssertionError(
+                f"(N): leaves not restored: "
+                f"{[k for k in before if after.get(k) != before[k]][:8]}")
+        svc.release_model()
+        del svc, pipe, blocks
+        shutil.rmtree(lora_root, ignore_errors=True)
+        torch.cuda.empty_cache()
+        step_s = out["denoise_s"] / STEPS
+        return {"label": "(N) t2v 14B 720p bf16 dense, the Lightx2v profile "
+                         "(rank-32 LoRA merged, guidance 1, flow_shift 2)",
+                "profile": N_PROFILE, "steps": STEPS,
+                "profile_steps": N_PROFILE_STEPS, "layers": cfg.num_layers,
+                "load_s": load_s, "load_peak_gb": load_peak,
+                "lora_write_s": write_s, "lora_bytes": lora_bytes,
+                "lora_keys": lora_keys, "lora_paths": info["paths"],
+                "matched": matched, "unmatched": info["unmatched"],
+                "restore_host_bytes": host_bytes,
+                "restore_arena_bytes": arena_bytes,
+                "restore_arena_pinned": pinned,
+                "lora_merge_reserve_s": info["reserve_s"],
+                "restore_s": restore_s, "checksum_s": checksum_s,
+                "leaves_restored": len(after), "merge_check": merge_check,
+                "step_s": step_s,
+                "projected_request_s_at_4_steps": out["request_s"]
+                + (N_PROFILE_STEPS - STEPS) * step_s,
+                "launches_per_forward": {"flash_attention": 80}, **out}
+
+    def run_o():
+        """(O): krea2_raw from its files at 1024x1024, two requests at
+        guidance 3.5 (CFG as batch 2), STEPS steps.  The DiT (12.8 B, all
+        28 layers) is random on the card, exported block by block to a
+        host state dict in the reference names and freed; the Qwen3-4B
+        tower (36 layers, width 2560) likewise, in HF names; the image VAE
+        is written as qwen_vae.safetensors (bf16).  A GenerationService
+        loads the three roles through its checkpoints resolver and the
+        handler's loaders (the two state dicts stand in for their files);
+        the prompt is hashed into Qwen3's vocabulary and its 12
+        SELECT_LAYERS hidden layers over the 512-token template condition
+        the DiT: 28 masked flash launches a forward, 4 masked (text
+        refiner) and 4 dense (layer-wise text blocks) a request."""
+        from wan2gp_tpu_torch.io import krea2_checkpoint as kck
+        from wan2gp_tpu_torch.lora import HostArena
+        from wan2gp_tpu_torch.io import safetensors_reader as st
+        from wan2gp_tpu_torch.models.krea2.dit import Krea2Config, init_krea2
+        from wan2gp_tpu_torch.models.qwen import text_encoder as qlm
+        from wan2gp_tpu_torch.models.wan.vae import WanVAEConfig, \
+            init_wan_vae
+        bf16 = torch.bfloat16
+        ckdir = os.path.join(OUT, "ckpts_o")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        os.makedirs(ckdir)
+        gen = torch.Generator(device="cuda")
+        times = {}
+
+        def clock(name, t0):
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vcfg = WanVAEConfig()
+        vp = init_wan_vae(gen.manual_seed(41), vcfg)
+        vae_path = os.path.join(ckdir, "qwen_vae.safetensors")
+        st.save_safetensors(vae_path, {k: v.to(bf16) for k, v in
+                                       vae_state_dict(vp, vcfg).items()})
+        del vp
+        clock("vae_write_s", t0)
+        vae_bytes = os.path.getsize(vae_path)
+        cfg = Krea2Config()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_krea2(gen.manual_seed(42), cfg, bf16)
+        clock("dit_init_s", t0)
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        dit_arena = HostArena(list(_leaves(params)), pin=True)
+        dit_sd = {k: dit_arena.put(v) for k, v in
+                  kck.krea2_state_dict(params, cfg, layers=()).items()}
+        for i in range(cfg.layers):
+            dit_sd.update({k: dit_arena.put(v) for k, v in
+                           kck.krea2_state_dict(params, cfg, layers=[i],
+                                                rest=False).items()})
+        clock("dit_export_s", t0)
+        del params
+        torch.cuda.empty_cache()
+        lm_cfg = qlm.QwenLMConfig(**qlm.QWEN3_4B, compute_dtype=bf16)
+        t0 = time.perf_counter()
+        lm = qlm.init_qwen_lm(gen.manual_seed(43), lm_cfg, bf16)
+        clock("lm_init_s", t0)
+        t0 = time.perf_counter()
+        lm_arena = HostArena(list(_leaves(lm)), pin=True)
+        lm_sd = {k: lm_arena.put(v) for k, v in qlm.qwen_lm_state_dict(
+            lm, lm_cfg, "model.language_model.").items()}
+        clock("lm_export_s", t0)
+        del lm
+        torch.cuda.empty_cache()
+        mem = {"memory:transformer": dit_sd, "memory:text_encoder": lm_sd}
+        names = {}
+
+        def resolver(model_type, handler, base, model_def):
+            for spec in handler.query_model_files(base, model_def):
+                names[spec["role"]] = os.path.basename(spec["urls"][0])
+            return {"transformer": "memory:transformer",
+                    "text_encoder": "memory:text_encoder", "vae": vae_path}
+        real_load = st.load_weights
+        st.load_weights = lambda path: mem[path] if path in mem \
+            else real_load(path)
+        svc = svc_mod.GenerationService(output_dir=out_dir,
+                                        checkpoints_resolver=resolver)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe = svc.get_pipeline("krea2_raw")
+            clock("load_s", t0)
+        finally:
+            st.load_weights = real_load
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        if names != {"transformer": "Krea2Raw_bf16.safetensors",
+                     "text_encoder":
+                         "Qwen3-VL-4B-Instruct_text_bf16.safetensors",
+                     "vae": "qwen_vae.safetensors"}:
+            raise AssertionError(f"(O): the roles' files {names}")
+        # the loaded DiT, exported again, is the host state dict (the first
+        # and last blocks and every key outside the blocks)
+        again = kck.krea2_state_dict(pipe.dit_params, cfg,
+                                     layers=(0, cfg.layers - 1))
+        for k, v in again.items():
+            if not torch.equal(v.cpu(), dit_sd[k]):
+                raise AssertionError(f"(O) {k}: not the exported tensor")
+        n_params = sum(v.numel() for v in dit_sd.values())
+        lm_params = sum(v.numel() for v in lm_sd.values())
+        del again, dit_sd, lm_sd, mem, dit_arena, lm_arena
+        torch._C._host_emptyCache()
+        pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
+        pipe.text_encode_fn = timed("lm", pipe.text_encode_fn)
+        valid = o_text_tokens()
         reset_counts()
         reqs = []
-        for i in range(n_req):
+        for i in range(2):
             seen.clear()
             split.clear()
             t0 = time.perf_counter()
             paths = svc.generate({
                 "model_type": "krea2_raw", "prompt": f"a red fox {i}",
-                "resolution": f"{size}x{size}", "num_inference_steps": STEPS,
+                "resolution": "1024x1024", "num_inference_steps": STEPS,
                 "guidance_scale": 3.5, "seed": i})
             req_s = time.perf_counter() - t0
             ok = (len(paths) == 1 and paths[0].endswith(".png")
-                  and media.read_image(paths[0]).shape == (size, size, 3)
+                  and media.read_image(paths[0]).shape == (1024, 1024, 3)
                   and seen and seen[0]["finite"]
-                  and seen[0]["shape"] == [size, size, 3]
+                  and seen[0]["shape"] == [1024, 1024, 3]
                   and media.read_image_metadata(paths[0])["seed"] == i)
             if not ok:
-                raise AssertionError(f"krea2_raw request {i}: {paths} {seen}")
+                raise AssertionError(f"(O) request {i}: {paths} {seen}")
             reqs.append({"request_s": req_s, **split,
                          "step_s": split["denoise_s"] / STEPS,
                          "bytes": os.path.getsize(paths[0])})
@@ -3710,20 +4120,25 @@ def phase_service(frames: int):
         per_forward = {"flash_attention_kvmask": cfg.layers}
         per_request = {"flash_attention_kvmask": 2 * cfg.n_fusion_blocks,
                        "flash_attention": 2 * cfg.n_fusion_blocks}
-        want = {name: n_req * (per_forward.get(name, 0) * STEPS
-                               + per_request.get(name, 0))
-                for name in counts}
+        want = {name: 2 * (per_forward.get(name, 0) * STEPS
+                           + per_request.get(name, 0)) for name in counts}
         if counts != want:
-            raise AssertionError(f"krea2_raw: launches {counts}, want {want}")
+            raise AssertionError(f"(O): launches {counts}, want {want}")
         svc.release_model()
         del svc, pipe
+        shutil.rmtree(ckdir, ignore_errors=True)
         torch.cuda.empty_cache()
-        return {"model": "krea2_raw", "resolution": f"{size}x{size}",
-                "quantize": "bf16", "attention": "auto",
-                "layers": cfg.layers, "parameters": n_params,
-                "tokens": KREA2_TEXT + (size // 16) ** 2,
-                "guidance_scale": 3.5, "requests": reqs, "load_s": load_s,
-                "load_peak_gb": load_peak, "launches": counts,
+        return {"label": "(O) krea2_raw 1024x1024 from its files: DiT and "
+                         "Qwen3-4B tower through host state dicts, the "
+                         "image VAE file", "model": "krea2_raw",
+                "resolution": "1024x1024", "layers": cfg.layers,
+                "parameters": n_params, "lm_parameters": lm_params,
+                "text_slots": O_TEXT, "valid_text_tokens": valid,
+                "tokens": O_TEXT + 4096, "guidance_scale": 3.5,
+                "steps": STEPS, "roles": names, **times,
+                "dit_init_peak_gb": init_peak, "load_peak_gb": load_peak,
+                "vae_file_bytes": vae_bytes,
+                "requests": reqs, "launches": counts,
                 "launches_per_forward": per_forward,
                 "launches_per_request_besides": per_request}
 
@@ -3741,16 +4156,16 @@ def phase_service(frames: int):
                                 1, w, h, 30, {"flash_attention": 60,
                                               "matmul_w8a8": 300,
                                               "act_quant": 210})
-        # 14B at 1280x720, (A) and (B) at every layer; (C) on (A)'s pipeline
+        # 14B at 1280x720: (A) at A_LAYERS, (C) on (A)'s pipeline; (B)
         results["14B_int4a8_sol"] = run(
-            "14B int4a8 sol", "t2v", "int4a8", "sol", 1, 1280, 720, 40,
-            {"sol_flash": 40, "flash_attention": 40, "matmul_w4a8": 400,
-             "act_quant": 280}, after=run_c)
+            "14B int4a8 sol", "t2v", "int4a8", "sol", 1, 1280, 720,
+            A_LAYERS, dict(A_KERNELS), after=run_c)
         results["14B_int4_radial"] = run(
             "14B int4 radial", "t2v", "int4", "radial", 1, 1280, 720,
             B_LAYERS, {"sparse_flash": B_LAYERS, "flash_attention": B_LAYERS,
                        "matmul_w4": 10 * B_LAYERS})
-        results["krea2_raw"] = run_krea2(2, 1024)
+        results["14B_bf16_lora_N"] = run_n()
+        results["krea2_raw_O"] = run_o()
         results["1.3B_checkpoint_D"] = run_d()
         results["1.3B_sliding_E"] = run_e()
         source = results["1.3B_sliding_E"].pop("path")
@@ -3762,10 +4177,10 @@ def phase_service(frames: int):
                              indexing="ij")
         real_save_image((np.stack([xx, yy, xx * yy], -1) * 2 - 1)
                         .astype(np.float32), png)
-        # 40 self + 40 text cross + 40 image cross flash a forward
+        # a self, a text cross and an image cross flash a layer
         results["14B_i2v_F"] = run(
-            "(F) 14B i2v", "i2v", "", "auto", 1, 832, 480, 40,
-            {"flash_attention": 120}, settings={"image_start": png})
+            "(F) 14B i2v", "i2v", "", "auto", 1, 832, 480, F_LAYERS,
+            {"flash_attention": 3 * F_LAYERS}, settings={"image_start": png})
         results["14B_i2v_2_2_G"] = run_g(png)
         os.remove(png)
         results["5B_ti2v_I"] = run_i()
@@ -3783,7 +4198,14 @@ def phase_service(frames: int):
         krea2_pipe.krea2_denoise = real_krea2_denoise
     emit("service", frames=frames, latent_frames=(frames - 1) // 4 + 1,
          steps=STEPS, guidance_scale=5.0, solver="unipc",
-         b_layers=f"14B (B) runs {B_LAYERS} of 40 layers", **results)
+         b_layers=f"14B (B) runs {B_LAYERS} of 40 layers",
+         depth_cuts={"A and C": f"{A_LAYERS} of 40 layers (cut from 40)",
+                     "B": f"{B_LAYERS} of 40 layers (cut from 40)",
+                     "F": f"{F_LAYERS} of 40 layers (cut from 40)",
+                     "G": f"{G_LAYERS} of each expert's 40 layers (cut "
+                          "from 40)",
+                     "J": f"{J_LAYERS} of 40 layers (cut from 40)"},
+         **results)
     return results
 
 
@@ -3816,6 +4238,30 @@ def phase_t5():
     torch.cuda.empty_cache()
 
 
+WRITTEN = {"bytes": 0, "files": 0}
+
+
+def count_writes():
+    """Wraps the writers the paths use (safetensors, AVI, PNG, WAV) to add
+    up the bytes the script writes, files deleted later included."""
+    from wan2gp_tpu_torch.io import safetensors_reader as st
+    from wan2gp_tpu_torch.utils import media
+
+    def wrap(mod, name):
+        real = getattr(mod, name)
+
+        def counted(*a, **kw):
+            out = real(*a, **kw)
+            path = out if isinstance(out, str) else kw.get("path", a[0])
+            WRITTEN["bytes"] += os.path.getsize(path)
+            WRITTEN["files"] += 1
+            return out
+        setattr(mod, name, counted)
+    wrap(st, "save_safetensors")
+    for name in ("save_video", "save_image", "save_audio"):
+        wrap(media, name)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3837,6 +4283,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
+    count_writes()
     phase_env()
     checks = phase_check()
     dit_launches = phase_dit()
@@ -3850,7 +4297,7 @@ def main(argv=None):
         ("flash_attention", "flash_attention.cu",
          "wan2gp_tpu/ops/attention.py:33", "bf16", "self_1.3B"),
         ("flash_attention_kvmask", "flash_attention.cu",
-         "wan2gp_tpu/ops/attention.py:79", "krea2_raw", "self_krea2"),
+         "wan2gp_tpu/ops/attention.py:79", "krea2_raw_O", "self_krea2_O"),
         ("matmul_w8", "w8_matmul.cu", "wan2gp_tpu/ops/quant.py:32", "int8",
          "1536x8960"),
         ("matmul_w8a8", "w8_matmul.cu", "wan2gp_tpu/ops/quant.py:239",
@@ -3899,6 +4346,8 @@ def main(argv=None):
             "launches": svc[run]["launches"][name],
             "max_abs_err": max(e["max_abs"] for e in errs),
             "check": "pass", **timed})
+    emit("disk", written_bytes=WRITTEN["bytes"],
+         written_gb=WRITTEN["bytes"] / 1e9, files=WRITTEN["files"])
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi_line(), flush=True)

@@ -77,6 +77,9 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.io.save_quantized",
     "wan2gp_tpu_torch.io.downloads",
     "wan2gp_tpu_torch.io.gguf_reader",
+    "wan2gp_tpu_torch.io.krea2_checkpoint",
+    "wan2gp_tpu_torch.lora",
+    "wan2gp_tpu_torch.config.profiles",
 )
 
 _PROBE = r"""
@@ -152,6 +155,7 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
         QwenLMConfig, load_qwen_lm_params)
     from wan2gp_tpu_torch.families.krea2 import Krea2FamilyHandler
     from wan2gp_tpu_torch.families.ltx2 import LTX2FamilyHandler
+    from wan2gp_tpu_torch.io.krea2_checkpoint import load_krea2_params
     from wan2gp_tpu_torch.io.ltx2_checkpoint import load_ltx2_params
     from wan2gp_tpu_torch.models.ltx2.dit import LTX2Config
     from wan2gp_tpu_torch.models.ltx2.gemma import (Gemma3Config,
@@ -194,6 +198,9 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
         "Krea2Pipeline": lambda: Krea2Pipeline({}, Krea2Config()),
         "krea2 load_model": lambda: Krea2FamilyHandler.load_model(
             "krea2_raw", {}, init_random=True),
+        "krea2 load_model from files": lambda: Krea2FamilyHandler.load_model(
+            "krea2_raw", {}, {"transformer": "x.safetensors"}),
+        "load_krea2_params": lambda: load_krea2_params({}, Krea2Config()),
         "FluxPipeline": lambda: FluxPipeline({}, FluxConfig()),
         "flux load_model": lambda: FluxFamilyHandler.load_model(
             "flux_schnell", {}, init_random=True),

@@ -8,7 +8,8 @@ the Qwen qkv bias and QK norm, LLaMA-3's rope theta) in fp32 within
 1e-4 * max|ref| of JAX, in bf16 within 3e-2; the template encoder
 (`drop_idx`, the output mask, padded rows zeroed) within 1e-4 with the
 same tokenizer on both sides; the HF loader and exporter round-trip, a
-leftover key stays over, and the parts not ported raise.
+leftover key stays over, and the parts not ported raise (the hidden layers
+of `collect_layers` are held to JAX in tests/test_torch_krea2_checkpoint.py).
 """
 import dataclasses
 import functools
@@ -136,13 +137,9 @@ def test_parts_not_ported_raise():
     p = _tree(QWEN, 5)
     ids = torch.zeros((1, 3), dtype=torch.long)
     for call in (lambda: lm.qwen_lm_forward(p, cfg, ids, ids + 1,
-                                            collect_layers=[1]),
-                 lambda: lm.qwen_lm_forward(p, cfg, ids, ids + 1,
                                             input_embeds=torch.zeros(1, 3,
                                                                      32)),
-                 lambda: lm.qwen_lm_generate(p, cfg, ids, ids + 1),
-                 lambda: lm.make_qwen_text_encode_fn(
-                     p, cfg, HashTokenizer(100), collect_layers=[1])):
+                 lambda: lm.qwen_lm_generate(p, cfg, ids, ids + 1)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 items 8 and 12"):
             call()

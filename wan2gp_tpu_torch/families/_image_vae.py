@@ -1,10 +1,13 @@
 """The image VAE of the Krea 2 (and Qwen-Image) families.
 
 Counterpart of wan2gp_tpu/families/_image_vae.py: the Wan2.1 16-channel
-VAE applied to single-frame latents.  The JAX helper hands channels-first
-latents [B, 16, 1, H, W] to its channels-last `vae_decode` and fails on
-any real size (ROADMAP Queue 3); here the latents are moved to
-[B, 1, H, W, 16] first.
+VAE applied to single-frame latents, from random weights or from the
+`vae` role's file (`qwen_vae.safetensors`, the Wan2.1 VAE key space, read
+by `io.wan_checkpoint.load_wan_vae_params`).  The JAX helper hands
+channels-first latents [B, 16, 1, H, W] to its channels-last `vae_decode`
+and fails on any real size (ROADMAP Queue 3); here the latents are moved
+to [B, 1, H, W, 16] first.  A key the loader does not consume raises (the
+JAX helper drops them).
 """
 from __future__ import annotations
 
@@ -27,13 +30,19 @@ def make_image_vae_decode_fn(vae_params, vae_cfg: WanVAEConfig | None = None):
 
 def load_image_vae(checkpoints, init_random: bool, seed: int = 0,
                    device=None):
-    """The decode fn of a random VAE drawn from `seed` on `device`; a
-    checkpoint raises (loading is ROADMAP Queue 1)."""
-    if not init_random:
-        raise NotImplementedError(
-            "loading the image VAE checkpoint is not ported yet (ROADMAP "
-            "Queue 1: io/wan_checkpoint.py); pass init_random=True")
+    """The decode fn of a random VAE drawn from `seed` on `device`, or of
+    the file `checkpoints["vae"]`; None without either."""
     cfg = WanVAEConfig()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed + 7)
-    return make_image_vae_decode_fn(init_wan_vae(gen, cfg), cfg)
+    if init_random:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + 7)
+        return make_image_vae_decode_fn(init_wan_vae(gen, cfg), cfg)
+    if checkpoints and checkpoints.get("vae"):
+        from ..io.safetensors_reader import load_weights
+        from ..io.wan_checkpoint import load_wan_vae_params
+        params, left = load_wan_vae_params(load_weights(checkpoints["vae"]),
+                                           cfg, device=device)
+        if left:
+            raise ValueError(f"unconsumed image VAE keys: {left[:8]}")
+        return make_image_vae_decode_fn(params, cfg)
+    return None

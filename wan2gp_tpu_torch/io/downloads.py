@@ -3,6 +3,8 @@
 Counterpart of wan2gp_tpu/io/downloads.py (stdlib only) without its
 downloader: the port finds checkpoint files that are already on disk and
 raises for a file it cannot find, naming the file and the roots searched.
+`resolve_lora_file` finds a LoRA that a request or a profile names by URL
+(the JAX service hands the URL to its reader as a path).
 """
 from __future__ import annotations
 
@@ -111,3 +113,37 @@ def make_checkpoints_resolver(roots: Optional[List[str]] = None,
         return out
 
     return resolve
+
+
+def lora_dirs(lora_root: str, model_type: str = "",
+              family: str = "") -> List[str]:
+    """The folders a LoRA is looked for in, in `discover_loras`'s order:
+    <root>/<family>/<model_type>, <root>/<family>, <root>/<model_type>,
+    <root>."""
+    dirs = []
+    if family:
+        if model_type:
+            dirs.append(os.path.join(lora_root, family, model_type))
+        dirs.append(os.path.join(lora_root, family))
+    if model_type:
+        dirs.append(os.path.join(lora_root, model_type))
+    return dirs + [lora_root]
+
+
+def resolve_lora_file(name: str, lora_root: str, model_type: str = "",
+                      family: str = "") -> str:
+    """The local path of a LoRA named by a path, a name relative to the
+    LoRA folders, or a URL (looked for by its basename) in the folders of
+    `lora_dirs`.  Raises FileNotFoundError naming the file and the folders
+    searched: nothing is downloaded."""
+    if "://" not in name and os.path.isfile(name):
+        return name
+    rel = os.path.basename(name.split("?")[0]) if "://" in name else name
+    dirs = lora_dirs(lora_root, model_type, family)
+    for d in dirs:
+        path = os.path.join(d, rel)
+        if os.path.isfile(path):
+            return path
+    raise FileNotFoundError(
+        f"LoRA file {rel!r} is not in any of {dirs} (this package "
+        "downloads nothing)")

@@ -98,9 +98,10 @@ class Krea2Pipeline:
                  sampling: Krea2SamplingConfig = Krea2SamplingConfig(),
                  seed: int = 0, context=None, context_mask=None,
                  context_neg=None, context_neg_mask=None,
-                 return_latents: bool = False):
+                 return_latents: bool = False, noise=None):
         """An image [H, W, 3] fp32 in [-1, 1] on the pipeline's device (or
-        the latents [1, C, h, w] if return_latents)."""
+        the latents [1, C, h, w] if return_latents).  noise: the initial
+        latents [1, C, h, w] in place of the seeded draw."""
         cfg = self.dit_cfg
         align = self.compression * cfg.patch
         if width % align or height % align:
@@ -118,11 +119,12 @@ class Krea2Pipeline:
         l_txt = context.shape[1]
         pad_to = l_txt + l_img + ((-(l_txt + l_img)) % cfg.seq_multiple)
 
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        noise = torch.randn((1, cfg.channels, h_lat, w_lat), generator=gen,
-                            device=self.device)
-        img = pack_image(noise, cfg.patch)
+        if noise is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            noise = torch.randn((1, cfg.channels, h_lat, w_lat),
+                                generator=gen, device=self.device)
+        img = pack_image(noise.to(self.device, torch.float32), cfg.patch)
         cos, sin = build_krea2_rope(l_txt, h_tok, w_tok, cfg, pad_to,
                                     device=self.device)
         ts = krea2_timesteps(l_img, sampling.steps, align,

@@ -1,7 +1,8 @@
 """Causal-LM text encoder (Qwen2.5-VL text, Qwen3 and LLaMA-3 towers).
 
 Counterpart of wan2gp_tpu/models/qwen/text_encoder.py for the encoder path
-(HunyuanVideo 1.5 conditions on the LLaMA-3 8B tower's last hidden state):
+(HunyuanVideo 1.5 conditions on the LLaMA-3 8B tower's last hidden state,
+Krea 2 on 12 hidden layers of the Qwen3-4B tower, `collect_layers`):
 RMSNorm pre-norm, GQA attention with NeoX half-rotation RoPE, optional
 per-head QK RMS-norm (Qwen3) and qkv bias (Qwen2), a causal + padding
 bias, SwiGLU MLP and a final RMSNorm.  Its attention is plain PyTorch
@@ -9,10 +10,9 @@ bias, SwiGLU MLP and a final RMSNorm.  Its attention is plain PyTorch
 behind it there.  Layers are stacked on a leading axis and run as a Python
 loop.
 
-Not ported yet: per-layer hidden states (`collect_layers`), spliced input
-embeddings (`input_embeds`) and decoding (`qwen_lm_generate`); they wait
-for Krea 2's Qwen3-VL encoder and the prompt enhancer (ROADMAP Queue 1
-items 8 and 12) and raise, naming them.
+Not ported yet: spliced input embeddings (`input_embeds`) and decoding
+(`qwen_lm_generate`); they wait for Qwen-Image and the prompt enhancer
+(ROADMAP Queue 1 items 8 and 12) and raise, naming them.
 """
 from __future__ import annotations
 
@@ -26,8 +26,7 @@ import torch.nn.functional as F
 
 from ..wan.dit import layer_params
 
-_LATER = "ROADMAP Queue 1 items 8 and 12 (Krea 2's Qwen3-VL encoder, the " \
-    "prompt enhancer)"
+_LATER = "ROADMAP Queue 1 items 8 and 12 (Qwen-Image, the prompt enhancer)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,11 +142,12 @@ def qwen_lm_forward(params, cfg: QwenLMConfig, ids, mask,
                     input_embeds=None):
     """ids / mask: [B, L] integer (mask 1 = real token).  Returns the final
     hidden states [B, L, dim] in the compute dtype (after the final norm,
-    HF hidden_states[-1])."""
-    if collect_layers is not None or input_embeds is not None:
+    HF hidden_states[-1]); with collect_layers, (final, [B, L, n_sel,
+    dim]) with HF's indexing: k = 0 the embeddings, k = i the output of
+    block i, k >= n_layers the final-normed output."""
+    if input_embeds is not None:
         raise NotImplementedError(
-            f"per-layer hidden states and input embeddings of the LM are "
-            f"not ported yet ({_LATER})")
+            f"input embeddings of the LM are not ported yet ({_LATER})")
     cdt = cfg.compute_dtype
     dev = params["embed_tokens"].device
     ids = torch.as_tensor(ids).to(dev, torch.long)
@@ -159,6 +159,8 @@ def qwen_lm_forward(params, cfg: QwenLMConfig, ids, mask,
     valid = (mask[:, None, None, :] > 0) & causal[None, None]
     bias = torch.where(valid, 0.0, torch.finfo(torch.float32).min)
     n, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    want = set(collect_layers or ())
+    kept = {0: x} if 0 in want else {}
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         y = _rms(x, lp["input_norm"], cfg.norm_eps)
@@ -182,7 +184,13 @@ def qwen_lm_forward(params, cfg: QwenLMConfig, ids, mask,
         h = F.silu(_dense(y, lp["gate"]).float()).to(cdt) * _dense(y,
                                                                    lp["up"])
         x = x + _dense(h, lp["down"])
-    return _rms(x, params["norm"], cfg.norm_eps)
+        if i + 1 in want and i + 1 < cfg.n_layers:
+            kept[i + 1] = x
+    final = _rms(x, params["norm"], cfg.norm_eps)
+    if collect_layers is None:
+        return final
+    return final, torch.stack([final if k >= cfg.n_layers else kept[k]
+                               for k in collect_layers], dim=2)
 
 
 def qwen_lm_generate(*a, **kw):
@@ -281,19 +289,21 @@ def make_qwen_text_encode_fn(params, cfg: QwenLMConfig, tokenizer,
     """Returns fn(prompts) -> (embeds [B, max_len, dim] fp32, mask [B,
     max_len] int32): each prompt wrapped in the template, tokenized to
     max_len + drop_idx tokens, encoded, the first drop_idx positions (the
-    template's prefix) dropped and padded positions zeroed."""
-    if collect_layers is not None:
-        raise NotImplementedError(
-            f"per-layer hidden states of the LM are not ported yet "
-            f"({_LATER})")
-
+    template's prefix) dropped and padded positions zeroed.  With
+    collect_layers the embeds are those hidden layers, [B, max_len,
+    n_sel, dim] (Krea 2's conditioner)."""
     def encode(prompts):
         ids, mask = tokenizer([template.format(p) for p in prompts],
                               max_len + drop_idx)
         mask = torch.as_tensor(np.asarray(mask, np.int32))
-        hidden = qwen_lm_forward(params, cfg, np.asarray(ids, np.int64),
-                                 mask)
+        ids = np.asarray(ids, np.int64)
+        if collect_layers is None:
+            hidden = qwen_lm_forward(params, cfg, ids, mask)
+        else:
+            _, hidden = qwen_lm_forward(params, cfg, ids, mask,
+                                        collect_layers=collect_layers)
         out_mask = mask[:, drop_idx:].to(hidden.device)
-        emb = hidden[:, drop_idx:] * (out_mask[:, :, None] > 0)
-        return emb.float(), out_mask
+        valid = (out_mask > 0).reshape(out_mask.shape + (1,) * (
+            hidden.ndim - 2))
+        return (hidden[:, drop_idx:] * valid).float(), out_mask
     return encode

@@ -16,8 +16,22 @@ Weights are random (`init_random_weights`) or loaded from the files that
 `checkpoints_resolver` names for each role of the handler
 (`io.downloads.make_checkpoints_resolver` finds them on disk).
 
-Not ported yet (ROADMAP Queue 1): plugins, LoRA, profiles, config groups,
-multi-chip meshes and post-processing.
+A request may name a settings `profile` ("family/name", or a name looked
+for in every family) and a LoRA preset `lset_name` (a .lset under its
+`lora_dir`, else `lora_root`), which underlay its settings as in the JAX
+service, and LoRAs (`loras`, else `activated_loras`, by path, name or URL,
+found under `lora_root` by `io.downloads.resolve_lora_file`) with
+`loras_multipliers`.  On a Wan model with one expert and float weights
+the LoRAs merge into the DiT's weights (`lora.MergedLoras`): a request
+with the same files and multipliers reuses the merge, and any other
+request first restores the base weights bit for bit (the JAX service
+merges into its cached weights again at every request).  What the port
+cannot honour raises a ValueError before any work, naming ROADMAP Queue 1
+item 16: a LoRA on another family, on a second expert, on quantized
+weights, or with a multiplier that changes over the steps.
+
+Not ported yet (ROADMAP Queue 1): plugins, config groups, multi-chip
+meshes and post-processing.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ from ..config.registry import ModelRegistry
 from ..config.resolutions import parse_resolution, resolve_resolution
 from ..device import resolve_device
 from ..families import build_handler_map
+from ..lora import LATER as LORA_LATER
 from ..utils import media
 
 
@@ -88,7 +103,7 @@ class GenerationService:
                  output_dir: str = "outputs", attn_backend: str = "auto",
                  init_random_weights: bool = False,
                  checkpoints_resolver: Optional[Callable] = None,
-                 quantize: str = "", device=None):
+                 quantize: str = "", device=None, lora_root: str = "loras"):
         self.device = resolve_device(device)
         self.registry = registry or ModelRegistry(build_handler_map())
         self.output_dir = output_dir
@@ -97,7 +112,17 @@ class GenerationService:
         # (model_type, handler, base_model_type, model_def) -> {role: path}
         self.checkpoints_resolver = checkpoints_resolver
         self.quantize = quantize or ""
+        self.lora_root = lora_root
         self._pipelines: Dict[str, Any] = {}
+        # model_type -> the LoRAs merged into its pipeline's DiT
+        self._merged: Dict[str, Any] = {}
+
+    def list_loras(self, model_type: str = "") -> Dict[str, Any]:
+        """The LoRA files and presets for a model under `lora_root`."""
+        from ..config.profiles import discover_loras
+        family = (getattr(self.registry.handler_for(model_type), "family",
+                          "") if model_type else "")
+        return discover_loras(self.lora_root, model_type, family)
 
     # -- model management ----------------------------------------------
 
@@ -142,21 +167,130 @@ class GenerationService:
         return pipe
 
     def release_model(self, model_type: Optional[str] = None):
+        for mt in [m for m in self._merged
+                   if model_type is None or m == model_type]:
+            self._merged.pop(mt).release()
         if model_type is None:
             self._pipelines.clear()
         else:
             self._pipelines.pop(model_type, None)
+
+    # -- LoRA -------------------------------------------------------------
+
+    def lora_plan(self, merged: Dict[str, Any]):
+        """(paths, multipliers) of the request's LoRAs, or None.  Raises
+        before any work where the port cannot merge them: a family other
+        than Wan, a model with a second expert, a quantizing service, a
+        quanto-int8 DiT file, a multiplier that changes over the steps
+        (ValueError), or a file that is not on disk (FileNotFoundError)."""
+        from ..io.downloads import resolve_lora_file
+        from ..lora import parse_lora_multipliers
+        names = list(merged.get("loras") or merged.get("activated_loras")
+                     or [])
+        if not names:
+            return None
+        model_type = merged["model_type"]
+        family = getattr(self.registry.handler_for(model_type), "family", "")
+        asked = f"LoRA {[os.path.basename(str(n)) for n in names]} on " \
+                f"{model_type}"
+        if family != "wan":
+            raise ValueError(
+                f"{asked}: the {family} family takes no LoRA in this port "
+                f"yet ({LORA_LATER}: LoRA on HunyuanVideo, LTX-2, Flux and "
+                "Krea 2)")
+        if self.registry.get(model_type).get("multiple_submodels"):
+            raise ValueError(
+                f"{asked}: a LoRA for a model with two experts is not "
+                f"ported yet ({LORA_LATER}: the second expert with "
+                "per-phase multipliers; the JAX service merges into the "
+                "first expert only)")
+        if self.quantize:
+            raise ValueError(
+                f"{asked} with quantize={self.quantize!r}: a LoRA does not "
+                f"merge into int8 / int4 weights yet ({LORA_LATER}: LoRA on "
+                "quantized weights)")
+        quanto = self._quanto_dit_file(model_type)
+        if quanto:
+            raise ValueError(
+                f"{asked}: its DiT file {os.path.basename(quanto)!r} holds "
+                "quanto-int8 weights, and a LoRA does not merge into int8 "
+                f"weights yet ({LORA_LATER}: LoRA on quantized weights)")
+        steps = int(merged.get("num_inference_steps", 30))
+        sched = parse_lora_multipliers(merged.get("loras_multipliers", ""),
+                                       len(names), steps)
+        if (sched != sched[:, :1]).any():
+            raise ValueError(
+                f"{asked}: multipliers "
+                f"{merged.get('loras_multipliers')!r} change over the "
+                f"{steps} steps; a per-step schedule is not ported yet "
+                f"({LORA_LATER}: per-step schedules; the JAX service "
+                "merges step 0's multiplier for every step)")
+        paths = [resolve_lora_file(str(n), self.lora_root, model_type,
+                                   family) for n in names]
+        return paths, [float(m) for m in sched[:, 0]]
+
+    def _quanto_dit_file(self, model_type: str) -> Optional[str]:
+        """The DiT file that get_pipeline would load for model_type when it
+        holds quanto-int8 weights (weight._data keys in its header), else
+        None.  A loaded pipeline is left to match_lora, which refuses a
+        quantized linear before any weight changes; a GGUF DiT is
+        dequantized to float on load and takes a LoRA."""
+        if model_type in self._pipelines or self.init_random_weights \
+                or self.checkpoints_resolver is None:
+            return None
+        from ..io.safetensors_reader import SafetensorsFile
+        path = self.checkpoints_resolver(
+            model_type, self.registry.handler_for(model_type),
+            self.registry.base_model_type(model_type),
+            self.registry.get(model_type)).get("transformer") or ""
+        if not path.endswith(".safetensors"):
+            return None
+        f = SafetensorsFile(path)
+        try:
+            quanto = any(k.endswith(".weight._data") for k in f.keys())
+        finally:
+            f.close()
+        return path if quanto else None
+
+    def sync_loras(self, model_type: str, pipe, plan,
+                   on_progress: Optional[Callable] = None):
+        """Make the pipeline's DiT carry exactly the LoRAs of `plan`
+        (lora_plan's result; None: none): reuse the merge when the files
+        and multipliers are the same, else restore the base weights and
+        merge.  Unmatched paths are reported through on_progress."""
+        from .. import lora as L
+        state = self._merged.get(model_type)
+        if plan is None:
+            if state is not None:
+                state.restore()
+            return
+        paths, mults = plan
+        key = tuple((p, os.stat(p).st_mtime_ns, m)
+                    for p, m in zip(paths, mults))
+        if state is not None and state.key == key:
+            return
+        if getattr(pipe, "dit_params2", None) is not None:
+            raise ValueError(
+                f"LoRA on {model_type}: the pipeline has a second expert "
+                f"({LORA_LATER})")
+        state = self._merged.setdefault(model_type, L.MergedLoras())
+        unmatched = state.merge(pipe.dit_params,
+                                [L.read_lora(p) for p in paths], mults,
+                                names=paths)
+        state.key = key
+        if unmatched and on_progress:
+            on_progress("status", f"{len(unmatched)} unmatched LoRA keys")
 
     # -- generation -------------------------------------------------------
 
     def generate(self, settings: Dict[str, Any],
                  on_progress: Optional[Callable] = None) -> List[str]:
         """Run one task; returns the list of output file paths."""
-        s = dict(settings)
+        s = self._apply_presets(dict(settings))
         model_type = s.get("model_type") or "t2v_1.3B"
         defaults = self.registry.default_settings(model_type)
         model_def = self.registry.get(model_type)
-        merged = {**defaults, **s}
+        merged = {**defaults, **s, "model_type": model_type}
         seed = int(merged.get("seed", -1))
         if seed < 0:
             seed = random.randint(0, 2 ** 31 - 1)
@@ -166,7 +300,9 @@ class GenerationService:
             or requested
         width, height = parse_resolution(merged["resolution"])
 
+        plan = self.lora_plan(merged)
         pipe = self.get_pipeline(model_type, model_def=model_def)
+        self.sync_loras(model_type, pipe, plan, on_progress)
         if merged.get("attention_mode"):
             pipe.attn_backend = str(merged["attention_mode"])
         os.makedirs(self.output_dir, exist_ok=True)
@@ -194,6 +330,31 @@ class GenerationService:
             audio=result.get("audio"),
             audio_sample_rate=int(result.get("audio_sample_rate", 16000)))
         return [path]
+
+    def _apply_presets(self, s: Dict[str, Any]) -> Dict[str, Any]:
+        """The request's `profile` and `lset_name` underlaid (a profile's
+        keys under the request's; a preset's LoRAs before its own)."""
+        from ..config.profiles import apply_lset, apply_profile, \
+            list_profiles
+        profile = s.pop("profile", None)
+        if profile:
+            if "/" in profile:
+                fam, name = profile.split("/", 1)
+            else:
+                fam = next((f for f, names in list_profiles().items()
+                            if profile in names), None)
+                name = profile
+            if fam is None:
+                raise FileNotFoundError(f"profile {profile!r} not found")
+            s = apply_profile(s, fam, name)
+        lset = s.pop("lset_name", None)
+        if lset:
+            if not os.path.isfile(lset):
+                lset = os.path.join(
+                    s.get("lora_dir", self.lora_root),
+                    lset if lset.endswith(".lset") else lset + ".lset")
+            s = apply_lset(s, lset)
+        return s
 
     # -- queue worker ------------------------------------------------------
 
