@@ -54,7 +54,11 @@ the repository).  Phases, each printing one JSON line:
             the token tiles' edges 32, 33, 64, 65, K 128 / 256 / 1000 /
             2048 / 4096, N ragged, and rows scaled by 1e-20, 1 and 1e20:
             relative Frobenius error <= 1e-5, the GEMV not launched, two
-            launches bit-equal.
+            launches bit-equal.  Flash also at (P)'s joint attention (B 2,
+            L = S = 4,624, 24 heads) and (Q)'s three (L = S = 4,608, 4,096
+            and 512, 30 heads), W8 at (P)'s image-stream q and MLP (M =
+            7,200) and text-stream q (M = 2,048), both GEMVs at (P)'s
+            modulation (2 x 3,072 x 18,432).
             The Wan2.2 VAE decode at full width (random
             weights) against the same decode on the CPU for one small tile
             (2 x 4 x 4 latents): max abs err <= 1e-3.
@@ -133,7 +137,11 @@ the repository).  Phases, each printing one JSON line:
             text slots, of which the prompt's and the negative prompt's
             tokens are valid, then 4,096 image tokens) and at its text
             refiner (512 slots), the dense kernel at its layer-wise blocks
-            (512 items of 12 layers).  The fp32 rows time the call (in turns
+            (512 items of 12 layers).  (P)'s: flash at B2 L = S = 4,624
+            over 24 heads, W8 at both streams' six block linears (M =
+            7,200 and 2,048), the fp32 W8 GEMV at 2 x 3,072 x 18,432;
+            (Q)'s: flash over 30 heads at 4,608, 4,096 and 512 tokens.
+            The fp32 rows time the call (in turns
             with the library call) and the kernel alone (a CUDA graph of
             the launches); the tile kernel's bound is three bf16 products
             or the bytes, with the fp32-SIMT bound beside it.
@@ -141,9 +149,9 @@ the repository).  Phases, each printing one JSON line:
             guidance 5.0, UniPC, 2 steps) in bf16, 1 with quantize="int8"
             and 1 with quantize="int8a8"; then 14B (t2v) requests at
             1280x720x81f: (A) quantize="int4a8", attention_mode="sol",
-            A_LAYERS = 30 of its 40 layers; (B) quantize="int4",
+            A_LAYERS = 20 of its 40 layers; (B) quantize="int4",
             attention_mode="radial",
-            B_LAYERS = 10 of its 40 layers.  Every launch counter is reset
+            B_LAYERS = 5 of its 40 layers.  Every launch counter is reset
             just before each model's requests and read just after; the
             launches per DiT forward (Krea 2: and per request) are
             asserted, and that no
@@ -199,13 +207,33 @@ the repository).  Phases, each printing one JSON line:
                 state dict); the prompt hashed into Qwen3's vocabulary, 12
                 hidden layers over the 512-token template: 28 masked flash
                 launches a forward, 4 masked and 4 dense a request;
+            (P) qwen_image_20B (Qwen-Image: 60 blocks of 3072, 24 heads
+                of 128, 20.4 B parameters) from its files at the
+                definition's 1280x720, guidance 4 (true CFG as batch 2), 2
+                of its 25 steps: the DiT random on the card, exported
+                block by block to a pinned host state dict in the layout
+                of the definition's quanto-int8 file (every block linear
+                int8, 20.4 GB) and freed; the Qwen2.5-VL-7B text tower
+                (28 layers, width 3584, qkv bias, 7.6 B) likewise in HF
+                names; the image VAE as qwen_vae.safetensors; all three
+                through the resolver and the handler's loaders (the loaded
+                DiT re-exported equal to the state dict); the prompt's
+                states [1, 1,024, 3,584] (asserted): 60 flash, 720 W8 and
+                120 fp32 W8 GEMV launches a forward, none padded;
+            (Q) z_image (Z-Image Turbo: dim 3840, 30 heads, 30 + 2 + 2
+                blocks, 6.15 B parameters) from its files at 1024x1024,
+                guidance 0, 2 of its 8 unified steps: the DiT (bf16) and
+                the Qwen3-4B tower as (P)'s, the Flux.1 AE written in
+                diffusers' AutoencoderKL names and read through
+                normalize_diffusers_vae_sd; the prompt's states [1, 512,
+                2,560] (asserted): 34 flash launches a forward;
             (F) i2v (Wan2.1 14B image-to-video) at 832x480x81, bf16, dense,
-                F_LAYERS = 20 of its 40 layers, a full-width CLIP ViT-H/14,
+                F_LAYERS = 10 of its 40 layers, a full-width CLIP ViT-H/14,
                 from a 640x360 PNG (so both resizes run), 2 UniPC steps,
                 guidance 5.0: CLIP, encode, step and decode seconds and
                 peaks; 3 flash launches a layer a forward;
             (G) i2v_2_2 (Wan2.2 A14B) at 1280x720x81, quantize="int8" on
-                both experts, dense, G_LAYERS = 10 of each expert's 40
+                both experts, dense, G_LAYERS = 5 of each expert's 40
                 layers, the definition's two phases over 2 UniPC steps:
                 the high-noise expert on the first forward and the
                 low-noise one on the second (asserted), 2 flash and 10 W8
@@ -222,7 +250,7 @@ the repository).  Phases, each printing one JSON line:
                 spatial tiles (asserted) of at most 31 x 16 x 16 latents:
                 write, load, step, decode and request seconds and the
                 load, denoise and decode peaks;
-            (J) vace_multitalk_14B (14B, J_LAYERS = 10 of its 40 layers,
+            (J) vace_multitalk_14B (14B, J_LAYERS = 6 of its 40 layers,
                 5 VACE blocks, the multitalk module's audio
                 cross-attention in every block)
                 at 832x480x81 through WanPipeline.generate_multitalk with a
@@ -233,8 +261,8 @@ the repository).  Phases, each printing one JSON line:
                 written ones); a 16 kHz WAV of 81 / 25 s through wav2vec2,
                 a control video with a half-frame mask through
                 build_vace_conditioning, 2 UniPC steps at guidance 1 and
-                audio guidance 4 (one batch-2 forward a step: 40 flash and
-                185 W8 launches, none padded), the Wan2.1 decode: init,
+                audio guidance 4 (one batch-2 forward a step: 24 flash and
+                111 W8 launches, none padded), the Wan2.1 decode: init,
                 write, read, quantize, wav2vec2, encode, step, decode and
                 request seconds and the load, encode, denoise and decode
                 peaks;
@@ -319,13 +347,13 @@ PEAK_INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 STEPS = 2                       # denoise steps per service request
-B_LAYERS = 10                   # depth of the 14B request (B), of 40
-# depths cut to keep the script inside its 1200 s with (N) and (O) (each:
-# the depth before -> now, of the model's own)
-A_LAYERS = 30                   # (A) and (C) t2v 14B: 40 -> 30 of 40 layers
-F_LAYERS = 20                   # (F) i2v 14B: 40 -> 20 of 40 layers
-G_LAYERS = 10                   # (G) i2v_2_2: 40 -> 10 of each expert's 40
-J_LAYERS = 10                   # (J) vace_multitalk_14B: 40 -> 10 of 40
+# depths cut to keep the script inside its 1200 s with (N) and (O), then
+# (P) and (Q) (each: the depths before -> now, of the model's own)
+B_LAYERS = 5                    # (B) t2v 14B: 40 -> 10 -> 5 of 40 layers
+A_LAYERS = 20                   # (A) and (C) t2v 14B: 40 -> 30 -> 20 of 40
+F_LAYERS = 10                   # (F) i2v 14B: 40 -> 20 -> 10 of 40 layers
+G_LAYERS = 5                    # (G) i2v_2_2: 40 -> 10 -> 5 of each expert's
+J_LAYERS = 6                    # (J) vace_multitalk_14B: 40 -> 10 -> 6 of 40
 # (N): t2v 14B in bf16 at 1280x720x81 through the Lightx2v profile (one
 # rank-32 LoRA at multiplier 1, guidance 1, flow_shift 2, 4 steps), its
 # LoRA written from random weights under the URL's basename
@@ -335,6 +363,32 @@ N_PROFILE_STEPS = 4
 # (O): krea2_raw from its files: 12 Qwen3 hidden layers over the 512-token
 # template; 4,096 image tokens after them
 O_TEXT = 512
+# (P): qwen_image_20B from its files at the definition's 1280x720 (90 x 160
+# latents, 45 x 80 = 3,600 image tokens) after the Qwen2.5-VL encoder's
+# 1,024 text slots; true CFG as batch 2; the DiT a quanto-int8 state dict
+P_W, P_H = 1280, 720
+P_IMG = (P_H // 16) * (P_W // 16)
+P_TXT = 1024
+P_TOKENS = P_TXT + P_IMG
+# launches per (P) forward: a block's joint flash, W8 on each stream's q,
+# k, v, out, mlp1 and mlp2 (12: the image stream at M = 2 x 3,600, the
+# text at 2 x 1,024) and the fp32 GEMV on img_mod and txt_mod (2)
+P_PER_FORWARD = {
+    "joint_qwen_P": 60,
+    f"{2 * P_IMG}x3072x3072": 240, f"{2 * P_IMG}x3072x12288": 60,
+    f"{2 * P_IMG}x12288x3072": 60, f"{2 * P_TXT}x3072x3072": 240,
+    f"{2 * P_TXT}x3072x12288": 60, f"{2 * P_TXT}x12288x3072": 60,
+    "2x3072x18432": 120}
+P_KERNELS = {"flash_attention": 60, "matmul_w8": 720, "matmul_w8_gemv": 120}
+# (Q): z_image (Turbo) at 1024x1024: 4,096 image tokens (a multiple of 32:
+# no pad) and the Qwen3 encoder's 512 caption slots; guidance 0, batch 1;
+# a forward: 30 main blocks over both, 2 noise- and 2 context-refiner
+# blocks over each alone
+Q_W = Q_H = 1024
+Q_IMG, Q_TXT = (Q_H // 16) * (Q_W // 16), 512
+Q_PER_FORWARD = {"main_zimage_Q": 30, "noise_refiner_zimage_Q": 2,
+                 "context_refiner_zimage_Q": 2}
+Q_KERNELS = {"flash_attention": 34}
 FLASH_MEAN_REL, FLASH_MAX_REL = 2e-2, 2e-1     # of mean|ref|, max|ref|
 LSE_MAX_ABS = 1e-2
 MM_REL_FRO = 1e-2               # int8 / int4 / W8A8 / W4A8 matmuls
@@ -582,6 +636,12 @@ def phase_check():
         # of 64 between the 27,280 video and 251 audio tokens
         "ltx2_a2v_d64": (1, M_TOKENS, M_AUDIO, 32, 64),
         "ltx2_v2a_d64": (1, M_AUDIO, M_TOKENS, 32, 64),
+        # (P)'s joint attention at CFG batch 2; (Q)'s main, noise-refiner
+        # and context-refiner self-attentions, 30 heads
+        "qwen_P_joint_b2_n24": (2, P_TOKENS, P_TOKENS, 24, 128),
+        "zimage_Q_main_n30": (1, Q_TXT + Q_IMG, Q_TXT + Q_IMG, 30, 128),
+        "zimage_Q_noise_refiner_n30": (1, Q_IMG, Q_IMG, 30, 128),
+        "zimage_Q_context_refiner_n30": (1, Q_TXT, Q_TXT, 30, 128),
     }
     flash = {}
     for name, (b, l, s, n, d) in flash_cases.items():
@@ -630,6 +690,18 @@ def phase_check():
                 "audio_kv_768x10240": (1344, 768, 10240)}
     w8 = {}
     for name, (m, k, n) in w8_cases.items():
+        x = randn((m, k), gen)
+        wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
+                                             device="cuda"))
+        pads = Q.w8_pad_launches
+        w8[name] = mm_check("matmul_w8", name, Q.matmul_w8(x, wq, sc),
+                            Q.matmul_w8_ref(x.float(), wq, sc))
+        w8[name]["padded"] = Q.w8_pad_launches - pads
+    # (P)'s image-stream q and MLP and its text-stream q (W8 only)
+    for name, (m, k, n) in {"qwen_P_img_q": (2 * P_IMG, 3072, 3072),
+                            "qwen_P_img_mlp1": (2 * P_IMG, 3072, 12288),
+                            "qwen_P_img_mlp2": (2 * P_IMG, 12288, 3072),
+                            "qwen_P_txt_q": (2 * P_TXT, 3072, 3072)}.items():
         x = randn((m, k), gen)
         wq, sc = Q.quantize_int8(torch.randn((k, n), generator=gen,
                                              device="cuda"))
@@ -842,6 +914,8 @@ def gemv_checks(gen):
                                 "m2_3072x1001": (2, 3072, 1001),
                                 # (L): HV1.5's modulation at CFG batch 2
                                 "hv15_mod_2x2048x12288": (2, 2048, 12288),
+                                # (P): Qwen-Image's modulation at CFG batch 2
+                                "qwen_mod_2x3072x18432": (2, 3072, 18432),
                                 "m3_1000x1001": (3, 1000, 1001),
                                 "m16_2048x4096": (16, 2048, 4096),
                                 "scaled_3x3072x9216": (3, 3072, 9216)
@@ -2135,6 +2209,7 @@ def phase_time(tokens: int):
                      for n in (18432, 9216)}
             for kernel in ("matmul_w8_gemv", "matmul_w4_gemv")}
     time_l(flash, w8, gemv)
+    time_pq(flash, w8, gemv)
     f32 = time_m(flash, w8, gemv)
     for table in (flash, w8, *gemv.values()):
         for case, t in table.items():
@@ -2183,6 +2258,31 @@ def time_l(flash, w8, gemv):
         for case, t in table.items():
             if case in L_PER_FORWARD:
                 t["launches_per_forward_L"] = L_PER_FORWARD[case]
+
+
+def time_pq(flash, w8, gemv):
+    """(P)'s rows: the joint attention at B2 L = S = 4,624 over 24 heads,
+    W8 at both streams' block linears (M = 7,200 image, 2,048 text rows),
+    the fp32 W8 GEMV at the modulation (M = 2, K = 3072, N = 18,432);
+    (Q)'s: its self-attentions over 30 heads at 4,608 (main), 4,096
+    (noise refiner) and 512 (context refiner) tokens; each with its
+    launches per forward."""
+    flash["joint_qwen_P"] = time_flash("joint_qwen_P", 2, P_TOKENS, P_TOKENS,
+                                       24, 128)
+    w8.update({case: time_w8(case, *map(int, case.split("x")))
+               for case in P_PER_FORWARD if case.count("x") == 2
+               and not case.startswith("2x")})
+    gemv["matmul_w8_gemv"]["2x3072x18432"] = time_gemv("matmul_w8_gemv", 2,
+                                                       3072, 18432)
+    for name, tokens in (("main_zimage_Q", Q_TXT + Q_IMG),
+                         ("noise_refiner_zimage_Q", Q_IMG),
+                         ("context_refiner_zimage_Q", Q_TXT)):
+        flash[name] = time_flash(name, 1, tokens, tokens, 30, 128)
+    for table in (flash, w8, gemv["matmul_w8_gemv"]):
+        for case, t in table.items():
+            for key, per in (("P", P_PER_FORWARD), ("Q", Q_PER_FORWARD)):
+                if case in per:
+                    t[f"launches_per_forward_{key}"] = per[case]
 
 
 # launches per DiT forward of (M) (LTX-2 22B at 1280x704x241, int8 from a
@@ -3125,7 +3225,9 @@ def phase_service(frames: int):
     launch counters reset just before its requests and read just after."""
     from wan2gp_tpu_torch.families import wan as fam
     from wan2gp_tpu_torch.models.krea2 import pipeline as krea2_pipe
+    from wan2gp_tpu_torch.models.qwen import pipeline as qwen_pipe
     from wan2gp_tpu_torch.models.wan import pipeline as pipe_mod
+    from wan2gp_tpu_torch.models.zimage import pipeline as zimage_pipe
     from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
     from wan2gp_tpu_torch.ops import quant as Q
     from wan2gp_tpu_torch.runtime import service as svc_mod
@@ -3172,12 +3274,16 @@ def phase_service(frames: int):
                               pipe_mod.clip_vision_encode)
     real_multitalk = pipe_mod.multitalk_denoise
     real_krea2_denoise = krea2_pipe.krea2_denoise
+    real_qwen_denoise = qwen_pipe.qwen_denoise
+    real_zimage_denoise = zimage_pipe.zimage_denoise
     WanPipeline.denoise = timed("denoise", real_denoise)
     WanPipeline.decode = timed("decode", real_decode)
     WanPipeline.encode_video = timed("encode", real_encode)
     pipe_mod.clip_vision_encode = timed("clip", real_clip)
     pipe_mod.multitalk_denoise = timed("denoise", real_multitalk)
     krea2_pipe.krea2_denoise = timed("denoise", real_krea2_denoise)
+    qwen_pipe.qwen_denoise = timed("denoise", real_qwen_denoise)
+    zimage_pipe.zimage_denoise = timed("denoise", real_zimage_denoise)
     out_dir = os.path.join(OUT, "outputs")
 
     def run(label, model_type, quantize, attention, n_req, w, h, layers,
@@ -3574,7 +3680,7 @@ def phase_service(frames: int):
         torch.cuda.empty_cache()
         return {"label": "(G) Wan2.2 i2v A14B 720p, int8 on both experts, "
                          "two phases", "steps": STEPS,
-                "layers": f"{G_LAYERS} of each expert's 40 (cut from 40)",
+                "layers": f"{G_LAYERS} of each expert's 40 (cut from 10)",
                 "timesteps": sched.timesteps.tolist(),
                 "phases": [list(p) for p in phases],
                 "experts_by_forward": experts, "load_s": load_s,
@@ -3834,7 +3940,7 @@ def phase_service(frames: int):
                          "frame mask) + audio (wav2vec2 from a WAV), int8, "
                          "guidance 1, audio guidance 4",
                 "layers": cfg.num_layers, "vace_blocks": len(cfg.vace_layers),
-                "depth": f"{J_LAYERS} of 40 layers (cut from 40)",
+                "depth": f"{J_LAYERS} of 40 layers (cut from 10)",
                 "steps": STEPS, "solver": "unipc", "init_s": init_s,
                 "write_s": write_s, "read_s": read_s,
                 "quantize_s": quantize_s, "files_bytes": files,
@@ -4002,95 +4108,41 @@ def phase_service(frames: int):
         refiner) and 4 dense (layer-wise text blocks) a request."""
         from wan2gp_tpu_torch.io import krea2_checkpoint as kck
         from wan2gp_tpu_torch.lora import HostArena
-        from wan2gp_tpu_torch.io import safetensors_reader as st
         from wan2gp_tpu_torch.models.krea2.dit import Krea2Config, init_krea2
         from wan2gp_tpu_torch.models.qwen import text_encoder as qlm
         from wan2gp_tpu_torch.models.wan.vae import WanVAEConfig, \
             init_wan_vae
-        bf16 = torch.bfloat16
-        ckdir = os.path.join(OUT, "ckpts_o")
-        shutil.rmtree(ckdir, ignore_errors=True)
-        os.makedirs(ckdir)
         gen = torch.Generator(device="cuda")
-        times = {}
-
-        def clock(name, t0):
-            torch.cuda.synchronize()
-            times[name] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         vcfg = WanVAEConfig()
-        vp = init_wan_vae(gen.manual_seed(41), vcfg)
-        vae_path = os.path.join(ckdir, "qwen_vae.safetensors")
-        st.save_safetensors(vae_path, {k: v.to(bf16) for k, v in
-                                       vae_state_dict(vp, vcfg).items()})
-        del vp
-        clock("vae_write_s", t0)
-        vae_bytes = os.path.getsize(vae_path)
-        cfg = Krea2Config()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = init_krea2(gen.manual_seed(42), cfg, bf16)
-        clock("dit_init_s", t0)
-        init_peak = torch.cuda.max_memory_allocated() / 1e9
-        t0 = time.perf_counter()
-        dit_arena = HostArena(list(_leaves(params)), pin=True)
-        dit_sd = {k: dit_arena.put(v) for k, v in
-                  kck.krea2_state_dict(params, cfg, layers=()).items()}
-        for i in range(cfg.layers):
-            dit_sd.update({k: dit_arena.put(v) for k, v in
-                           kck.krea2_state_dict(params, cfg, layers=[i],
-                                                rest=False).items()})
-        clock("dit_export_s", t0)
-        del params
-        torch.cuda.empty_cache()
-        lm_cfg = qlm.QwenLMConfig(**qlm.QWEN3_4B, compute_dtype=bf16)
-        t0 = time.perf_counter()
-        lm = qlm.init_qwen_lm(gen.manual_seed(43), lm_cfg, bf16)
-        clock("lm_init_s", t0)
-        t0 = time.perf_counter()
-        lm_arena = HostArena(list(_leaves(lm)), pin=True)
-        lm_sd = {k: lm_arena.put(v) for k, v in qlm.qwen_lm_state_dict(
-            lm, lm_cfg, "model.language_model.").items()}
-        clock("lm_export_s", t0)
-        del lm
-        torch.cuda.empty_cache()
-        mem = {"memory:transformer": dit_sd, "memory:text_encoder": lm_sd}
-        names = {}
+        vae_sd = vae_state_dict(init_wan_vae(gen.manual_seed(41), vcfg),
+                                vcfg)
 
-        def resolver(model_type, handler, base, model_def):
-            for spec in handler.query_model_files(base, model_def):
-                names[spec["role"]] = os.path.basename(spec["urls"][0])
-            return {"transformer": "memory:transformer",
-                    "text_encoder": "memory:text_encoder", "vae": vae_path}
-        real_load = st.load_weights
-        st.load_weights = lambda path: mem[path] if path in mem \
-            else real_load(path)
-        svc = svc_mod.GenerationService(output_dir=out_dir,
-                                        checkpoints_resolver=resolver)
-        try:
-            torch.cuda.reset_peak_memory_stats()
+        def build(gen_, clock):
+            cfg = Krea2Config()
             t0 = time.perf_counter()
-            pipe = svc.get_pipeline("krea2_raw")
-            clock("load_s", t0)
-        finally:
-            st.load_weights = real_load
-        load_peak = torch.cuda.max_memory_allocated() / 1e9
-        if names != {"transformer": "Krea2Raw_bf16.safetensors",
-                     "text_encoder":
-                         "Qwen3-VL-4B-Instruct_text_bf16.safetensors",
-                     "vae": "qwen_vae.safetensors"}:
-            raise AssertionError(f"(O): the roles' files {names}")
-        # the loaded DiT, exported again, is the host state dict (the first
-        # and last blocks and every key outside the blocks)
-        again = kck.krea2_state_dict(pipe.dit_params, cfg,
-                                     layers=(0, cfg.layers - 1))
-        for k, v in again.items():
-            if not torch.equal(v.cpu(), dit_sd[k]):
-                raise AssertionError(f"(O) {k}: not the exported tensor")
-        n_params = sum(v.numel() for v in dit_sd.values())
-        lm_params = sum(v.numel() for v in lm_sd.values())
-        del again, dit_sd, lm_sd, mem, dit_arena, lm_arena
-        torch._C._host_emptyCache()
+            params = init_krea2(gen_.manual_seed(42), cfg, torch.bfloat16)
+            clock("dit_init_s", t0)
+            t0 = time.perf_counter()
+            arena = HostArena(list(_leaves(params)), pin=True)
+            sd = {k: arena.put(v) for k, v in
+                  kck.krea2_state_dict(params, cfg, layers=()).items()}
+            for i in range(cfg.layers):
+                sd.update({k: arena.put(v) for k, v in kck.krea2_state_dict(
+                    params, cfg, layers=[i], rest=False).items()})
+            clock("dit_export_s", t0)
+            del params
+            return sd, arena, cfg, lambda tree: kck.krea2_state_dict(
+                tree, cfg, layers=(0, cfg.layers - 1))
+        svc, pipe, rec = from_host_files(
+            "(O)", "krea2_raw", gen, build, qlm.QWEN3_4B,
+            "qwen_vae.safetensors", vae_sd, lm_prefix="model.language_model.")
+        del vae_sd
+        if rec["roles"] != {"transformer": "Krea2Raw_bf16.safetensors",
+                            "text_encoder":
+                                "Qwen3-VL-4B-Instruct_text_bf16.safetensors",
+                            "vae": "qwen_vae.safetensors"}:
+            raise AssertionError(f"(O): the roles' files {rec['roles']}")
+        cfg = Krea2Config()
         pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
         pipe.text_encode_fn = timed("lm", pipe.text_encode_fn)
         valid = o_text_tokens()
@@ -4126,21 +4178,291 @@ def phase_service(frames: int):
             raise AssertionError(f"(O): launches {counts}, want {want}")
         svc.release_model()
         del svc, pipe
-        shutil.rmtree(ckdir, ignore_errors=True)
         torch.cuda.empty_cache()
         return {"label": "(O) krea2_raw 1024x1024 from its files: DiT and "
                          "Qwen3-4B tower through host state dicts, the "
                          "image VAE file", "model": "krea2_raw",
                 "resolution": "1024x1024", "layers": cfg.layers,
-                "parameters": n_params, "lm_parameters": lm_params,
                 "text_slots": O_TEXT, "valid_text_tokens": valid,
                 "tokens": O_TEXT + 4096, "guidance_scale": 3.5,
-                "steps": STEPS, "roles": names, **times,
-                "dit_init_peak_gb": init_peak, "load_peak_gb": load_peak,
-                "vae_file_bytes": vae_bytes,
-                "requests": reqs, "launches": counts,
+                "steps": STEPS, **rec, "requests": reqs, "launches": counts,
                 "launches_per_forward": per_forward,
                 "launches_per_request_besides": per_request}
+
+    def from_host_files(label, model_type, gen, build, lm_arch, vae_file,
+                        vae_sd, quantization="", lm_prefix="model."):
+        """A model of the port served from its files: `build(gen)` makes
+        the DiT's host state dict (in a pinned arena, the DiT freed on the
+        card) and returns (state dict, arena, config, the exporter of the
+        loaded tree); the text tower of `lm_arch` is random on the card and
+        exported to a pinned arena in HF names under `lm_prefix`; the
+        VAE's state dict is
+        written as `vae_file` (bf16).  A GenerationService loads the three
+        roles through its resolver and the handler's loaders (the two
+        state dicts stand in for their files); the loaded DiT, exported
+        again, must be the state dict (its first and last blocks and the
+        keys outside them).  The file names of the roles that name URLs
+        are recorded as the resolver would pick them for `quantization`.
+        Returns (service, pipeline, record)."""
+        from wan2gp_tpu_torch.io import downloads
+        from wan2gp_tpu_torch.io import safetensors_reader as st
+        from wan2gp_tpu_torch.lora import HostArena
+        from wan2gp_tpu_torch.models.qwen import text_encoder as qlm
+        bf16 = torch.bfloat16
+        ckdir = os.path.join(OUT, f"ckpts_{model_type}")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        os.makedirs(ckdir)
+        times = {}
+
+        def clock(name, t0):
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vae_path = os.path.join(ckdir, vae_file)
+        st.save_safetensors(vae_path, {k: v.to(bf16)
+                                       for k, v in vae_sd.items()})
+        clock("vae_write_s", t0)
+        vae_bytes = os.path.getsize(vae_path)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dit_sd, dit_arena, cfg, export = build(gen, clock)
+        clock("dit_init_export_s", t0)
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        lm_cfg = qlm.QwenLMConfig(**lm_arch, compute_dtype=bf16)
+        t0 = time.perf_counter()
+        lm = qlm.init_qwen_lm(gen.manual_seed(43), lm_cfg, bf16)
+        clock("lm_init_s", t0)
+        t0 = time.perf_counter()
+        lm_arena = HostArena(list(_leaves(lm)), pin=True)
+        lm_sd = {k: lm_arena.put(v) for k, v in
+                 qlm.qwen_lm_state_dict(lm, lm_cfg, lm_prefix).items()}
+        clock("lm_export_s", t0)
+        del lm
+        torch.cuda.empty_cache()
+        mem = {"memory:transformer": dit_sd, "memory:text_encoder": lm_sd}
+        names = {}
+
+        def resolver(model_type_, handler, base, model_def):
+            for spec in handler.query_model_files(base, model_def):
+                if spec["urls"]:
+                    names[spec["role"]] = os.path.basename(
+                        downloads.pick_checkpoint_url(spec["urls"],
+                                                      quantization))
+            return {"transformer": "memory:transformer",
+                    "text_encoder": "memory:text_encoder", "vae": vae_path}
+        real_load = st.load_weights
+        st.load_weights = lambda path: mem[path] if path in mem \
+            else real_load(path)
+        svc = svc_mod.GenerationService(output_dir=out_dir,
+                                        checkpoints_resolver=resolver)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe = svc.get_pipeline(model_type)
+            clock("load_s", t0)
+        finally:
+            st.load_weights = real_load
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        again = export(pipe.dit_params)
+        for k, v in again.items():
+            if not torch.equal(v.cpu(), dit_sd[k]):
+                raise AssertionError(f"{label} {k}: not the exported tensor")
+        record = {"parameters": sum(v.numel() for v in dit_sd.values()),
+                  "dit_bytes": sum(v.numel() * v.element_size()
+                                   for v in dit_sd.values()),
+                  "lm_parameters": sum(v.numel() for v in lm_sd.values()),
+                  "pinned_gb": (dit_arena.buf.numel()
+                                + lm_arena.buf.numel()) / 1e9,
+                  "roles": names, "vae_file_bytes": vae_bytes,
+                  "dit_init_peak_gb": init_peak, "load_peak_gb": load_peak,
+                  **times}
+        del again, dit_sd, lm_sd, mem, dit_arena, lm_arena
+        torch._C._host_emptyCache()
+        shutil.rmtree(ckdir, ignore_errors=True)
+        return svc, pipe, record
+
+    def one_image(label, svc, pipe, request, w, h, per_forward):
+        """One request writing a PNG of h x w (checked), the launches of its
+        STEPS forwards asserted against per_forward (none padded), the
+        states the text encoder made recorded."""
+        texts = []
+        real_text = pipe.text_encode_fn
+
+        def text_fn(*a):
+            out = real_text(*a)
+            texts.append([list(t.shape) for t in
+                          (out if isinstance(out, tuple) else (out,))])
+            return out
+        pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
+        pipe.text_encode_fn = timed("lm", text_fn)
+        reset_counts()
+        reset_pads()
+        seen.clear()
+        split.clear()
+        t0 = time.perf_counter()
+        paths = svc.generate(request)
+        req_s = time.perf_counter() - t0
+        ok = (len(paths) == 1 and paths[0].endswith(".png")
+              and media.read_image(paths[0]).shape == (h, w, 3)
+              and seen and seen[0]["finite"] and seen[0]["shape"] == [h, w, 3]
+              and media.read_image_metadata(paths[0])["seed"]
+              == request["seed"])
+        if not ok:
+            raise AssertionError(f"{label} request: {paths} {seen}")
+        counts = read_counts()
+        want = {name: per_forward.get(name, 0) * STEPS for name in counts}
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, want {want}")
+        if read_pads():
+            raise AssertionError(f"{label}: {read_pads()} launches padded "
+                                 "or copied their operands")
+        out = {"request_s": req_s, **split,
+               "step_s": split["denoise_s"] / STEPS,
+               "bytes": os.path.getsize(paths[0]), "text_states": texts,
+               "launches": counts, "launches_per_forward": per_forward}
+        os.remove(paths[0])
+        svc.release_model()
+        torch.cuda.empty_cache()
+        return out
+
+    def run_p():
+        """(P): qwen_image_20B (60 blocks of 3072, 20.4 B parameters) from
+        its files at 1280x720, guidance 4 (true CFG as batch 2), STEPS
+        steps: the DiT random on the card (bf16), exported block by block
+        to a host quanto-int8 state dict in the reference names (the
+        definition's second URL's layout: every block linear int8, the
+        modulations among them) and freed; the Qwen2.5-VL-7B text tower
+        (28 layers, width 3584, qkv bias) likewise in HF names; the image
+        VAE as qwen_vae.safetensors.  60 flash, 720 W8 and 120 fp32 GEMV
+        launches a forward; the prompt's states [1, 1,024, 3,584] (the
+        template's 34-token prefix dropped), so L = S = 4,624."""
+        from wan2gp_tpu_torch.io import qwen_checkpoint as qck
+        from wan2gp_tpu_torch.lora import HostArena
+        from wan2gp_tpu_torch.models.qwen import text_encoder as qlm
+        from wan2gp_tpu_torch.models.qwen.dit import (QwenImageConfig,
+                                                      init_qwen_image)
+        from wan2gp_tpu_torch.models.wan.vae import (WanVAEConfig,
+                                                     init_wan_vae)
+        gen = torch.Generator(device="cuda")
+        vcfg = WanVAEConfig()
+        vae_sd = vae_state_dict(init_wan_vae(gen.manual_seed(51), vcfg),
+                                vcfg)
+
+        def build(gen_, clock):
+            cfg = QwenImageConfig()
+            t0 = time.perf_counter()
+            params = init_qwen_image(gen_.manual_seed(52), cfg,
+                                     torch.bfloat16)
+            clock("dit_init_s", t0)
+            t0 = time.perf_counter()
+
+            def part(**kw):
+                return qck.qwen_image_state_dict(params, cfg, quanto=True,
+                                                 **kw)
+            rest, first = part(layers=()), part(layers=[0], rest=False)
+            arena = HostArena([*rest.values(), *first.values()]
+                              + [*first.values()] * (cfg.num_layers - 1),
+                              pin=True)
+            sd = {k: arena.put(v) for k, v in {**rest, **first}.items()}
+            del rest, first
+            for i in range(1, cfg.num_layers):
+                sd.update({k: arena.put(v) for k, v in
+                           part(layers=[i], rest=False).items()})
+            clock("dit_export_s", t0)
+            del params
+            return sd, arena, cfg, lambda tree: qck.qwen_image_state_dict(
+                tree, cfg, layers=(0, cfg.num_layers - 1))
+        svc, pipe, rec = from_host_files(
+            "(P)", "qwen_image_20B", gen, build, qlm.QWEN25_VL_7B_TEXT,
+            "qwen_vae.safetensors", vae_sd, quantization="int8")
+        del vae_sd
+        # the text tower's file has no recorded public name: the resolver
+        # names it
+        want = {"transformer": "qwen_image_20B_quanto_bf16_int8.safetensors",
+                "vae": "qwen_vae.safetensors"}
+        if rec["roles"] != want:
+            raise AssertionError(f"(P): the roles' files {rec['roles']}")
+        req = one_image("(P)", svc, pipe, {
+            "model_type": "qwen_image_20B", "prompt": "a red fox 0",
+            "resolution": f"{P_W}x{P_H}", "num_inference_steps": STEPS,
+            "guidance_scale": 4.0, "seed": 0}, P_W, P_H, P_KERNELS)
+        if req["text_states"] != [[[1, P_TXT, 3584], [1, P_TXT, 3584]]]:
+            raise AssertionError(f"(P): text states {req['text_states']}")
+        del svc, pipe
+        torch.cuda.empty_cache()
+        return {"label": "(P) qwen_image_20B 1280x720 from its files: the "
+                         "quanto-int8 DiT and the Qwen2.5-VL-7B tower "
+                         "through pinned host state dicts, the image VAE "
+                         "file", "model": "qwen_image_20B",
+                "resolution": f"{P_W}x{P_H}", "layers": 60,
+                "tokens": P_TOKENS, "image_tokens": P_IMG,
+                "text_slots": P_TXT, "guidance_scale": 4.0, "steps": STEPS,
+                **rec, "request": req}
+
+    def run_q():
+        """(Q): z_image (Z-Image Turbo: dim 3840, 30 heads, 30 + 2 + 2
+        blocks, 6.15 B parameters) from its files at 1024x1024, guidance 0
+        (batch 1), STEPS of its 8 unified steps: the DiT random on the
+        card (bf16), exported block by block to a host state dict in the
+        reference names and freed; the Qwen3-4B tower likewise in HF
+        names; the Flux.1 AE random, written in diffusers' AutoencoderKL
+        names as ZImageTurbo_VAE_bf16.safetensors and read back through
+        normalize_diffusers_vae_sd.  34 flash launches a forward; the
+        prompt's states [1, 512, 2,560]."""
+        from wan2gp_tpu_torch.io import flux_checkpoint as fck
+        from wan2gp_tpu_torch.io import zimage_checkpoint as zck
+        from wan2gp_tpu_torch.lora import HostArena
+        from wan2gp_tpu_torch.models.flux.vae import (FluxVAEConfig,
+                                                      init_flux_vae)
+        from wan2gp_tpu_torch.models.qwen import text_encoder as qlm
+        from wan2gp_tpu_torch.models.zimage.dit import (ZImageConfig,
+                                                        init_zimage)
+        gen = torch.Generator(device="cuda")
+        vae_sd = fck.flux_vae_diffusers_state_dict(init_flux_vae(
+            gen.manual_seed(61), FluxVAEConfig()))
+
+        def build(gen_, clock):
+            cfg = ZImageConfig()
+            t0 = time.perf_counter()
+            params = init_zimage(gen_.manual_seed(62), cfg, torch.bfloat16)
+            clock("dit_init_s", t0)
+            t0 = time.perf_counter()
+            arena = HostArena(list(_leaves(params)), pin=True)
+            sd = {k: arena.put(v) for k, v in
+                  zck.zimage_state_dict(params, cfg, layers=()).items()}
+            for i in range(cfg.n_layers):
+                sd.update({k: arena.put(v) for k, v in zck.zimage_state_dict(
+                    params, cfg, layers=[i], rest=False).items()})
+            clock("dit_export_s", t0)
+            del params
+            return sd, arena, cfg, lambda tree: zck.zimage_state_dict(
+                tree, cfg, layers=(0, cfg.n_layers - 1))
+        svc, pipe, rec = from_host_files(
+            "(Q)", "z_image", gen, build, qlm.QWEN3_4B,
+            "ZImageTurbo_VAE_bf16.safetensors", vae_sd)
+        del vae_sd
+        want = {"transformer": "ZImageTurbo_bf16.safetensors",
+                "text_encoder": "Qwen3-4B_bf16.safetensors",
+                "vae": "ZImageTurbo_VAE_bf16.safetensors"}
+        if rec["roles"] != want:
+            raise AssertionError(f"(Q): the roles' files {rec['roles']}")
+        req = one_image("(Q)", svc, pipe, {
+            "model_type": "z_image", "prompt": "a red fox 0",
+            "resolution": f"{Q_W}x{Q_H}", "num_inference_steps": STEPS,
+            "seed": 0}, Q_W, Q_H, Q_KERNELS)
+        if req["text_states"] != [[[1, Q_TXT, 2560]]]:
+            raise AssertionError(f"(Q): text states {req['text_states']}")
+        del svc, pipe
+        torch.cuda.empty_cache()
+        return {"label": "(Q) z_image 1024x1024 from its files: the bf16 "
+                         "DiT and the Qwen3-4B tower through pinned host "
+                         "state dicts, the diffusers-format VAE file",
+                "model": "z_image", "resolution": f"{Q_W}x{Q_H}",
+                "layers": "30 + 2 noise-refiner + 2 context-refiner",
+                "tokens": Q_TXT + Q_IMG, "image_tokens": Q_IMG,
+                "text_slots": Q_TXT, "guidance_scale": 0, "steps": STEPS,
+                "solver": "unified", **rec, "request": req}
 
     results = {}
     try:
@@ -4166,6 +4488,8 @@ def phase_service(frames: int):
                        "matmul_w4": 10 * B_LAYERS})
         results["14B_bf16_lora_N"] = run_n()
         results["krea2_raw_O"] = run_o()
+        results["qwen_image_P"] = run_p()
+        results["z_image_Q"] = run_q()
         results["1.3B_checkpoint_D"] = run_d()
         results["1.3B_sliding_E"] = run_e()
         source = results["1.3B_sliding_E"].pop("path")
@@ -4196,15 +4520,17 @@ def phase_service(frames: int):
         pipe_mod.clip_vision_encode = real_clip
         pipe_mod.multitalk_denoise = real_multitalk
         krea2_pipe.krea2_denoise = real_krea2_denoise
+        qwen_pipe.qwen_denoise = real_qwen_denoise
+        zimage_pipe.zimage_denoise = real_zimage_denoise
     emit("service", frames=frames, latent_frames=(frames - 1) // 4 + 1,
          steps=STEPS, guidance_scale=5.0, solver="unipc",
          b_layers=f"14B (B) runs {B_LAYERS} of 40 layers",
-         depth_cuts={"A and C": f"{A_LAYERS} of 40 layers (cut from 40)",
-                     "B": f"{B_LAYERS} of 40 layers (cut from 40)",
-                     "F": f"{F_LAYERS} of 40 layers (cut from 40)",
+         depth_cuts={"A and C": f"{A_LAYERS} of 40 layers (cut from 30)",
+                     "B": f"{B_LAYERS} of 40 layers (cut from 10)",
+                     "F": f"{F_LAYERS} of 40 layers (cut from 20)",
                      "G": f"{G_LAYERS} of each expert's 40 layers (cut "
-                          "from 40)",
-                     "J": f"{J_LAYERS} of 40 layers (cut from 40)"},
+                          "from 10)",
+                     "J": f"{J_LAYERS} of 40 layers (cut from 10)"},
          **results)
     return results
 

@@ -80,6 +80,14 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.io.krea2_checkpoint",
     "wan2gp_tpu_torch.lora",
     "wan2gp_tpu_torch.config.profiles",
+    "wan2gp_tpu_torch.families.qwen",
+    "wan2gp_tpu_torch.models.qwen.dit",
+    "wan2gp_tpu_torch.models.qwen.pipeline",
+    "wan2gp_tpu_torch.io.qwen_checkpoint",
+    "wan2gp_tpu_torch.families.zimage",
+    "wan2gp_tpu_torch.models.zimage.dit",
+    "wan2gp_tpu_torch.models.zimage.pipeline",
+    "wan2gp_tpu_torch.io.zimage_checkpoint",
 )
 
 _PROBE = r"""
@@ -176,6 +184,14 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
     from wan2gp_tpu_torch.models.wan.pipeline import WanPipeline
     from wan2gp_tpu_torch.runtime import api, cli
     from wan2gp_tpu_torch.runtime.service import GenerationService
+    from wan2gp_tpu_torch.families.qwen import QwenImageFamilyHandler
+    from wan2gp_tpu_torch.families.zimage import ZImageFamilyHandler
+    from wan2gp_tpu_torch.io.qwen_checkpoint import load_qwen_image_params
+    from wan2gp_tpu_torch.io.zimage_checkpoint import load_zimage_params
+    from wan2gp_tpu_torch.models.qwen.dit import QwenImageConfig
+    from wan2gp_tpu_torch.models.qwen.pipeline import QwenImagePipeline
+    from wan2gp_tpu_torch.models.zimage.dit import ZImageConfig
+    from wan2gp_tpu_torch.models.zimage.pipeline import ZImagePipeline
     calls = {
         "resolve_device": lambda: resolve_device(),
         "GenerationService": lambda: GenerationService(
@@ -223,6 +239,19 @@ def test_default_device_entry_points_raise_without_a_card(no_card,
                                                          Gemma3Config()),
         "make_caption_encoder": lambda: make_caption_encoder(
             {}, Gemma3Config(), None, "per_token_rms"),
+        "QwenImagePipeline": lambda: QwenImagePipeline({}, QwenImageConfig()),
+        "qwen load_model": lambda: QwenImageFamilyHandler.load_model(
+            "qwen_image_20B", {}, init_random=True),
+        "qwen load_model from files": lambda: QwenImageFamilyHandler
+        .load_model("qwen_image_20B", {}, {"transformer": "x.safetensors"}),
+        "load_qwen_image_params": lambda: load_qwen_image_params(
+            {}, QwenImageConfig()),
+        "ZImagePipeline": lambda: ZImagePipeline({}, ZImageConfig()),
+        "zimage load_model": lambda: ZImageFamilyHandler.load_model(
+            "z_image", {}, init_random=True),
+        "zimage load_model from files": lambda: ZImageFamilyHandler
+        .load_model("z_image", {}, {"transformer": "x.safetensors"}),
+        "load_zimage_params": lambda: load_zimage_params({}, ZImageConfig()),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

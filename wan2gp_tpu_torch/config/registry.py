@@ -2,9 +2,10 @@
 
 Reads the built-in `defaults/<model_type>.json` files, each holding
 {"model": {...}, **settings}; "model.architecture" names the base model
-type that picks the family handler; "URLs" / "URLs2" may name another
-model type, whose files the model then shares.  Finetune overlays are not
-ported yet.
+type that picks the family handler; "URLs", "URLs2" and "preload_URLs"
+may name another model type, whose files the model then shares (Qwen
+Image Edit Plus borrows Qwen Image Edit's `preload_URLs`).  Finetune
+overlays are not ported yet.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ class ModelRegistry:
             model_def["settings"] = settings
             self.models_def[model_type] = model_def
         for model_def in self.models_def.values():
-            for prop in ("URLs", "URLs2"):
+            for prop in ("URLs", "URLs2", "preload_URLs"):
                 if prop in model_def:
                     model_def[prop] = self._borrowed(model_def, prop, ())
 

@@ -93,23 +93,28 @@ class FileLocator:
 def make_checkpoints_resolver(roots: Optional[List[str]] = None,
                               quantization: str = "",
                               dtype_policy: str = "bf16",
-                              roles: Optional[Sequence[str]] = None):
+                              roles: Optional[Sequence[str]] = None,
+                              names: Optional[Dict[str, str]] = None):
     """checkpoints_resolver for GenerationService: locates the file of
     every role a handler declares through query_model_files (under the
     spec's `subdir` of a root where it names one: wav2vec2's
     `model.safetensors` sits in its own folder; the JAX resolver looks for
     every file at a root's top); a missing file raises.  roles: resolve only these (None: every declared role);
-    the handler then loads the model without the others."""
+    the handler then loads the model without the others.  names: {role:
+    file name} looked for in place of the role's URLs (a role that lists
+    no URL, such as Qwen-Image's text tower, is resolved only so)."""
     locator = FileLocator(roots)
+    names = dict(names or {})
 
     def resolve(model_type, handler, base_model_type, model_def):
         out: Dict[str, str] = {}
         for spec in handler.query_model_files(base_model_type, model_def):
-            urls = spec.get("urls") or []
-            if not urls or (roles is not None and spec["role"] not in roles):
+            role = spec["role"]
+            urls = [names[role]] if role in names else spec.get("urls") or []
+            if not urls or (roles is not None and role not in roles):
                 continue
             url = pick_checkpoint_url(urls, quantization, dtype_policy)
-            out[spec["role"]] = locator.ensure(url, spec.get("subdir", ""))
+            out[role] = locator.ensure(url, spec.get("subdir", ""))
         return out
 
     return resolve

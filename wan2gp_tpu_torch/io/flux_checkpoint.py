@@ -198,6 +198,11 @@ def load_flux_vae_params(sd: Dict[str, Any], cfg, device=None):
                     "norm_out": _conv(r, "decoder.norm_out"),
                     "conv_out": _conv(r, "decoder.conv_out")},
     }
+    # the optional 1x1 quant convs (diffusers AutoencoderKL, Flux2)
+    if r.has("decoder.post_quant_conv.weight"):
+        params["decoder"]["pre_quant"] = _conv(r, "decoder.post_quant_conv")
+    if r.has("encoder.quant_conv.weight"):
+        params["encoder"]["post_quant"] = _conv(r, "encoder.quant_conv")
     return params, r.leftover()
 
 
@@ -219,6 +224,10 @@ def flux_vae_state_dict(params) -> Dict[str, torch.Tensor]:
         e = params[side]
         for k in ("conv_in", "norm_out", "conv_out"):
             put(f"{side}.{k}", e[k])
+        if "pre_quant" in e:
+            put("decoder.post_quant_conv", e["pre_quant"])
+        if "post_quant" in e:
+            put("encoder.quant_conv", e["post_quant"])
         m = e["mid"]
         res(f"{side}.mid.block_1", m["block_1"])
         res(f"{side}.mid.block_2", m["block_2"])
@@ -235,6 +244,146 @@ def flux_vae_state_dict(params) -> Dict[str, torch.Tensor]:
             res(f"decoder.up.{i}.block.{j}", b)
         if "up" in stage:
             put(f"decoder.up.{i}.upsample.conv", stage["up"]["conv"])
+    return sd
+
+
+def _f32(t):
+    return torch.as_tensor(t).float()
+
+
+def _fold_1x1(outer_w, outer_b, inner_w, inner_b):
+    """A trailing 1x1 conv folded into the conv before it: y = Wq (Wo x +
+    bo) + bq -> W' = Wq Wo, b' = Wq bo + bq (outer = quant_conv [co, ci, 1,
+    1]; inner = conv [ci, cin, kh, kw]), in fp32."""
+    wq = _f32(outer_w)[:, :, 0, 0]
+    w = torch.einsum("oc,cikl->oikl", wq, _f32(inner_w))
+    return w, wq @ _f32(inner_b) + _f32(outer_b)
+
+
+def normalize_diffusers_vae_sd(sd: Dict[str, Any],
+                               n_stages: int = 4) -> Dict[str, Any]:
+    """Map diffusers AutoencoderKL keys (encoder.down_blocks.N.resnets.M,
+    the mid block's attention as linears, the decoder's up_blocks in
+    reverse order, the 1x1 quant_conv / post_quant_conv) onto the BFL
+    layout that `load_flux_vae_params` reads (the Z-Image VAE).  The
+    encoder's quant_conv is folded into its conv_out (exact: two affine
+    maps); the post_quant_conv stays an explicit 1x1 before the decoder's
+    conv_in (`decoder.post_quant_conv`), since folding it would change the
+    zero-padded border.  A state dict without down_blocks keys comes back
+    as it is; keys it does not map are kept, for the loader to report."""
+    if not any(".down_blocks." in k for k in sd):
+        return dict(sd)
+    src = dict(sd)
+    out: Dict[str, Any] = {}
+
+    def mv(dst, key):
+        if f"{key}.weight" in src:
+            out[f"{dst}.weight"] = src.pop(f"{key}.weight")
+            b = src.pop(f"{key}.bias", None)
+            if b is not None:
+                out[f"{dst}.bias"] = b
+
+    def mv_attn(dst, key):
+        mv(f"{dst}.norm", f"{key}.group_norm")
+        for a, b in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                     ("proj_out", "to_out.0")):
+            w = _f32(src.pop(f"{key}.{b}.weight"))
+            if w.ndim == 2:                 # a linear as a 1x1 conv
+                w = w[:, :, None, None]
+            out[f"{dst}.{a}.weight"] = w
+            out[f"{dst}.{a}.bias"] = src.pop(f"{key}.{b}.bias")
+
+    for side in ("encoder", "decoder"):
+        mv(f"{side}.conv_in", f"{side}.conv_in")
+        mv(f"{side}.conv_out", f"{side}.conv_out")
+        mv(f"{side}.norm_out", f"{side}.conv_norm_out")
+        for j in (0, 1):
+            for part in ("norm1", "conv1", "norm2", "conv2"):
+                mv(f"{side}.mid.block_{j + 1}.{part}",
+                   f"{side}.mid_block.resnets.{j}.{part}")
+        mv_attn(f"{side}.mid.attn_1", f"{side}.mid_block.attentions.0")
+
+    def blocks(dst, pre):
+        for j in range(8):
+            key = f"{pre}.resnets.{j}"
+            if f"{key}.norm1.weight" not in src:
+                break
+            for part in ("norm1", "conv1", "norm2", "conv2"):
+                mv(f"{dst}.block.{j}.{part}", f"{key}.{part}")
+            mv(f"{dst}.block.{j}.nin_shortcut", f"{key}.conv_shortcut")
+
+    for i in range(n_stages):
+        blocks(f"encoder.down.{i}", f"encoder.down_blocks.{i}")
+        mv(f"encoder.down.{i}.downsample.conv",
+           f"encoder.down_blocks.{i}.downsamplers.0.conv")
+        # diffusers' up_blocks run from the widest stage; BFL indexes them
+        # from the narrowest (decoder.up.{n-1} is applied first)
+        bfl = n_stages - 1 - i
+        blocks(f"decoder.up.{bfl}", f"decoder.up_blocks.{i}")
+        mv(f"decoder.up.{bfl}.upsample.conv",
+           f"decoder.up_blocks.{i}.upsamplers.0.conv")
+
+    if "quant_conv.weight" in src:
+        w, b = _fold_1x1(src.pop("quant_conv.weight"),
+                         src.pop("quant_conv.bias"),
+                         out.pop("encoder.conv_out.weight"),
+                         out.pop("encoder.conv_out.bias"))
+        out["encoder.conv_out.weight"], out["encoder.conv_out.bias"] = w, b
+    if "post_quant_conv.weight" in src:
+        out["decoder.post_quant_conv.weight"] = \
+            src.pop("post_quant_conv.weight")
+        out["decoder.post_quant_conv.bias"] = src.pop("post_quant_conv.bias")
+    out.update(src)
+    return out
+
+
+def flux_vae_diffusers_state_dict(params) -> Dict[str, torch.Tensor]:
+    """A port FLUX.1 AE tree in diffusers' AutoencoderKL key names (the
+    layout `normalize_diffusers_vae_sd` maps back; the Z-Image VAE file's):
+    the mid attention's projections as linears, the decoder's up_blocks
+    from the widest stage, and the 1x1 quant_conv / post_quant_conv, which
+    are the tree's `post_quant` / `pre_quant` where it has them, else
+    identities."""
+    n = len(params["decoder"]["up"])
+    sd: Dict[str, torch.Tensor] = {}
+    for k, v in flux_vae_state_dict(params).items():
+        parts = k.split(".")
+        side, what, leaf = parts[0], parts[1], parts[-1]
+        if what in ("post_quant_conv", "quant_conv"):
+            k = f"{what}.{leaf}"
+        elif what == "norm_out":
+            k = f"{side}.conv_norm_out.{leaf}"
+        elif what == "mid" and parts[2] == "attn_1":
+            name = {"norm": "group_norm", "q": "to_q", "k": "to_k",
+                    "v": "to_v", "proj_out": "to_out.0"}[parts[3]]
+            if name != "group_norm" and leaf == "weight":
+                v = v[:, :, 0, 0]
+            k = f"{side}.mid_block.attentions.0.{name}.{leaf}"
+        elif what == "mid":
+            j = int(parts[2][-1]) - 1
+            k = f"{side}.mid_block.resnets.{j}." + ".".join(parts[3:])
+        elif what in ("down", "up"):
+            i = int(parts[2])
+            pre = (f"encoder.down_blocks.{i}" if side == "encoder"
+                   else f"decoder.up_blocks.{n - 1 - i}")
+            if parts[3] == "block":
+                rest = ".".join(parts[5:]).replace("nin_shortcut",
+                                                   "conv_shortcut")
+                k = f"{pre}.resnets.{parts[4]}.{rest}"
+            else:
+                sampler = ("downsamplers" if side == "encoder"
+                           else "upsamplers")
+                k = f"{pre}.{sampler}.0.conv.{leaf}"
+        sd[k] = v.contiguous()
+    dev = sd["decoder.conv_in.weight"].device
+    for name, width in (("quant_conv",
+                         sd["encoder.conv_out.weight"].shape[0]),
+                        ("post_quant_conv",
+                         sd["decoder.conv_in.weight"].shape[1])):
+        if f"{name}.weight" not in sd:
+            eye = torch.eye(width, device=dev)
+            sd[f"{name}.weight"] = eye[:, :, None, None].contiguous()
+            sd[f"{name}.bias"] = torch.zeros(width, device=dev)
     return sd
 
 

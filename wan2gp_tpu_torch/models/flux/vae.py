@@ -187,6 +187,8 @@ def flux_vae_encode(params, cfg: FluxVAEConfig, img):
             if i != n - 1:
                 h = _down(stage["down"], h)
         h = _out(e, _mid(e["mid"], h))
+        if "post_quant" in e:       # a 1x1 quant_conv (Flux2)
+            h = _conv(h, e["post_quant"])
         mean = h[:, :cfg.z_channels, 0]
         z = cfg.scale_factor * (mean - cfg.shift_factor)
         return z.permute(0, 2, 3, 1)
@@ -197,7 +199,10 @@ def flux_vae_decode(params, cfg: FluxVAEConfig, z):
     with no_tf32():
         d = params["decoder"]
         z = z.float().permute(0, 3, 1, 2)[:, :, None]
-        h = _conv(z / cfg.scale_factor + cfg.shift_factor, d["conv_in"])
+        z = z / cfg.scale_factor + cfg.shift_factor
+        if "pre_quant" in d:        # diffusers' 1x1 post_quant_conv
+            z = _conv(z, d["pre_quant"])
+        h = _conv(z, d["conv_in"])
         h = _mid(d["mid"], h)
         for i in reversed(range(len(cfg.ch_mult))):
             stage = d["up"][i]

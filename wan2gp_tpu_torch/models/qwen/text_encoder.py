@@ -11,8 +11,10 @@ behind it there.  Layers are stacked on a leading axis and run as a Python
 loop.
 
 Not ported yet: spliced input embeddings (`input_embeds`) and decoding
-(`qwen_lm_generate`); they wait for Qwen-Image and the prompt enhancer
-(ROADMAP Queue 1 items 8 and 12) and raise, naming them.
+(`qwen_lm_generate`); they wait for Qwen-Image-Edit's vision tokens and
+the prompt enhancer (ROADMAP Queue 1 items 8 and 12) and raise, naming
+them.  Qwen-Image conditions on the Qwen2.5-VL-7B tower's last hidden
+state (qkv bias), Z-Image on the Qwen3-4B tower's last block.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import torch.nn.functional as F
 
 from ..wan.dit import layer_params
 
-_LATER = "ROADMAP Queue 1 items 8 and 12 (Qwen-Image, the prompt enhancer)"
+_LATER = ("ROADMAP Queue 1 items 8 and 12 (Qwen-Image-Edit's vision tokens, "
+          "the prompt enhancer)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,9 @@
 """GenerationService: settings dict -> video or image files.
 
 Counterpart of wan2gp_tpu/runtime/service.py for the Wan t2v/i2v, VACE and
-Multitalk, HunyuanVideo 1.5 t2v, LTX-2 text-to-audio+video, and the Krea 2
-and Flux text-to-image paths: model resolution and a pipeline cache, settings merge, resolution
-alignment, family dispatch (models whose definition has `image_outputs` go
+Multitalk, HunyuanVideo 1.5 t2v, LTX-2 text-to-audio+video, and the Krea 2,
+Flux, Qwen-Image and Z-Image text-to-image paths: model resolution and a
+pipeline cache, settings merge, resolution alignment, family dispatch (models whose definition has `image_outputs` go
 through the handler's
 `generate_image` and are saved as PNG) and saving with embedded settings
 (and a handler's `audio` as the AVI's PCM16 stream, at its
@@ -28,7 +28,10 @@ request first restores the base weights bit for bit (the JAX service
 merges into its cached weights again at every request).  What the port
 cannot honour raises a ValueError before any work, naming ROADMAP Queue 1
 item 16: a LoRA on another family, on a second expert, on quantized
-weights, or with a multiplier that changes over the steps.
+weights, or with a multiplier that changes over the steps.  A handler's
+`check_request(base_model_type, model_def, merged)`, where it has one,
+refuses what its family does not run in the same way, before the model
+loads (Qwen-Image's reference images, the Z-Image control rows).
 
 Not ported yet (ROADMAP Queue 1): plugins, config groups, multi-chip
 meshes and post-processing.
@@ -300,6 +303,12 @@ class GenerationService:
             or requested
         width, height = parse_resolution(merged["resolution"])
 
+        # what the family does not run raises here, before any work
+        check = getattr(self.registry.handler_for(model_type),
+                        "check_request", None)
+        if check is not None:
+            check(self.registry.base_model_type(model_type), model_def,
+                  merged)
         plan = self.lora_plan(merged)
         pipe = self.get_pipeline(model_type, model_def=model_def)
         self.sync_loras(model_type, pipe, plan, on_progress)
