@@ -83,8 +83,12 @@ the repository).  Phases, each printing one JSON line:
             quanto state dict with every linear quantized (72 W8, 22 fp32
             tile-kernel and 6 fp32 GEMV launches), int4 likewise (on the W4
             kernels) and a CFG batch 2 over contexts of 7 and 4 rows padded
-            with a key mask (8 flash, 4 kv-masked): max abs err <= 3e-2 *
-            max|ref|.
+            with a key mask (8 flash, 4 kv-masked); the other Flux forwards
+            at full width with 2 double and 2 single blocks in bf16 (4
+            flash each): FLUX.2 Klein 9B, the same with pi-FLUX.2's
+            mixture heads, Chroma, Chroma-Radiance (its head made
+            non-zero), FLUX.1 dev with Kontext's conditioning tokens and
+            with USO's style tokens: max abs err <= 3e-2 * max|ref|.
 4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
             the kernel's output there is held to the plain version in fp32
@@ -141,6 +145,9 @@ the repository).  Phases, each printing one JSON line:
             over 24 heads, W8 at both streams' six block linears (M =
             7,200 and 2,048), the fp32 W8 GEMV at 2 x 3,072 x 18,432;
             (Q)'s: flash over 30 heads at 4,608, 4,096 and 512 tokens.
+            (R)'s: flash at B1 L = S = 4,608 over 32 heads; (S)'s: flash
+            at B1 L = S = 8,704 over 24 heads, W8 at its block linears
+            (M = 8,192 image, 512 text, 8,704 single-block rows).
             The fp32 rows time the call (in turns
             with the library call) and the kernel alone (a CUDA graph of
             the launches); the tile kernel's bound is three bf16 products
@@ -176,17 +183,18 @@ the repository).  Phases, each printing one JSON line:
                 frames, overlap 5 (its last 5 frames encoded to the 2
                 latent frames pinned at the window's start, asserted),
                 2 UniPC steps, stitched to 233 frames;
-            (N) t2v (Wan2.1 14B) in bf16, dense, all 40 layers, at
+            (N) t2v (Wan2.1 14B) in bf16, dense, N_LAYERS = 20 of its 40
+                layers, at
                 1280x720x81 through the service with the profile "wan/
                 Lightx2v t2v Cfg Step Distill Rank32 - 4 Steps" (guidance
                 1, so batch 1; flow_shift 2), STEPS of its 4 UniPC steps:
                 its rank-32 LoRA, written from random weights under the
                 profile URL's basename in <lora_root>/wan (every self- and
-                cross-attention q/k/v/o and ffn.0/ffn.2 of the 40 blocks
+                cross-attention q/k/v/o and ffn.0/ffn.2 of the blocks
                 with alpha, four .diff_b keys and a text_embedding pair),
-                found by the resolver and merged at multiplier 1 (400
-                paths matched, 1 unmatched, asserted); 80 flash launches a
-                forward and no W8; a merged q and fc1 slice within one
+                found by the resolver and merged at multiplier 1 (10 paths
+                a layer matched, 1 unmatched, asserted); 2 flash launches a
+                layer a forward and no W8; a merged q and fc1 slice within one
                 bf16 ulp of the port's CPU merge from the file; after the
                 service restores the base weights (what a request without
                 LoRA does first) every DiT leaf's checksum equal to its
@@ -194,8 +202,8 @@ the repository).  Phases, each printing one JSON line:
                 decode, request and restore seconds, the 4-step projection,
                 the load, denoise and decode peaks and the host bytes held
                 for the restore;
-            (O) krea2_raw (Krea 2, all 28 layers, 12.8 B parameters) from
-                its files at 1024x1024, guidance 3.5 (CFG as batch 2), 2
+            (O) krea2_raw (Krea 2, all O_LAYERS = 28 layers, 12.8 B
+                parameters) from its files at 1024x1024, guidance 3.5 (CFG as batch 2), 2
                 steps, two requests writing PNGs: the DiT random on the
                 card, exported block by block to a host state dict in the
                 reference names and read back by load_krea2_params; the
@@ -205,21 +213,22 @@ the repository).  Phases, each printing one JSON line:
                 through the service's checkpoints resolver and the
                 handler's loaders (the loaded DiT re-exported equal to the
                 state dict); the prompt hashed into Qwen3's vocabulary, 12
-                hidden layers over the 512-token template: 28 masked flash
-                launches a forward, 4 masked and 4 dense a request;
-            (P) qwen_image_20B (Qwen-Image: 60 blocks of 3072, 24 heads
-                of 128, 20.4 B parameters) from its files at the
+                hidden layers over the 512-token template: a masked flash
+                launch a layer a forward, 4 masked and 4 dense a request;
+            (P) qwen_image_20B (Qwen-Image: all P_LAYERS = 60 blocks
+                of 3072, 24 heads of 128, 20.4 B parameters) from its
+                files at the
                 definition's 1280x720, guidance 4 (true CFG as batch 2), 2
                 of its 25 steps: the DiT random on the card, exported
                 block by block to a pinned host state dict in the layout
                 of the definition's quanto-int8 file (every block linear
-                int8, 20.4 GB) and freed; the Qwen2.5-VL-7B text tower
+                int8, 20.56 GB) and freed; the Qwen2.5-VL-7B text tower
                 (28 layers, width 3584, qkv bias, 7.6 B) likewise in HF
                 names; the image VAE as qwen_vae.safetensors; all three
                 through the resolver and the handler's loaders (the loaded
                 DiT re-exported equal to the state dict); the prompt's
-                states [1, 1,024, 3,584] (asserted): 60 flash, 720 W8 and
-                120 fp32 W8 GEMV launches a forward, none padded;
+                states [1, 1,024, 3,584] (asserted): a flash, 12 W8 and
+                2 fp32 W8 GEMV launches a block a forward, none padded;
             (Q) z_image (Z-Image Turbo: dim 3840, 30 heads, 30 + 2 + 2
                 blocks, 6.15 B parameters) from its files at 1024x1024,
                 guidance 0, 2 of its 8 unified steps: the DiT (bf16) and
@@ -227,6 +236,35 @@ the repository).  Phases, each printing one JSON line:
                 diffusers' AutoencoderKL names and read through
                 normalize_diffusers_vae_sd; the prompt's states [1, 512,
                 2,560] (asserted): 34 flash launches a forward;
+            (R) flux2_klein_9b (FLUX.2 Klein 9B: 8 double + 24 single
+                blocks of 4096, 32 heads of 128, 9.08 B parameters) from
+                its files at 1024x1024, the definition's 4 steps, bf16,
+                guidance 1: the DiT and the Qwen3 tower at the JAX
+                handler's width (4,096, 6.44 B) random on the card and
+                exported to pinned host state dicts, the FLUX.2 VAE (32
+                latent channels, quant convs, BatchNorm statistics) as
+                flux2_vae.safetensors, read through the resolver and the
+                handler's loaders (the loaded DiT's ends equal to the state
+                dict); the prompt's layers 9, 18 and 27 over 512 tokens,
+                [1, 512, 12,288] (asserted): 32 flash launches a forward;
+            (S) flux_dev_kontext (FLUX.1 Kontext dev, 19 + 38 blocks, 11.9
+                B) at 1024x1024 with one 1024x1024 reference image,
+                quantize="int8", 2 of its 25 steps: the DiT through a
+                pinned host state dict (its ends checked before the service
+                quantizes it) and the AE file; a full-size random T5 v1.1
+                XXL makes the context, a random CLIP vector `_vec_y`; the
+                reference VAE-encoded to 128 x 128 latents (asserted), L =
+                S = 8,704: 57 flash, 228 W8 and 76 fp32 W8 GEMV launches a
+                forward, none padded; then USO on the same DiT: SigLIP
+                so400m and the projector as bf16 files read back equal,
+                one 512x512 style image through flux_dev_uso, 768 style
+                tokens (asserted), the same launches;
+            (T) flux_chroma, flux_chroma_radiance and pi_flux2 from random
+                weights at full width and T_DOUBLE = 2 double + T_SINGLE
+                = 4 single blocks, 1024x1024, 2 steps each (Radiance in
+                pixel space with no VAE; pi-FLUX.2's heads written and read
+                back equal, its 128-substep rollout): 6 flash launches a
+                forward;
             (F) i2v (Wan2.1 14B image-to-video) at 832x480x81, bf16, dense,
                 F_LAYERS = 10 of its 40 layers, a full-width CLIP ViT-H/14,
                 from a 640x360 PNG (so both resizes run), 2 UniPC steps,
@@ -239,17 +277,17 @@ the repository).  Phases, each printing one JSON line:
                 low-noise one on the second (asserted), 2 flash and 10 W8
                 launches a layer a forward, none
                 padded; the 720p frame-chunked encode's seconds and peak;
-            (I) ti2v_2_2 (Wan2.2 TI2V 5B: dim 3072, 24 heads, 30 layers,
-                48 latent channels) from its files, as (D): a quanto-int8
+            (I) ti2v_2_2 (Wan2.2 TI2V 5B: dim 3072, 24 heads, all
+                I_LAYERS = 30 layers, 48 latent channels) from its files, as (D): a quanto-int8
                 DiT under the name of the definition's second URL and a
                 Wan2.2 VAE file (written from random weights, the loaded
                 trees equal to them), at 1280x704x121 (31 x 44 x 80
                 latents, 27,280 tokens), UniPC 2 steps, joint CFG,
-                guidance 5, flow_shift 5, dense: 60 flash and 300 W8
-                launches a forward, none padded; the Wan2.2 decode in 28
-                spatial tiles (asserted) of at most 31 x 16 x 16 latents:
-                write, load, step, decode and request seconds and the
-                load, denoise and decode peaks;
+                guidance 5, flow_shift 5, dense: 2 flash and 10 W8
+                launches a layer a forward, none padded; the Wan2.2
+                decode in 28 spatial tiles (asserted) of at most 31 x 16
+                x 16 latents: write, load, step, decode and request
+                seconds and the load, denoise and decode peaks;
             (J) vace_multitalk_14B (14B, J_LAYERS = 6 of its 40 layers,
                 5 VACE blocks, the multitalk module's audio
                 cross-attention in every block)
@@ -266,10 +304,11 @@ the repository).  Phases, each printing one JSON line:
                 write, read, quantize, wav2vec2, encode, step, decode and
                 request seconds and the load, encode, denoise and decode
                 peaks;
-            (K) flux_schnell (Flux.1 schnell at full width, K_DOUBLE = 10
-                of its 19 double and K_SINGLE = 19 of its 38 single blocks,
-                so that the files the whole script writes stay under the
-                45 GiB a one-card call may write) at the definition's
+            (K) flux_schnell (Flux.1 schnell at full width, K_DOUBLE = 5
+                of its 19 double and K_SINGLE = 10 of its 38 single blocks
+                (10 + 19 before), so that the files the whole
+                script writes stay under the 45 GiB a one-card call may
+                write and the script in its time) at the definition's
                 1280x720 and 10 steps (its file overrides the handler's 4),
                 from files written from random weights (the DiT in bf16
                 under the definition's first URL, the AE and CLIP-L) and
@@ -278,12 +317,14 @@ the repository).  Phases, each printing one JSON line:
                 prompt's 256 hash ids into the requests' context (t5_s); a
                 bf16 request, the same tree quantized int8 in process and a
                 second request, then a quantize="int4" service loads the
-                file again for 2 steps: 29 flash a forward, and 118 W8 + 39
-                fp32 W8 GEMV (int8) or 118 W4 + 39 W4 GEMV (int4), none
-                padded; write, load, quantize, step, decode and request
+                file again for 2 steps: a flash a block a forward, and 8 W8
+                and 2 fp32 W8 GEMVs a double block, 2 W8 and 1 GEMV a
+                single block (int8; int4: the same on W4), none padded;
+                write, load, quantize, step, decode and request
                 seconds and the peaks;
-            (L) hunyuan_1_5_480_t2v (HunyuanVideo 1.5, 8.3 B: 54 double
-                blocks, hidden 2048, 16 heads of 128) at the definition's
+            (L) hunyuan_1_5_480_t2v (HunyuanVideo 1.5, 8.3 B: L_LAYERS =
+                27 of its 54 double blocks, hidden 2048, 16
+                heads of 128) at the definition's
                 832x480x97 and guidance 6.0 (CFG as batch 2: the empty
                 negative prompt through the same LM), flow_shift 5, 2 Euler
                 steps (the definition: 30), from files written from random
@@ -294,11 +335,13 @@ the repository).  Phases, each printing one JSON line:
                 written tensors); the LLaMA-3 8B tower random on the card
                 over hash ids; a quoted "OPEN" in the prompt through byT5
                 and the glyph mapper; the video decoded in 15 tiles
-                (asserted): 54 flash, 440 W8 and 110 fp32 W8 GEMV launches
-                a forward, none padded; init, write, load, LM, byT5, CLIP,
+                (asserted): a flash, 8 W8 and 2 fp32 W8 GEMV launches a
+                block a forward (the refiner's 8 W8 and 2 GEMVs more), none
+                padded; init, write, load, LM, byT5, CLIP,
                 step, decode and request seconds and the load, denoise and
                 decode peaks;
-            (M) ltx2_22B_distilled (LTX-2 22B: 48 blocks, video 32 x 128,
+            (M) ltx2_22B_distilled (LTX-2 22B: M_LAYERS = 24 of its 48
+                blocks, video 32 x 128,
                 audio 32 x 64, gated attention, prompt adaLN) at
                 1280x704x241 (the definition's 1280x720 does not divide by
                 the 32-pixel stride), its guidance 1 and 2 of its 8
@@ -354,6 +397,13 @@ A_LAYERS = 20                   # (A) and (C) t2v 14B: 40 -> 30 -> 20 of 40
 F_LAYERS = 10                   # (F) i2v 14B: 40 -> 20 -> 10 of 40 layers
 G_LAYERS = 5                    # (G) i2v_2_2: 40 -> 10 -> 5 of each expert's
 J_LAYERS = 6                    # (J) vace_multitalk_14B: 40 -> 10 -> 6 of 40
+I_LAYERS = 30                   # (I) ti2v_2_2 5B: all 30 layers
+# cut to make room for (R), (S) and (T)
+N_LAYERS = 20                   # (N) t2v 14B + LoRA: 40 -> 20 of 40 layers
+M_LAYERS = 24                   # (M) ltx2_22B_distilled: 48 -> 24 of 48
+L_LAYERS = 27                   # (L) hunyuan_1_5_480_t2v: 54 -> 27 of 54
+O_LAYERS = 28                   # (O) krea2_raw: all 28 layers
+P_LAYERS = 60                   # (P) qwen_image_20B: all 60 blocks
 # (N): t2v 14B in bf16 at 1280x720x81 through the Lightx2v profile (one
 # rank-32 LoRA at multiplier 1, guidance 1, flow_shift 2, 4 steps), its
 # LoRA written from random weights under the URL's basename
@@ -374,12 +424,14 @@ P_TOKENS = P_TXT + P_IMG
 # k, v, out, mlp1 and mlp2 (12: the image stream at M = 2 x 3,600, the
 # text at 2 x 1,024) and the fp32 GEMV on img_mod and txt_mod (2)
 P_PER_FORWARD = {
-    "joint_qwen_P": 60,
-    f"{2 * P_IMG}x3072x3072": 240, f"{2 * P_IMG}x3072x12288": 60,
-    f"{2 * P_IMG}x12288x3072": 60, f"{2 * P_TXT}x3072x3072": 240,
-    f"{2 * P_TXT}x3072x12288": 60, f"{2 * P_TXT}x12288x3072": 60,
-    "2x3072x18432": 120}
-P_KERNELS = {"flash_attention": 60, "matmul_w8": 720, "matmul_w8_gemv": 120}
+    "joint_qwen_P": P_LAYERS,
+    f"{2 * P_IMG}x3072x3072": 4 * P_LAYERS,
+    f"{2 * P_IMG}x3072x12288": P_LAYERS, f"{2 * P_IMG}x12288x3072": P_LAYERS,
+    f"{2 * P_TXT}x3072x3072": 4 * P_LAYERS,
+    f"{2 * P_TXT}x3072x12288": P_LAYERS, f"{2 * P_TXT}x12288x3072": P_LAYERS,
+    "2x3072x18432": 2 * P_LAYERS}
+P_KERNELS = {"flash_attention": P_LAYERS, "matmul_w8": 12 * P_LAYERS,
+             "matmul_w8_gemv": 2 * P_LAYERS}
 # (Q): z_image (Turbo) at 1024x1024: 4,096 image tokens (a multiple of 32:
 # no pad) and the Qwen3 encoder's 512 caption slots; guidance 0, batch 1;
 # a forward: 30 main blocks over both, 2 noise- and 2 context-refiner
@@ -401,8 +453,9 @@ VAE22_MAX_ABS = 1e-3            # Wan2.2 VAE decode, card against CPU (fp32)
 K_W, K_H, K_TXT = 1280, 720, 256
 # (K)'s depth, of flux-schnell's 19 double and 38 single blocks: cut so that
 # the files the script writes stay under the 45 GiB a one-card machine lets
-# a call write ((L) adds 14.4 GB)
-K_DOUBLE, K_SINGLE = 10, 19
+# a call write ((L) adds 14.4 GB), then (10 + 19 -> 5 + 10) to make
+# room for (R), (S) and (T) in the time limit
+K_DOUBLE, K_SINGLE = 5, 10
 K_TOKENS = K_TXT + (K_H // 16) * (K_W // 16)
 # (I): Wan2.2 TI2V 5B at its definition's 121 frames and the Wan2.2
 # generate.py size for ti2v-5B (1280x720 gives 45 latent rows, which the
@@ -428,6 +481,38 @@ M_PROMPT = ("a red fox trots through fresh snow at dawn, its breath "
 # (M)'s DiT file (written after the request, loaded back): its depth
 M_FILE_LAYERS = 2
 F32_REL_FRO = 1e-5              # the fp32 tile kernel: only the sum order
+# (R): flux2_klein_9b at 1024x1024, the definition's 4 steps: the Qwen3
+# tower's 512 text tokens, then 64 x 64 image tokens; batch 1; a forward:
+# one joint flash a block (8 double + 24 single)
+R_W = R_H = 1024
+R_TXT = 512
+R_TOKENS = R_TXT + (R_H // 16) * (R_W // 16)
+R_STEPS = 4
+R_KERNELS = {"flash_attention": 32}
+R_PER_FORWARD = {"joint_klein9b_R": 32}
+# (S): flux_dev_kontext at 1024x1024 with one 1024x1024 reference image:
+# 512 T5 tokens, 4,096 noise and 4,096 reference tokens; quantize int8;
+# a forward: 57 joint flash; W8 on each stream's qkv, proj, mlp.0, mlp.2 of
+# the 19 double blocks (the image stream at M = 8,192, the text at 512)
+# and linear1 / linear2 of the 38 single blocks (M = 8,704); the fp32
+# GEMV on each block's modulation
+S_W = S_H = 1024
+S_TXT = 512
+S_IMG = 2 * (S_H // 16) * (S_W // 16)
+S_TOKENS = S_TXT + S_IMG
+S_PER_FORWARD = {"joint_kontext_S": 57,
+                 **{f"{m}x{k}x{n}": 19 for m in (S_IMG, S_TXT)
+                    for k, n in ((3072, 9216), (3072, 3072), (3072, 12288),
+                                 (12288, 3072))},
+                 f"{S_TOKENS}x3072x21504": 38, f"{S_TOKENS}x15360x3072": 38,
+                 "1x3072x18432": 38, "1x3072x9216": 38}
+S_KERNELS = {"flash_attention": 57, "matmul_w8": 228, "matmul_w8_gemv": 76}
+# (S)'s USO request: SigLIP so400m's 768 style tokens before the text
+USO_STYLE = 768
+# (T): flux_chroma, flux_chroma_radiance and pi_flux2 at full width and
+# 1024x1024 from random weights, each cut to 2 double + 4 single blocks
+T_DOUBLE, T_SINGLE = 2, 4
+T_W = T_H = 1024
 REPO = os.path.dirname(os.path.abspath(__file__))
 # logs and the (deleted after checking) outputs, beside the built kernels
 OUT = os.path.join(REPO, "wan2gp_tpu_torch", "_build", "chip_smoke")
@@ -1204,6 +1289,7 @@ def phase_dit():
     out["vace_audio"] = dit_vace_audio()
     out["krea2"] = dit_krea2()
     out["flux"] = dit_flux()
+    out["flux_rest"] = dit_flux_rest()
     out["hv15"] = dit_hv15()
     out["ltx2"], int4_launches = dit_ltx2()
     emit("dit", tolerance="max_abs<=3e-2*max|ref|", **out)
@@ -1413,6 +1499,112 @@ def dit_flux():
     torch.cuda.empty_cache()
     return {"config": "hidden 3072, 24 heads of 128, mlp 12288, 2 double + "
                       "2 single blocks, batch 1", **out}
+
+
+def dit_flux_rest():
+    """The other Flux forwards at full width with 2 double and 2 single
+    blocks in bf16, card against CPU (4 flash launches each): FLUX.2 Klein
+    9B (4096 wide, 32 heads, SwiGLU, one shared modulation, four-axis RoPE
+    at theta 2000) and the same with pi-FLUX.2's mixture heads in place of
+    the final projection; Chroma (its 5-layer 5,120-wide fp32 modulation
+    MLP over 344 rows); Chroma-Radiance (16x16 pixel patches of 768
+    features, the generated GLU head and the 3x3 conv, made non-zero);
+    FLUX.1 dev with Kontext's 64 conditioning tokens after the noise tokens
+    (time index 1) and with USO's 24 style tokens before the text."""
+    from wan2gp_tpu_torch.models.flux import dit as fd
+    from wan2gp_tpu_torch.models.flux import piflow as fp
+    l_txt, h_tok, w_tok = FLUX_CHECK_TOKENS
+    n_img = h_tok * w_tok
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device="cuda")
+    t, g = torch.tensor([0.7]), torch.tensor([3.5])
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    def flat(r):
+        if isinstance(r, dict):
+            return torch.cat([v.float().flatten() for v in r.values()])
+        return r.float().flatten()
+
+    def run(name, cfg, p, pc, img, txt, ids, **kw):
+        """p: the tree on the card; pc: its CPU copy."""
+        res, secs = {}, {}
+        for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            pd = pc if dev == "cpu" else p
+            cos, sin = fd.rope_from_ids(ids, cfg.axes_dim, cfg.theta,
+                                        device=dev)
+            extra = {k: _tree_to(v, dev) if isinstance(v, dict)
+                     else v.to(dev) if torch.is_tensor(v) else v
+                     for k, v in kw.items()}
+            vec_y = extra.pop("vec_y", torch.zeros((1, 1), device=dev))
+            before = read_counts()
+            r = fd.flux_forward(pd, cfg, img.to(dev), txt.to(dev), vec_y,
+                                t.to(dev), cos, sin, **extra)
+            launched = {k: v - before[k] for k, v in read_counts().items()
+                        if v != before[k]}
+            res[dev] = flat(r).cpu()
+            secs[f"{dev}_s"] = time.perf_counter() - t0
+            del pd
+        ref_max = res["cpu"].abs().max().item()
+        err = (res["cuda"] - res["cpu"]).abs().max().item()
+        rec = {"tokens": txt.shape[1] + img.shape[1], "max_abs": err,
+               "ref_max": ref_max, "launches": launched, **secs,
+               "finite": bool(torch.isfinite(res["cuda"]).all())}
+        if not (rec["finite"] and err <= 3e-2 * ref_max
+                and launched == {"flash_attention": 4}):
+            raise AssertionError(f"small Flux forward ({name}): {rec}")
+        return rec
+
+    out = {}
+    two = dict(depth=2, depth_single_blocks=2)
+    cfg = fd.FluxConfig(**{**fd.FLUX2_KLEIN_9B, **two})
+    p = fd.init_flux(gen.manual_seed(31), cfg)
+    ids = fd.make_ids_flux2(h_tok, w_tok, l_txt)
+    img, txt = rnd(1, n_img, cfg.in_channels), rnd(1, l_txt,
+                                                   cfg.context_in_dim)
+    pc = _tree_to(p, "cpu")
+    out["flux2_klein_9b"] = run("Klein 9B", cfg, p, pc, img, txt, ids)
+    heads = fp.init_piflow_heads(gen.manual_seed(32), cfg,
+                                 means_dim=8 * cfg.out_channels)
+    out["piflow_heads"] = run("pi-Flow heads", cfg, p, pc, img, txt, ids,
+                              piflow_heads=heads)
+    del p, pc, heads
+    cfg = fd.FluxConfig(**{**fd.CHROMA, **two})
+    p = fd.init_flux(gen.manual_seed(33), cfg)
+    ids = np.concatenate([np.zeros((l_txt, 3)), fd.make_img_ids(h_tok,
+                                                                 w_tok)])
+    txt = rnd(1, l_txt, cfg.context_in_dim)
+    out["chroma"] = run("Chroma", cfg, p, _tree_to(p, "cpu"),
+                        rnd(1, n_img, cfg.in_channels), txt, ids)
+    del p
+    cfg = fd.FluxConfig(**{**fd.CHROMA_RADIANCE, **two})
+    p = fd.init_flux(gen.manual_seed(34), cfg)
+    rad = p["radiance"]
+    for leaf, sd in ((rad["img_in_patch"], 0.02), (rad["final_conv"], 0.1)):
+        leaf["w"] = sd * torch.randn(leaf["w"].shape, generator=gen,
+                                     device="cuda")
+    out["chroma_radiance"] = run("Radiance", cfg, p, _tree_to(p, "cpu"),
+                                 rnd(1, n_img, cfg.in_channels), txt, ids,
+                                 radiance_grid_hw=(h_tok, w_tok))
+    del p, rad
+    cfg = fd.FluxConfig(guidance_embed=True, **two)
+    p = fd.init_flux(gen.manual_seed(35), cfg)
+    txt, vec_y = rnd(1, l_txt, cfg.context_in_dim), rnd(1, cfg.vec_in_dim)
+    kontext_ids = np.concatenate([ids, fd.make_img_ids(h_tok, w_tok, 1)])
+    pc = _tree_to(p, "cpu")
+    out["kontext"] = run("Kontext", cfg, p, pc, rnd(1, 2 * n_img, 64), txt,
+                         kontext_ids, guidance=g, vec_y=vec_y)
+    style = rnd(1, 24, cfg.hidden_size)
+    uso_ids = np.concatenate([np.zeros((24, 3)), ids])
+    out["uso"] = run("USO", cfg, p, pc, rnd(1, n_img, 64), txt, uso_ids,
+                     guidance=g, vec_y=vec_y, style_tokens=style)
+    del p, pc
+    torch.cuda.empty_cache()
+    return {"config": "full widths (Klein 9B 4096 / 32 heads, Chroma and "
+                      "FLUX.1 dev 3072 / 24 heads), 2 double + 2 single "
+                      "blocks, bf16, batch 1", **out}
 
 
 def dit_hv15():
@@ -1671,7 +1863,7 @@ def time_o(flash, kvmask):
                                          48, 128, o_valid, text=O_TEXT)
     kvmask["refiner_krea2_O"] = time_kvmask(
         "refiner_krea2_O", 1, O_TEXT, 20, 128, o_valid[:1], text=O_TEXT)
-    kvmask["self_krea2_O"]["launches_per_forward_O"] = 28
+    kvmask["self_krea2_O"]["launches_per_forward_O"] = O_LAYERS
     kvmask["refiner_krea2_O"]["launches_per_request_O"] = 4
     flash["layerwise_krea2_O"] = time_flash("layerwise_krea2_O", O_TEXT, 12,
                                             12, 20, 128)
@@ -2052,7 +2244,7 @@ G_PER_FORWARD = {"self_14B_720p_b2": G_LAYERS, "cross_14B_720p": G_LAYERS,
                  "1024x5120x5120": 2 * G_LAYERS}
 # launches per DiT forward of (N) (t2v 14B at 1280x720, bf16, guidance 1:
 # batch 1): per layer one self and one text cross flash, no W8
-N_PER_FORWARD = {"self_14B_720p": 40, "cross_14B_720p_b1": 40}
+N_PER_FORWARD = {"self_14B_720p": N_LAYERS, "cross_14B_720p_b1": N_LAYERS}
 
 
 # launches per DiT forward of (I) (Wan2.2 5B at 1280x704x121, int8 from its
@@ -2060,10 +2252,11 @@ N_PER_FORWARD = {"self_14B_720p": 40, "cross_14B_720p_b1": 40}
 # on q, k, v, o of the self-attention and q, o of the cross-attention (K =
 # N = 3072), fc1, fc2 at M = 54,560 and the cross k, v at M = 1,024
 I_TOKENS = ((I_FRAMES - 1) // 4 + 1) * (I_H // 32) * (I_W // 32)
-I_PER_FORWARD = {"self_5B": 30, "cross_5B": 30,
-                 f"{2 * I_TOKENS}x3072x3072": 180,
-                 f"{2 * I_TOKENS}x3072x14336": 30,
-                 f"{2 * I_TOKENS}x14336x3072": 30, "1024x3072x3072": 60}
+I_PER_FORWARD = {"self_5B": I_LAYERS, "cross_5B": I_LAYERS,
+                 f"{2 * I_TOKENS}x3072x3072": 6 * I_LAYERS,
+                 f"{2 * I_TOKENS}x3072x14336": I_LAYERS,
+                 f"{2 * I_TOKENS}x14336x3072": I_LAYERS,
+                 "1024x3072x3072": 2 * I_LAYERS}
 # launches per DiT forward of (J) (vace_multitalk_14B at 832x480x81, int8,
 # the two audio-CFG branches as batch 2) at J_LAYERS main blocks and a
 # VACE block every second layer: per main block a self, a text cross and
@@ -2111,12 +2304,13 @@ K_KERNELS = (K_DOUBLE + K_SINGLE, 8 * K_DOUBLE + 2 * K_SINGLE,
 # the fp32 W8 GEMV on each stream's modulation (K = 2048, N = 12,288) and
 # the refiner's adaLN (N = 4,096)
 L_LINEARS = ((2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048))
-L_PER_FORWARD = {"self_hv15_L": 54,
-                 **{f"{m}x{k}x{n}": 54 for m in (2 * L_IMG, 2 * L_TXT)
+L_PER_FORWARD = {"self_hv15_L": L_LAYERS,
+                 **{f"{m}x{k}x{n}": L_LAYERS for m in (2 * L_IMG, 2 * L_TXT)
                     for k, n in L_LINEARS},
                  **{f"512x{k}x{n}": 2 for k, n in L_LINEARS},
-                 "2x2048x12288": 108, "2x2048x4096": 2}
-L_KERNELS = {"flash_attention": 54, "matmul_w8": 440, "matmul_w8_gemv": 110}
+                 "2x2048x12288": 2 * L_LAYERS, "2x2048x4096": 2}
+L_KERNELS = {"flash_attention": L_LAYERS, "matmul_w8": 8 * L_LAYERS + 8,
+             "matmul_w8_gemv": 2 * L_LAYERS + 2}
 
 
 def phase_time(tokens: int):
@@ -2210,6 +2404,7 @@ def phase_time(tokens: int):
             for kernel in ("matmul_w8_gemv", "matmul_w4_gemv")}
     time_l(flash, w8, gemv)
     time_pq(flash, w8, gemv)
+    time_rs(flash, w8, gemv)
     f32 = time_m(flash, w8, gemv)
     for table in (flash, w8, *gemv.values()):
         for case, t in table.items():
@@ -2285,6 +2480,26 @@ def time_pq(flash, w8, gemv):
                     t[f"launches_per_forward_{key}"] = per[case]
 
 
+def time_rs(flash, w8, gemv):
+    """(R)'s row: the joint attention of FLUX.2 Klein 9B at B1 L = S =
+    4,608 over 32 heads; (S)'s: Kontext's joint attention at B1 L = S =
+    8,704 over 24 heads and W8 at its block linears (M = 8,192 image, 512
+    text and 8,704 single-block rows; its modulation GEMVs are (K)'s
+    shapes); each with its launches per forward."""
+    flash["joint_klein9b_R"] = time_flash("joint_klein9b_R", 1, R_TOKENS,
+                                          R_TOKENS, 32, 128)
+    flash["joint_kontext_S"] = time_flash("joint_kontext_S", 1, S_TOKENS,
+                                          S_TOKENS, 24, 128)
+    w8.update({case: time_w8(case, *map(int, case.split("x")))
+               for case in S_PER_FORWARD if case.count("x") == 2
+               and not case.startswith("1x")})
+    for table in (flash, w8, gemv["matmul_w8_gemv"]):
+        for case, t in table.items():
+            for key, per in (("R", R_PER_FORWARD), ("S", S_PER_FORWARD)):
+                if case in per:
+                    t[f"launches_per_forward_{key}"] = per[case]
+
+
 # launches per DiT forward of (M) (LTX-2 22B at 1280x704x241, int8 from a
 # quanto state dict with every linear quantized, batch 1): per block 6
 # flash (video self 27,280 N32 D128, its text cross, audio self 251 N32
@@ -2294,7 +2509,7 @@ def time_pq(flash, w8, gemv):
 # streams and the 6 adaLN tables' t1, t2 and linear at M = 31 / 251 (22);
 # the fp32 GEMV on the 2 prompt adaLN tables' t1, t2 and linear at M = 1
 # (6)
-M_KERNELS = {"flash_attention": 6 * 48, "matmul_w8": 34 * 48 + 4,
+M_KERNELS = {"flash_attention": 6 * M_LAYERS, "matmul_w8": 34 * M_LAYERS + 4,
              "matmul_w8_f32": 22, "matmul_w8_gemv": 6}
 # the tile kernel's shapes: video tables (adaLN 9 x 4096, the a/v cross
 # scale-shift 4 x 4096, the a2v gate 4096; t1 from the 256 sinusoid, t2
@@ -2310,12 +2525,13 @@ M_GEMV = {"1x256x4096": 1, "1x4096x4096": 1, "1x4096x8192": 1,
           "1x256x2048": 1, "1x2048x2048": 1, "1x2048x4096": 1}
 assert sum(M_F32.values()) == M_KERNELS["matmul_w8_f32"]
 assert sum(M_GEMV.values()) == M_KERNELS["matmul_w8_gemv"]
-M_PER_FORWARD = {"self_ltx2_M": 48, "text_cross_ltx2_M": 48,
-                 "audio_self_ltx2_M": 48, "a2v_ltx2_M": 48,
-                 "v2a_ltx2_M": 48,
-                 f"{M_TOKENS}x4096x4096": 6 * 48,
-                 f"{M_TOKENS}x4096x16384": 48, f"{M_TOKENS}x16384x4096": 48,
-                 f"{M_AUDIO}x2048x8192": 48}
+M_PER_FORWARD = {"self_ltx2_M": M_LAYERS, "text_cross_ltx2_M": M_LAYERS,
+                 "audio_self_ltx2_M": M_LAYERS, "a2v_ltx2_M": M_LAYERS,
+                 "v2a_ltx2_M": M_LAYERS,
+                 f"{M_TOKENS}x4096x4096": 6 * M_LAYERS,
+                 f"{M_TOKENS}x4096x16384": M_LAYERS,
+                 f"{M_TOKENS}x16384x4096": M_LAYERS,
+                 f"{M_AUDIO}x2048x8192": M_LAYERS}
 
 
 def time_m(flash, w8, gemv):
@@ -2507,6 +2723,48 @@ def vae_state_dict(p, cfg):
             else:
                 sd.resample(pre, q)
     return sd.around_towers(p)
+
+
+def flux2_vae_state_dict(p, gen):
+    """A FLUX.2 VAE file's state dict from a port AE tree at 32 latent
+    channels: the AE's keys, its two 1x1 quant convs (near identities) and
+    the BatchNorm statistics of the 128 packed channels, which the loader
+    drops."""
+    from wan2gp_tpu_torch.io import flux_checkpoint as fck
+    sd = fck.flux_vae_state_dict(p)
+    for name, c in (("decoder.post_quant_conv", 32),
+                    ("encoder.quant_conv", 64)):
+        sd[f"{name}.weight"] = (torch.eye(c, device="cuda") + 0.01 * (
+            torch.randn((c, c), generator=gen, device="cuda")))[:, :, None,
+                                                                None]
+        sd[f"{name}.bias"] = torch.zeros(c, device="cuda")
+    sd["bn.running_mean"] = torch.zeros(128, device="cuda")
+    sd["bn.running_var"] = torch.ones(128, device="cuda")
+    sd["bn.num_batches_tracked"] = torch.zeros((), device="cuda")
+    return sd
+
+
+def flux_ends_state_dict(tree, cfg):
+    """The BFL state dict (bf16) of a Flux tree's first and last double and
+    single blocks and everything outside the blocks, under the full
+    tree's key names."""
+    from wan2gp_tpu_torch.io import flux_checkpoint as fck
+    d, s = cfg.depth, cfg.depth_single_blocks
+
+    def ends(x, n):
+        if isinstance(x, dict):
+            return {k: ends(v, n) for k, v in x.items()}
+        return x[[0, n - 1]]
+    two = {**tree, "double_blocks": ends(tree["double_blocks"], d),
+           "single_blocks": ends(tree["single_blocks"], s)}
+    out = {}
+    for k, v in fck.flux_state_dict(two, dataclasses.replace(
+            cfg, depth=2, depth_single_blocks=2)).items():
+        for pre, n in (("double_blocks.1.", d), ("single_blocks.1.", s)):
+            if k.startswith(pre):
+                k = f"{pre[:-2]}{n - 1}.{k[len(pre):]}"
+        out[k] = v.to(torch.bfloat16)
+    return out
 
 
 def vae22_state_dict(p):
@@ -2796,8 +3054,9 @@ L_BYT5_VOCAB = 1510
 
 
 def run_l(out_dir, timed, split, seen):
-    """(L): hunyuan_1_5_480_t2v (HunyuanVideo 1.5, 54 double blocks, hidden
-    2048, 8.3 B parameters) at its definition's 832x480x97 from files.
+    """(L): hunyuan_1_5_480_t2v (HunyuanVideo 1.5 at L_LAYERS = 27 of its
+    54 double blocks, hidden 2048, 8.3 B parameters at 54) at
+    its definition's 832x480x97 from files.
     Random weights are written under the reference key names: the DiT as
     a quanto-int8 file named as the definition's second URL (the resolver
     picks it for quantization "int8"), the HV1.5 VAE (fp32), byT5-small
@@ -2807,8 +3066,8 @@ def run_l(out_dir, timed, split, seen):
     definition's guidance 6.0 (CFG as batch 2; the empty negative prompt
     through the same LM) and flow_shift 5, STEPS Euler steps, the prompt's
     quoted "OPEN" through byT5, the video decoded in 15 tiles (asserted).
-    Launches asserted: 54 flash, 440 W8 and 110 fp32 W8 GEMVs a forward,
-    none padded."""
+    Launches asserted: a flash, 8 W8 and 2 fp32 W8 GEMVs a block a forward
+    (the refiner's 8 W8 and 2 GEMVs more), none padded."""
     from wan2gp_tpu_torch.families import hyvideo as hfam
     from wan2gp_tpu_torch.io import hyvideo_dit_checkpoint as hck
     from wan2gp_tpu_torch.io.downloads import make_checkpoints_resolver
@@ -2843,7 +3102,8 @@ def run_l(out_dir, timed, split, seen):
                     exist_ok=True)
         paths[role] = os.path.join(ckdir, spec.get("subdir", ""),
                                    os.path.basename(spec["urls"][0]))
-    cfg = handler.dit_config("hunyuan_1_5_t2v")
+    cfg = dataclasses.replace(handler.dit_config("hunyuan_1_5_t2v"),
+                              mm_double_blocks_depth=L_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(31)
     t0 = time.perf_counter()
     params = hdit.init_hunyuan(gen, cfg)
@@ -2877,9 +3137,15 @@ def run_l(out_dir, timed, split, seen):
         roles=("transformer", "vae", "byt5", "clip"))
     svc = svc_mod.GenerationService(checkpoints_resolver=resolver,
                                     output_dir=out_dir)
+    arch = hfam._ARCH["hunyuan_1_5_t2v"]
+    hfam._ARCH["hunyuan_1_5_t2v"] = {**arch, "mm_double_blocks_depth":
+                                     L_LAYERS}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pipe = svc.get_pipeline(model_type)
+    try:
+        pipe = svc.get_pipeline(model_type)
+    finally:
+        hfam._ARCH["hunyuan_1_5_t2v"] = arch
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t0
     out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2971,10 +3237,11 @@ def run_l(out_dir, timed, split, seen):
 
 
 def run_m(out_dir, timed, split, seen):
-    """(M): ltx2_22B_distilled (LTX-2 22B, all 48 blocks, 19.5 B
-    parameters in the DiT) at 1280x704x241 (the definition's 1280x720
-    gives 22.5 latent rows; the handler refuses it): 31 x 22 x 40 = 27,280
-    video and 251 audio tokens.  Gemma-3 12B random on the card, through an
+    """(M): ltx2_22B_distilled (LTX-2 22B at M_LAYERS = 24 of its 48
+    blocks, 19.5 B parameters in the DiT at 48) at
+    1280x704x241 (the definition's 1280x720 gives 22.5 latent rows; the
+    handler refuses it): 31 x 22 x 40 = 27,280 video and 251 audio
+    tokens.  Gemma-3 12B random on the card, through an
     in-memory HF state dict and `load_gemma3_params` at full depth, encodes
     the prompt's bytes through a random caption projection (per-token RMS,
     the 22B's) and is freed; the DiT random on the card, exported to an
@@ -2984,10 +3251,11 @@ def run_m(out_dir, timed, split, seen):
     request through the service: the definition's guidance 1, 2 of its 8
     distilled steps, the untiled decode, the audio decode and vocoder, an
     AVI with its stereo stream at 24 kHz (asserted).  Launches asserted:
-    288 flash, 1,636 W8, 22 fp32 W8 above 16 rows and 6 fp32 GEMVs a
-    forward, none padded.  Then the DiT at M_FILE_LAYERS blocks (quanto
-    int8, under the definition's second URL), the video VAE (bf16), the
-    audio VAE, the vocoder and the caption projection (bf16) as files,
+    6 flash and 34 W8 a block (4 W8 more), 22 fp32 W8 above 16 rows and 6
+    fp32 GEMVs a forward, none padded.  Then the DiT at M_FILE_LAYERS
+    blocks (quanto int8, under the definition's second URL), the video VAE
+    (bf16), the audio VAE, the vocoder and the caption projection (bf16)
+    as files,
     loaded through the service's resolver and held to the written tensors
     bit for bit."""
     from wan2gp_tpu_torch.families import ltx2 as lfam
@@ -3069,7 +3337,8 @@ def run_m(out_dir, timed, split, seen):
     del gp, proj_w, encode
     torch.cuda.empty_cache()
     # 2. the DiT: random, a quanto-int8 state dict in memory, the loader
-    cfg = handler.dit_config("ltx2_22B")
+    cfg = dataclasses.replace(handler.dit_config("ltx2_22B"),
+                              num_layers=M_LAYERS)
     gen.manual_seed(43)
     t0 = time.perf_counter()
     params = ld.init_ltx2_dit(gen, cfg)
@@ -3688,7 +3957,8 @@ def phase_service(frames: int):
                 "launches_per_forward": per_forward, **out}
 
     def run_i():
-        """(I): Wan2.2 TI2V 5B (`ti2v_2_2`) from its files at 1280x704x121.
+        """(I): Wan2.2 TI2V 5B (`ti2v_2_2`) at all I_LAYERS = 30 layers
+        from its files at 1280x704x121.
         Random weights are written as the quanto-int8 DiT file the
         definition's second URL names and as a Wan2.2 VAE file; the
         service loads both through the resolver (quantization "int8",
@@ -3712,7 +3982,8 @@ def phase_service(frames: int):
             raise AssertionError(f"(I): the definition's URLs {model_def}")
         dit_path = os.path.join(ckdir, os.path.basename(url))
         vae_path = os.path.join(ckdir, "Wan2.2_VAE.safetensors")
-        cfg = fam.WanFamilyHandler.dit_config("ti2v_2_2")
+        cfg = dataclasses.replace(fam.WanFamilyHandler.dit_config("ti2v_2_2"),
+                                  num_layers=I_LAYERS)
         gen = torch.Generator(device="cuda").manual_seed(13)
         params = init_wan_dit(gen, cfg)
         vae_cfg = vae2_2.Wan22VAEConfig()
@@ -3732,9 +4003,14 @@ def phase_service(frames: int):
             checkpoints_resolver=make_checkpoints_resolver(
                 [ckdir], quantization="int8", roles=("transformer", "vae")),
             output_dir=out_dir)
+        arch = fam._ARCH["ti2v_2_2"]
+        fam._ARCH["ti2v_2_2"] = {**arch, "num_layers": I_LAYERS}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        pipe = svc.get_pipeline("ti2v_2_2")
+        try:
+            pipe = svc.get_pipeline("ti2v_2_2")
+        finally:
+            fam._ARCH["ti2v_2_2"] = arch
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         load_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -3758,7 +4034,8 @@ def phase_service(frames: int):
             tiles.append(list(z.shape[1:4]))
             return real_tile(p, c, z)
         reset_pads()
-        per_forward = {"flash_attention": 60, "matmul_w8": 300}
+        per_forward = {"flash_attention": 2 * I_LAYERS,
+                       "matmul_w8": 10 * I_LAYERS}
         vae2_2.wan22_vae_decode = tile
         try:
             out = recorded_request("(I)", lambda: svc.generate({
@@ -3951,7 +4228,8 @@ def phase_service(frames: int):
                 "launches_per_forward": per_forward, **out}
 
     def run_n():
-        """(N): t2v (Wan2.1 14B) in bf16, dense, all 40 layers, at
+        """(N): t2v (Wan2.1 14B) in bf16, dense, N_LAYERS = 20 of its 40
+        layers (all 40 before), at
         1280x720x81 through GenerationService with the Lightx2v profile:
         its rank-32 LoRA (n_lora_state_dict, written under the profile
         URL's basename in <lora_root>/wan) merged at multiplier 1,
@@ -3977,9 +4255,14 @@ def phase_service(frames: int):
         svc = svc_mod.GenerationService(init_random_weights=True,
                                         output_dir=out_dir,
                                         lora_root=lora_root)
+        arch = fam._ARCH["t2v"]
+        fam._ARCH["t2v"] = {**arch, "num_layers": N_LAYERS}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        pipe = svc.get_pipeline("t2v")
+        try:
+            pipe = svc.get_pipeline("t2v")
+        finally:
+            fam._ARCH["t2v"] = arch
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         load_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -3988,8 +4271,9 @@ def phase_service(frames: int):
         before = leaf_checksums(pipe.dit_params)
         checksum_s = time.perf_counter() - t0
         blocks = pipe.dit_params["blocks"]
+        last = N_LAYERS - 1
         probes = {"blocks.7.self_attn.q": ("self_attn", "q", 7),
-                  "blocks.39.ffn.0": ("ffn", "fc1", 39)}
+                  f"blocks.{last}.ffn.0": ("ffn", "fc1", last)}
         base = {p: blocks[a][b]["w"][i].cpu()
                 for p, (a, b, i) in probes.items()}
         t0 = time.perf_counter()
@@ -4025,7 +4309,8 @@ def phase_service(frames: int):
                 "resolution": "1280x720", "video_length": frames,
                 "profile": N_PROFILE, "num_inference_steps": STEPS,
                 "seed": 11}, on_progress=lambda k, m: status.append(m)),
-                [1] * STEPS, {"flash_attention": 80}, {}, frames, 720, 1280)
+                [1] * STEPS, {"flash_attention": 2 * N_LAYERS}, {}, frames,
+                720, 1280)
         finally:
             L.read_lora, L.MergedLoras.merge = real_read, real_merge
             L.MergedLoras.reserve = real_reserve
@@ -4091,21 +4376,24 @@ def phase_service(frames: int):
                 "step_s": step_s,
                 "projected_request_s_at_4_steps": out["request_s"]
                 + (N_PROFILE_STEPS - STEPS) * step_s,
-                "launches_per_forward": {"flash_attention": 80}, **out}
+                "launches_per_forward": {"flash_attention": 2 * N_LAYERS},
+                **out}
 
     def run_o():
         """(O): krea2_raw from its files at 1024x1024, two requests at
         guidance 3.5 (CFG as batch 2), STEPS steps.  The DiT (12.8 B, all
-        28 layers) is random on the card, exported block by block to a
-        host state dict in the reference names and freed; the Qwen3-4B
+        O_LAYERS = 28 layers) is random on the card, exported block by
+        block to a host state dict in the reference names and freed; the
+        Qwen3-4B
         tower (36 layers, width 2560) likewise, in HF names; the image VAE
         is written as qwen_vae.safetensors (bf16).  A GenerationService
         loads the three roles through its checkpoints resolver and the
         handler's loaders (the two state dicts stand in for their files);
         the prompt is hashed into Qwen3's vocabulary and its 12
         SELECT_LAYERS hidden layers over the 512-token template condition
-        the DiT: 28 masked flash launches a forward, 4 masked (text
+        the DiT: a masked flash launch a layer a forward, 4 masked (text
         refiner) and 4 dense (layer-wise text blocks) a request."""
+        from wan2gp_tpu_torch.families import krea2 as kfam
         from wan2gp_tpu_torch.io import krea2_checkpoint as kck
         from wan2gp_tpu_torch.lora import HostArena
         from wan2gp_tpu_torch.models.krea2.dit import Krea2Config, init_krea2
@@ -4118,7 +4406,7 @@ def phase_service(frames: int):
                                 vcfg)
 
         def build(gen_, clock):
-            cfg = Krea2Config()
+            cfg = Krea2Config(layers=O_LAYERS)
             t0 = time.perf_counter()
             params = init_krea2(gen_.manual_seed(42), cfg, torch.bfloat16)
             clock("dit_init_s", t0)
@@ -4133,16 +4421,22 @@ def phase_service(frames: int):
             del params
             return sd, arena, cfg, lambda tree: kck.krea2_state_dict(
                 tree, cfg, layers=(0, cfg.layers - 1))
-        svc, pipe, rec = from_host_files(
-            "(O)", "krea2_raw", gen, build, qlm.QWEN3_4B,
-            "qwen_vae.safetensors", vae_sd, lm_prefix="model.language_model.")
+        arch = kfam._ARCH
+        kfam._ARCH = {**arch, "layers": O_LAYERS}
+        try:
+            svc, pipe, rec = from_host_files(
+                "(O)", "krea2_raw", gen, build, qlm.QWEN3_4B,
+                "qwen_vae.safetensors", vae_sd,
+                lm_prefix="model.language_model.")
+        finally:
+            kfam._ARCH = arch
         del vae_sd
         if rec["roles"] != {"transformer": "Krea2Raw_bf16.safetensors",
                             "text_encoder":
                                 "Qwen3-VL-4B-Instruct_text_bf16.safetensors",
                             "vae": "qwen_vae.safetensors"}:
             raise AssertionError(f"(O): the roles' files {rec['roles']}")
-        cfg = Krea2Config()
+        cfg = Krea2Config(layers=O_LAYERS)
         pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
         pipe.text_encode_fn = timed("lm", pipe.text_encode_fn)
         valid = o_text_tokens()
@@ -4282,26 +4576,38 @@ def phase_service(frames: int):
         shutil.rmtree(ckdir, ignore_errors=True)
         return svc, pipe, record
 
-    def one_image(label, svc, pipe, request, w, h, per_forward):
-        """One request writing a PNG of h x w (checked), the launches of its
-        STEPS forwards asserted against per_forward (none padded), the
-        states the text encoder made recorded."""
+    def one_image(label, svc, pipe, request, w, h, per_forward,
+                  steps=STEPS, wrap=(("text_encode_fn", "lm"),
+                                     ("vae_decode_fn", "decode")),
+                  release=True):
+        """One request writing a PNG of h x w (checked), the launches of
+        its `steps` forwards asserted against per_forward (none padded).
+        wrap: (pipeline attribute, split name) of the callables timed in
+        this request; the shapes the "lm" one returns are recorded as the
+        text states.  release: the model is released after it."""
         texts = []
-        real_text = pipe.text_encode_fn
+        saved = {a: getattr(pipe, a) for a, _ in wrap}
 
-        def text_fn(*a):
-            out = real_text(*a)
-            texts.append([list(t.shape) for t in
-                          (out if isinstance(out, tuple) else (out,))])
-            return out
-        pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
-        pipe.text_encode_fn = timed("lm", text_fn)
+        def recorded(real):
+            def text_fn(*a):
+                out = real(*a)
+                texts.append([list(t.shape) for t in
+                              (out if isinstance(out, tuple) else (out,))])
+                return out
+            return text_fn
+        for a, name in wrap:
+            setattr(pipe, a, timed(name, recorded(saved[a]) if name == "lm"
+                                   else saved[a]))
         reset_counts()
         reset_pads()
         seen.clear()
         split.clear()
         t0 = time.perf_counter()
-        paths = svc.generate(request)
+        try:
+            paths = svc.generate(request)
+        finally:
+            for a, fn in saved.items():
+                setattr(pipe, a, fn)
         req_s = time.perf_counter() - t0
         ok = (len(paths) == 1 and paths[0].endswith(".png")
               and media.read_image(paths[0]).shape == (h, w, 3)
@@ -4311,32 +4617,35 @@ def phase_service(frames: int):
         if not ok:
             raise AssertionError(f"{label} request: {paths} {seen}")
         counts = read_counts()
-        want = {name: per_forward.get(name, 0) * STEPS for name in counts}
+        want = {name: per_forward.get(name, 0) * steps for name in counts}
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, want {want}")
         if read_pads():
             raise AssertionError(f"{label}: {read_pads()} launches padded "
                                  "or copied their operands")
         out = {"request_s": req_s, **split,
-               "step_s": split["denoise_s"] / STEPS,
+               "step_s": split["denoise_s"] / steps, "steps": steps,
                "bytes": os.path.getsize(paths[0]), "text_states": texts,
                "launches": counts, "launches_per_forward": per_forward}
         os.remove(paths[0])
-        svc.release_model()
-        torch.cuda.empty_cache()
+        if release:
+            svc.release_model()
+            torch.cuda.empty_cache()
         return out
 
     def run_p():
-        """(P): qwen_image_20B (60 blocks of 3072, 20.4 B parameters) from
-        its files at 1280x720, guidance 4 (true CFG as batch 2), STEPS
-        steps: the DiT random on the card (bf16), exported block by block
-        to a host quanto-int8 state dict in the reference names (the
+        """(P): qwen_image_20B (all P_LAYERS = 60 blocks of 3072, 20.4 B
+        parameters) from its files at 1280x720,
+        guidance 4 (true CFG as batch 2), STEPS steps: the DiT random on
+        the card (bf16), exported block by block to a host quanto-int8
+        state dict in the reference names (the
         definition's second URL's layout: every block linear int8, the
         modulations among them) and freed; the Qwen2.5-VL-7B text tower
         (28 layers, width 3584, qkv bias) likewise in HF names; the image
-        VAE as qwen_vae.safetensors.  60 flash, 720 W8 and 120 fp32 GEMV
+        VAE as qwen_vae.safetensors.  A flash, 12 W8 and 2 fp32 GEMV
         launches a forward; the prompt's states [1, 1,024, 3,584] (the
         template's 34-token prefix dropped), so L = S = 4,624."""
+        from wan2gp_tpu_torch.families import qwen as qfam
         from wan2gp_tpu_torch.io import qwen_checkpoint as qck
         from wan2gp_tpu_torch.lora import HostArena
         from wan2gp_tpu_torch.models.qwen import text_encoder as qlm
@@ -4350,7 +4659,7 @@ def phase_service(frames: int):
                                 vcfg)
 
         def build(gen_, clock):
-            cfg = QwenImageConfig()
+            cfg = QwenImageConfig(num_layers=P_LAYERS)
             t0 = time.perf_counter()
             params = init_qwen_image(gen_.manual_seed(52), cfg,
                                      torch.bfloat16)
@@ -4373,9 +4682,14 @@ def phase_service(frames: int):
             del params
             return sd, arena, cfg, lambda tree: qck.qwen_image_state_dict(
                 tree, cfg, layers=(0, cfg.num_layers - 1))
-        svc, pipe, rec = from_host_files(
-            "(P)", "qwen_image_20B", gen, build, qlm.QWEN25_VL_7B_TEXT,
-            "qwen_vae.safetensors", vae_sd, quantization="int8")
+        arch = qfam._ARCH
+        qfam._ARCH = {**arch, "num_layers": P_LAYERS}
+        try:
+            svc, pipe, rec = from_host_files(
+                "(P)", "qwen_image_20B", gen, build, qlm.QWEN25_VL_7B_TEXT,
+                "qwen_vae.safetensors", vae_sd, quantization="int8")
+        finally:
+            qfam._ARCH = arch
         del vae_sd
         # the text tower's file has no recorded public name: the resolver
         # names it
@@ -4395,10 +4709,337 @@ def phase_service(frames: int):
                          "quanto-int8 DiT and the Qwen2.5-VL-7B tower "
                          "through pinned host state dicts, the image VAE "
                          "file", "model": "qwen_image_20B",
-                "resolution": f"{P_W}x{P_H}", "layers": 60,
+                "resolution": f"{P_W}x{P_H}", "layers": P_LAYERS,
                 "tokens": P_TOKENS, "image_tokens": P_IMG,
                 "text_slots": P_TXT, "guidance_scale": 4.0, "steps": STEPS,
                 **rec, "request": req}
+
+    def flux_timers():
+        """Times the Flux pipelines' denoise (pi-Flow's sampler too),
+        FLUX.1 decode and reference encode; returns the undo."""
+        from wan2gp_tpu_torch.models.flux import pipeline as fpipe
+        real = (fpipe.flux_denoise, fpipe.flux_vae_decode,
+                fpipe.flux_vae_encode, fpipe.FluxPipeline._piflow)
+        fpipe.flux_denoise = timed("denoise", real[0])
+        fpipe.flux_vae_decode = timed("decode", real[1])
+        fpipe.flux_vae_encode = timed("encode", real[2])
+        fpipe.FluxPipeline._piflow = timed("denoise", real[3])
+
+        def undo():
+            (fpipe.flux_denoise, fpipe.flux_vae_decode,
+             fpipe.flux_vae_encode, fpipe.FluxPipeline._piflow) = real
+        return undo
+
+    def run_r():
+        """(R): flux2_klein_9b (FLUX.2 Klein 9B: 8 double + 24 single
+        blocks of 4096, 32 heads, 9.1 B parameters) from its files at
+        1024x1024 and the definition's 4 steps, bf16, guidance 1 (batch
+        1): the DiT random on the card, exported to a pinned host state
+        dict in BFL names (bf16) and freed; the Qwen3 tower at the JAX
+        handler's width (4,096 = 12,288 / 3, Qwen3-4B's other widths)
+        likewise in HF names; the FLUX.2 VAE (32 latent channels, its quant
+        convs and BatchNorm statistics) as flux2_vae.safetensors; all three
+        through the resolver and the handler's loaders (the loaded DiT's
+        first and last blocks and outer keys re-exported equal to the state
+        dict).  The prompt's hidden layers 9, 18 and 27 over 512 tokens,
+        [1, 512, 12,288] (asserted), so the joint attention runs at L = S
+        = 4,608: 32 flash launches a forward."""
+        from wan2gp_tpu_torch.families import flux as ffam
+        from wan2gp_tpu_torch.io import flux_checkpoint as fck
+        from wan2gp_tpu_torch.lora import HostArena
+        from wan2gp_tpu_torch.models.flux import dit as fdit
+        from wan2gp_tpu_torch.models.flux import vae as fvae
+        from wan2gp_tpu_torch.models.qwen import text_encoder as qlm
+        handler = ffam.FluxFamilyHandler
+        gen = torch.Generator(device="cuda")
+        vae_sd = flux2_vae_state_dict(fvae.init_flux_vae(
+            gen.manual_seed(71), fvae.FluxVAEConfig(z_channels=32)), gen)
+
+        def build(gen_, clock):
+            cfg = handler.dit_config("flux2_klein_9b")
+            t0 = time.perf_counter()
+            params = fdit.init_flux(gen_.manual_seed(72), cfg)
+            clock("dit_init_s", t0)
+            t0 = time.perf_counter()
+            arena = HostArena(list(_leaves(params)), pin=True)
+            sd = {k: arena.put(v.to(torch.bfloat16))
+                  for k, v in fck.flux_state_dict(params, cfg).items()}
+            clock("dit_export_s", t0)
+            del params
+            return sd, arena, cfg, lambda tree: flux_ends_state_dict(tree,
+                                                                     cfg)
+        cfg = handler.dit_config("flux2_klein_9b")
+        lm_arch = {**qlm.QWEN3_4B, "dim": cfg.context_in_dim // 3}
+        svc, pipe, rec = from_host_files(
+            "(R)", "flux2_klein_9b", gen, build, lm_arch,
+            "flux2_vae.safetensors", vae_sd)
+        del vae_sd
+        want = {"transformer": "flux-2-klein-9b.safetensors",
+                "vae": "flux2_vae.safetensors"}
+        if rec["roles"] != want:
+            raise AssertionError(f"(R): the roles' files {rec['roles']}")
+        steps = svc.registry.default_settings("flux2_klein_9b")[
+            "num_inference_steps"]
+        if steps != R_STEPS:
+            raise AssertionError(f"(R): the definition's steps {steps}")
+        undo = flux_timers()
+        try:
+            req = one_image("(R)", svc, pipe, {
+                "model_type": "flux2_klein_9b", "prompt": "a red fox 0",
+                "resolution": f"{R_W}x{R_H}", "seed": 0}, R_W, R_H,
+                R_KERNELS, R_STEPS, wrap=(("t5_encode_fn", "lm"),))
+        finally:
+            undo()
+        if req["text_states"] != [[[1, R_TXT, 3 * lm_arch["dim"]]]]:
+            raise AssertionError(f"(R): text states {req['text_states']}")
+        del svc, pipe
+        torch.cuda.empty_cache()
+        return {"label": "(R) flux2_klein_9b 1024x1024 from its files: the "
+                         "bf16 DiT and the Qwen3 tower (4,096 wide) "
+                         "through pinned host state dicts, the FLUX.2 VAE "
+                         "file", "model": "flux2_klein_9b",
+                "resolution": f"{R_W}x{R_H}", "layers": "8 + 24",
+                "tokens": R_TOKENS, "text_slots": R_TXT,
+                "embedded_guidance_scale": 1, **rec, "request": req}
+
+    def run_s():
+        """(S): flux_dev_kontext (FLUX.1 Kontext dev: 19 double + 38
+        single blocks of 3072, 11.9 B parameters) at 1024x1024 with one
+        1024x1024 reference image, quantize="int8", STEPS of its 25 steps:
+        the DiT random on the card, exported to a pinned host state dict
+        in BFL names (bf16) and freed, the AE as flux_vae.safetensors;
+        both through the resolver and the handler's loaders (the loaded
+        DiT's ends equal to the state dict before the service quantizes
+        it); a full-size random T5 v1.1 XXL encodes the prompt's 512 hash
+        ids into `_context`, a random CLIP vector is `_vec_y`.  The
+        reference is VAE-encoded to 128 x 128 latents (asserted) and packed
+        after the noise tokens: L = S = 8,704; 57 flash, 228 W8 and 76 fp32
+        GEMV launches a forward.  Then USO on the same DiT: SigLIP so400m
+        and the projector written as bf16 files and read back by the
+        handler's loader (equal to the written tensors), one 512x512 style
+        image through the service's flux_dev_uso row: 768 style tokens
+        (asserted) before the text, the same launches."""
+        from wan2gp_tpu_torch.families import flux as ffam
+        from wan2gp_tpu_torch.io import flux_checkpoint as fck
+        from wan2gp_tpu_torch.io import safetensors_reader as st
+        from wan2gp_tpu_torch.lora import HostArena
+        from wan2gp_tpu_torch.models.flux import dit as fdit
+        from wan2gp_tpu_torch.models.flux import siglip as fsig
+        from wan2gp_tpu_torch.models.flux import vae as fvae
+        from wan2gp_tpu_torch.models.wan import t5
+        handler = ffam.FluxFamilyHandler
+        bf16 = torch.bfloat16
+        prompt = "make the fox wear a red scarf"
+        gen = torch.Generator(device="cuda")
+        out, times = {}, {}
+
+        def clock(name, t0):
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+        ckdir = os.path.join(OUT, "ckpts_flux_dev_kontext")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        os.makedirs(ckdir)
+        tcfg = t5.T5Config(**handler.T5_CFG_KW)
+        t0 = time.perf_counter()
+        tp = t5.init_t5_encoder(gen.manual_seed(81), tcfg)
+        ids, mask = ffam._tokenizer(None, tcfg.vocab_size)(
+            [prompt], handler.text_seq_len("flux_dev_kontext"))
+        ctx = t5.t5_encode(tp, tcfg, torch.from_numpy(ids),
+                           torch.from_numpy(mask)).float()
+        clock("t5_s", t0)
+        if tuple(ctx.shape) != (1, S_TXT, 4096):
+            raise AssertionError(f"(S) T5: {tuple(ctx.shape)}")
+        del tp
+        vec_y = torch.randn((1, 768), generator=gen, device="cuda")
+        cfg = handler.dit_config("flux_dev_kontext")
+        t0 = time.perf_counter()
+        params = fdit.init_flux(gen.manual_seed(82), cfg)
+        clock("dit_init_s", t0)
+        t0 = time.perf_counter()
+        arena = HostArena(list(_leaves(params)), pin=True)
+        sd = {k: arena.put(v.to(bf16))
+              for k, v in fck.flux_state_dict(params, cfg).items()}
+        clock("dit_export_s", t0)
+        del params
+        torch.cuda.empty_cache()
+        vae_path = os.path.join(ckdir, "flux_vae.safetensors")
+        st.save_safetensors(vae_path, {
+            k: v.to(bf16) for k, v in fck.flux_vae_state_dict(
+                fvae.init_flux_vae(gen.manual_seed(83),
+                                   fvae.FluxVAEConfig())).items()})
+        mem = {"memory:transformer": sd}
+        real_load, real_quantize = st.load_weights, svc_mod.quantize_dit_params
+        checked = []
+
+        def quantize_checked(tree, mode):
+            for k, v in flux_ends_state_dict(tree, cfg).items():
+                if not torch.equal(v.cpu(), sd[k]):
+                    raise AssertionError(f"(S) {k}: not the exported tensor")
+            checked.append(mode)
+            return real_quantize(tree, mode)
+        st.load_weights = lambda path: mem[path] if path in mem \
+            else real_load(path)
+        svc_mod.quantize_dit_params = quantize_checked
+        svc = svc_mod.GenerationService(
+            output_dir=out_dir, quantize="int8",
+            checkpoints_resolver=lambda *a: {
+                "transformer": "memory:transformer", "vae": vae_path})
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe = svc.get_pipeline("flux_dev_kontext")
+            clock("load_s", t0)
+        finally:
+            st.load_weights, svc_mod.quantize_dit_params = (real_load,
+                                                            real_quantize)
+        if checked != ["int8"]:
+            raise AssertionError(f"(S): quantized {checked}")
+        out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["parameters"] = sum(v.numel() for v in sd.values())
+        del sd, mem, arena
+        torch._C._host_emptyCache()
+        yy, xx = np.meshgrid(np.linspace(0, 1, S_H), np.linspace(0, 1, S_W),
+                             indexing="ij")
+        ref = (np.stack([xx, yy, xx * yy], -1) * 255).astype(np.uint8)
+        encoded = []
+        undo = flux_timers()
+        from wan2gp_tpu_torch.models.flux import pipeline as fpipe
+        enc = fpipe.flux_vae_encode
+        fpipe.flux_vae_encode = lambda *a: encoded.append(
+            list((z := enc(*a)).shape)) or z
+        real_sig = fsig.siglip_forward, fsig.uso_project
+        styles = []
+        try:
+            req = one_image("(S)", svc, pipe, {
+                "model_type": "flux_dev_kontext", "prompt": prompt,
+                "resolution": f"{S_W}x{S_H}", "num_inference_steps": STEPS,
+                "seed": 0, "image_refs": [ref], "_context": ctx,
+                "_vec_y": vec_y}, S_W, S_H, S_KERNELS, wrap=(),
+                release=False)
+            if encoded != [[1, S_H // 8, S_W // 8, 16]]:
+                raise AssertionError(f"(S): reference latents {encoded}")
+            req["reference_latents"] = encoded[0]
+            out["request"] = req
+            # USO on the same DiT: the tower and projector from bf16 files
+            paths = {"siglip": os.path.join(
+                ckdir, "siglip-so400m-patch14-384.safetensors"),
+                "module": os.path.join(ckdir, "uso_projector.safetensors")}
+            scfg = fsig.SiglipVisionConfig()
+            t0 = time.perf_counter()
+            sp = fsig.init_siglip(gen.manual_seed(84), scfg)
+            proj = fsig.init_uso_projector(gen.manual_seed(85))
+            st.save_safetensors(paths["siglip"], fsig.siglip_state_dict(
+                sp, scfg, dtype=bf16))
+            st.save_safetensors(paths["module"],
+                                fsig.uso_projector_state_dict(proj, bf16))
+            clock("uso_write_s", t0)
+            t0 = time.perf_counter()
+            sig, lcfg, lproj = ffam._uso_parts(paths, False, 0, pipe.dit_cfg,
+                                               "cuda")
+            clock("uso_load_s", t0)
+            for name, got, want in (("siglip", sig, sp),
+                                    ("projector", lproj, proj)):
+                a, b = dict(_flat(got)), dict(_flat(want))
+                if sorted(a) != sorted(b) or not all(
+                        torch.equal(a[k], b[k].to(bf16).float())
+                        for k in a):
+                    raise AssertionError(f"(S) {name}: not the written "
+                                         "tensors")
+            out["siglip_parameters"] = sum(v.numel() for v in _leaves(sp))
+            out["uso_files_bytes"] = {os.path.basename(p): os.path.getsize(p)
+                                      for p in paths.values()}
+            del sp, proj
+            pipe.uso = (sig, lcfg, lproj)
+            svc._pipelines["flux_dev_uso"] = pipe
+            fsig.siglip_forward = timed("siglip", real_sig[0])
+            fsig.uso_project = lambda *a: styles.append(
+                list((y := real_sig[1](*a)).shape)) or y
+            style = (np.stack([yy, xx, yy * xx], -1)[::2, ::2] * 255).astype(
+                np.uint8)
+            req = one_image("(S) USO", svc, pipe, {
+                "model_type": "flux_dev_uso", "prompt": prompt,
+                "resolution": f"{S_W}x{S_H}", "num_inference_steps": STEPS,
+                "seed": 1, "image_refs": [style], "_context": ctx,
+                "_vec_y": vec_y}, S_W, S_H, S_KERNELS, wrap=())
+            if styles != [[1, USO_STYLE, 3072]]:
+                raise AssertionError(f"(S) USO: style tokens {styles}")
+            req["tokens"] = USO_STYLE + S_TXT + S_IMG // 2
+            out["uso_request"] = req
+        finally:
+            undo()
+            fpipe.flux_vae_encode = enc
+            fsig.siglip_forward, fsig.uso_project = real_sig
+        del svc, pipe
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        return {"label": "(S) flux_dev_kontext 1024x1024 with a 1024x1024 "
+                         "reference, int8, the DiT through a pinned host "
+                         "state dict; then USO (SigLIP so400m, projector "
+                         "from bf16 files) on the same DiT",
+                "model": "flux_dev_kontext", "resolution": f"{S_W}x{S_H}",
+                "layers": "19 + 38", "tokens": S_TOKENS, "text_slots": S_TXT,
+                "quantize": "int8", **times, **out}
+
+    def run_t():
+        """(T): flux_chroma, flux_chroma_radiance and pi_flux2 from random
+        weights at full width, each cut to T_DOUBLE = 2 double and
+        T_SINGLE = 4 single blocks, one STEPS-step request each at
+        1024x1024 in bf16: Chroma (its modulation MLP, the FLUX.1 AE
+        decode), Chroma-Radiance (pixel space: 64 x 64 patch tokens, the
+        head, no VAE), pi-FLUX.2 (FLUX.2 dev, 6144 wide, 48 heads; its
+        heads written to a file and read back equal; one mixture
+        prediction an outer step and the 128-substep rollout; the FLUX.2
+        VAE decode).  6 flash launches a forward."""
+        from wan2gp_tpu_torch.families import flux as ffam
+        from wan2gp_tpu_torch.io import safetensors_reader as st
+        from wan2gp_tpu_torch.models.flux import piflow as fpi
+        out = {}
+        per = {"flash_attention": T_DOUBLE + T_SINGLE}
+        for label, mt in (("Chroma", "flux_chroma"),
+                          ("Radiance", "flux_chroma_radiance"),
+                          ("pi-FLUX.2", "pi_flux2")):
+            arch = ffam._ARCH[mt]
+            ffam._ARCH[mt] = {**arch, "depth": T_DOUBLE,
+                              "depth_single_blocks": T_SINGLE}
+            undo = flux_timers()
+            try:
+                svc = svc_mod.GenerationService(init_random_weights=True,
+                                                output_dir=out_dir)
+                t0 = time.perf_counter()
+                pipe = svc.get_pipeline(mt)
+                torch.cuda.synchronize()
+                rec = {"init_s": time.perf_counter() - t0}
+                if mt == "pi_flux2":
+                    path = os.path.join(OUT, "pi_flux2_heads.safetensors")
+                    st.save_safetensors(path, fpi.export_piflow_heads(
+                        pipe.piflow_heads))
+                    heads, left = fpi.load_piflow_heads(
+                        st.load_weights(path), device="cuda")
+                    a, b = dict(_flat(heads)), dict(_flat(pipe.piflow_heads))
+                    if left or sorted(a) != sorted(b) or not all(
+                            torch.equal(a[k], b[k]) for k in a):
+                        raise AssertionError("(T) pi-Flow heads: not the "
+                                             "written tensors")
+                    rec["heads_file_bytes"] = os.path.getsize(path)
+                    os.remove(path)
+                    pipe.piflow_heads = heads
+                rec["hidden_size"] = pipe.dit_cfg.hidden_size
+                rec["request"] = one_image(
+                    f"(T) {label}", svc, pipe, {
+                        "model_type": mt, "prompt": "a red fox 0",
+                        "resolution": f"{T_W}x{T_H}",
+                        "num_inference_steps": STEPS, "seed": 0},
+                    T_W, T_H, per, wrap=())
+                del svc, pipe
+            finally:
+                ffam._ARCH[mt] = arch
+                undo()
+            torch.cuda.empty_cache()
+            out[mt] = rec
+        return {"label": "(T) Chroma, Chroma-Radiance and pi-FLUX.2 at "
+                         "1024x1024 from random weights",
+                "layers": f"{T_DOUBLE} + {T_SINGLE} of each model's blocks",
+                **out}
 
     def run_q():
         """(Q): z_image (Z-Image Turbo: dim 3840, 30 heads, 30 + 2 + 2
@@ -4464,7 +5105,20 @@ def phase_service(frames: int):
                 "text_slots": Q_TXT, "guidance_scale": 0, "steps": STEPS,
                 "solver": "unified", **rec, "request": req}
 
-    results = {}
+    path_s = {}
+
+    class Clocked(dict):
+        """The results; path_s gets each path's wall seconds, from the end
+        of the path before (or the phase's start) to its result."""
+        mark = time.perf_counter()
+
+        def __setitem__(self, key, value):
+            now = time.perf_counter()
+            path_s[key] = now - self.mark
+            self.mark = now
+            super().__setitem__(key, value)
+
+    results = Clocked()
     try:
         h, w = 480, 832
         results["bf16"] = run("1.3B bf16", "t2v_1.3B", "", "auto", 2, w, h,
@@ -4490,6 +5144,9 @@ def phase_service(frames: int):
         results["krea2_raw_O"] = run_o()
         results["qwen_image_P"] = run_p()
         results["z_image_Q"] = run_q()
+        results["flux2_klein_9b_R"] = run_r()
+        results["flux_dev_kontext_S"] = run_s()
+        results["flux_T"] = run_t()
         results["1.3B_checkpoint_D"] = run_d()
         results["1.3B_sliding_E"] = run_e()
         source = results["1.3B_sliding_E"].pop("path")
@@ -4530,8 +5187,15 @@ def phase_service(frames: int):
                      "F": f"{F_LAYERS} of 40 layers (cut from 20)",
                      "G": f"{G_LAYERS} of each expert's 40 layers (cut "
                           "from 10)",
-                     "J": f"{J_LAYERS} of 40 layers (cut from 10)"},
-         **results)
+                     "J": f"{J_LAYERS} of 40 layers (cut from 10)",
+                     "N": f"{N_LAYERS} of 40 layers (cut from 40)",
+                     "L": f"{L_LAYERS} of 54 double blocks (cut from 54)",
+                     "M": f"{M_LAYERS} of 48 blocks (cut from 48)",
+                     "K": f"{K_DOUBLE} + {K_SINGLE} of 19 + 38 blocks (cut "
+                          "from 10 + 19)",
+                     "T": f"{T_DOUBLE} double + {T_SINGLE} single blocks "
+                          "of each model's"},
+         path_s=path_s, **results)
     return results
 
 

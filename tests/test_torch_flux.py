@@ -426,28 +426,39 @@ def test_service_quantize_modes(tiny_flux, tmp_path, monkeypatch, mode):
     assert len(seen) == 2 * 10 + 2 * 3
 
 
-def test_rows_and_inputs_not_ported_raise(tiny_flux):
-    for row in ("flux_dev_kontext", "flux2_klein_4b", "flux2_dev",
-                "pi_flux2", "flux_chroma", "flux_chroma_radiance"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            fam.FluxFamilyHandler.dit_config(row)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            fam.FluxFamilyHandler.load_model(row, {}, init_random=True,
-                                             device="cpu")
-    for flag in ("flux2", "chroma", "radiance"):
-        cfg = dit.FluxConfig(**TINY, **{flag: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            dit.init_flux(torch.Generator(), cfg)
-    pipe = fam.FluxFamilyHandler.load_model("flux_schnell", {},
-                                            init_random=True, device="cpu")
-    for call in (lambda: pipe.generate_kontext("x", []),
-                 lambda: pipe.generate_uso("x", []),
-                 lambda: pipe.apply_mesh(None),
-                 lambda: fam.FluxFamilyHandler.generate_image(
-                     pipe, {"image_refs": [np.zeros((8, 8, 3))]}, 32, 32, 0),
-                 lambda: dit.flux_forward(pipe.dit_params, pipe.dit_cfg,
-                                          None, torch.zeros(1, 1, 32), None,
-                                          None, None, None,
-                                          style_tokens=torch.zeros(1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            call()
+def test_rows_and_inputs_not_ported_raise(tiny_flux, tmp_path):
+    """What the Flux port still refuses, each before any work and naming
+    its ROADMAP item: the nvfp4 rows (by definition and by file), reference
+    images on the FLUX.2 and Chroma rows, the definitions that need a LoRA
+    merged from files, the A8 modes, a Radiance request at a size its
+    patches do not divide, and the tensor-parallel mesh."""
+    handler = fam.FluxFamilyHandler
+    for row in ("flux2_dev_nvfp4", "pi_flux2_nvfp4"):
+        d = GenerationService(init_random_weights=True,
+                              device="cpu").registry.get(row)
+        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
+            handler.check_request(d["architecture"], d, {})
+    with pytest.raises(ValueError, match="nvfp4"):
+        fam.refuse_nvfp4(["x.weight_scale_2"], "flux2-dev.safetensors")
+    for base in ("flux2_klein_4b", "flux2_dev", "pi_flux2", "flux_chroma",
+                 "flux_chroma_radiance"):
+        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
+            handler.check_request(base, {}, {"image_refs": [np.zeros(
+                (16, 16, 3))]})
+    for d in ({"loras": "flux_dev_uso"},
+              {"preload_URLs": ["https://x/gmflux2_k8_piid_4step_lora"
+                                ".safetensors"]}):
+        handler.check_request("flux_dev_kontext", d, {})
+        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 16"):
+            handler.check_request("flux_dev_kontext", d, {},
+                                  from_files=True)
+    assert "ROADMAP Queue 1 item 4" in handler.quantize_refusal
+    pipe = handler.load_model("flux_schnell", {}, init_random=True,
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        pipe.apply_mesh(None)
+    rad = pipeline.FluxPipeline({}, dit.FluxConfig(**TINY, chroma=True,
+                                                   radiance=True),
+                                device="cpu")
+    with pytest.raises(ValueError, match="patches"):
+        rad.generate(width=40, height=32, context=np.zeros((1, 2, 32)))

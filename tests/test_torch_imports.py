@@ -57,6 +57,10 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.models.krea2.dit",
     "wan2gp_tpu_torch.models.krea2.pipeline",
     "wan2gp_tpu_torch.models.flux.dit",
+    "wan2gp_tpu_torch.models.flux.radiance",
+    "wan2gp_tpu_torch.models.flux.siglip",
+    "wan2gp_tpu_torch.models.flux.piflow",
+    "wan2gp_tpu_torch.io.ideogram_checkpoint",
     "wan2gp_tpu_torch.models.wan.pipeline",
     "wan2gp_tpu_torch.models.wan.t5",
     "wan2gp_tpu_torch.models.wan.clip_vision",

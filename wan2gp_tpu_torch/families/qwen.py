@@ -86,10 +86,13 @@ class QwenImageFamilyHandler:
                 {"role": "vae", "urls": [VAE_FILE]}]
 
     @staticmethod
-    def check_request(base_model_type, model_def, merged):
+    def check_request(base_model_type, model_def, merged,
+                      from_files: bool = False):
         """Raises a ValueError, before any work, for what the port does not
         run: reference images (Qwen-Image-Edit through the service) and
-        the Nunchaku rows."""
+        the Nunchaku rows.
+        from_files: unused (no row of this family needs anything merged
+        from files)."""
         svdq = _nunchaku(model_def)
         if svdq:
             refuse_svdq((), svdq[0])

@@ -87,9 +87,12 @@ class ZImageFamilyHandler:
                     _HF + "Qwen3-4B_bf16.safetensors"]}]
 
     @staticmethod
-    def check_request(base_model_type, model_def, merged):
+    def check_request(base_model_type, model_def, merged,
+                      from_files: bool = False):
         """Raises a ValueError, before any work, for a control row, a
-        control image or a Nunchaku row."""
+        control image or a Nunchaku row.
+        from_files: unused (no row of this family needs anything merged
+        from files)."""
         _refuse_control(base_model_type)
         for u in model_def.get("URLs") or []:
             if "svdq-" in os.path.basename(str(u)):

@@ -1,15 +1,22 @@
-"""FLUX.1 checkpoints (BFL key layout) <-> the port's param trees.
+"""Flux checkpoints (BFL key layout) <-> the port's param trees.
 
-Counterpart of wan2gp_tpu/io/flux_checkpoint.py for the schnell / dev
-DiT, the FLUX.1 autoencoder and the CLIP-L text encoder, with exporters to
-the same key names (the tests and `chip_smoke.py` write files with them).
-Key spaces: img_in / txt_in / time_in.{in,out}_layer / vector_in /
-guidance_in, double_blocks.N.{img,txt}_{mod.lin, attn.qkv,
+Counterpart of wan2gp_tpu/io/flux_checkpoint.py for the Flux DiTs (FLUX.1,
+FLUX.2, Chroma, Chroma-Radiance), the FLUX.1 autoencoder and the CLIP-L
+text encoder, with exporters to the same key names (the tests and
+`chip_smoke.py` write files with them).  Key spaces: img_in / txt_in /
+time_in.{in,out}_layer / vector_in / guidance_in,
+double_blocks.N.{img,txt}_{mod.lin, attn.qkv,
 attn.norm.{query,key}_norm.scale, attn.proj, mlp.0, mlp.2},
 single_blocks.N.{linear1, linear2, norm.{query,key}_norm.scale,
-modulation.lin}, final_layer.{linear, adaLN_modulation.1}; the AE's
-encoder.down.N.block.M / decoder.up.N.block.M towers and their mid blocks;
-HF CLIPTextModel's text_model.* keys.
+modulation.lin}, final_layer.{linear, adaLN_modulation.1}.  FLUX.2 has no
+`mod` in its blocks and no biases, and three shared modulations
+(double_stream_modulation_{img,txt}.lin, single_stream_modulation.lin);
+Chroma has no time_in, no `mod` and no final adaLN_modulation, and its
+distilled_guidance_layer.{in_proj, layers.N.{in,out}_layer, norms.N.scale,
+out_proj} (fp32); Chroma-Radiance has no img_in and the Radiance head's
+img_in_patch / nerf_* keys.  The AE's encoder.down.N.block.M /
+decoder.up.N.block.M towers and their mid blocks; HF CLIPTextModel's
+text_model.* keys.
 
 Linears become [K, N] (transposed), blocks are stacked on a leading layer
 axis, biases and norms are fp32, convolutions keep PyTorch's [Cout, Cin,
@@ -25,7 +32,7 @@ from typing import Any, Dict, Iterable, Optional
 
 import torch
 
-from ..models.flux.dit import check_ported
+from ..models.flux.dit import CHROMA_MOD_LAYERS
 from .wan_checkpoint import _Reader, _stack
 
 
@@ -53,14 +60,18 @@ def refuse_quanto(keys: Iterable[str], path: Optional[str] = None):
 
 def load_flux_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
                      device=None):
-    """sd: a normalized FLUX.1 state dict; cfg: FluxConfig.  Returns
+    """sd: a normalized Flux state dict; cfg: FluxConfig (its flux2,
+    chroma and radiance flags pick the key space).  Linears in `dtype`,
+    as the JAX loader reads them, but FLUX.2's shared modulations,
+    Chroma's modulation MLP and the Radiance head in fp32.  Returns
     (params, leftover keys)."""
-    check_ported(cfg)
     refuse_quanto(sd)
     r = _Reader(sd, device)
+    f32 = torch.float32
+    per_block_mod = not cfg.flux2 and not cfg.chroma
 
-    def lin(prefix):
-        return r.lin(prefix, dtype, bias_dtype=torch.float32)
+    def lin(prefix, dt=dtype):
+        return r.lin(prefix, dt, bias_dtype=f32)
 
     def embedder(prefix):
         return {"in": lin(f"{prefix}.in_layer"),
@@ -68,36 +79,63 @@ def load_flux_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
 
     def stream(i, name):
         pre = f"double_blocks.{i}.{name}"
-        return {"qkv": lin(f"{pre}_attn.qkv"),
-                "norm_q": r.vec(f"{pre}_attn.norm.query_norm.scale"),
-                "norm_k": r.vec(f"{pre}_attn.norm.key_norm.scale"),
-                "proj": lin(f"{pre}_attn.proj"),
-                "mlp1": lin(f"{pre}_mlp.0"),
-                "mlp2": lin(f"{pre}_mlp.2"),
-                "mod": lin(f"{pre}_mod.lin")}
+        p = {"qkv": lin(f"{pre}_attn.qkv"),
+             "norm_q": r.vec(f"{pre}_attn.norm.query_norm.scale"),
+             "norm_k": r.vec(f"{pre}_attn.norm.key_norm.scale"),
+             "proj": lin(f"{pre}_attn.proj"),
+             "mlp1": lin(f"{pre}_mlp.0"),
+             "mlp2": lin(f"{pre}_mlp.2")}
+        if per_block_mod:
+            p["mod"] = lin(f"{pre}_mod.lin")
+        return p
 
     def single(i):
         pre = f"single_blocks.{i}"
-        return {"linear1": lin(f"{pre}.linear1"),
-                "linear2": lin(f"{pre}.linear2"),
-                "norm_q": r.vec(f"{pre}.norm.query_norm.scale"),
-                "norm_k": r.vec(f"{pre}.norm.key_norm.scale"),
-                "mod": lin(f"{pre}.modulation.lin")}
+        p = {"linear1": lin(f"{pre}.linear1"),
+             "linear2": lin(f"{pre}.linear2"),
+             "norm_q": r.vec(f"{pre}.norm.query_norm.scale"),
+             "norm_k": r.vec(f"{pre}.norm.key_norm.scale")}
+        if per_block_mod:
+            p["mod"] = lin(f"{pre}.modulation.lin")
+        return p
 
     params = {
-        "img_in": lin("img_in"),
         "txt_in": lin("txt_in"),
-        "time_in": embedder("time_in"),
-        "vector_in": embedder("vector_in"),
         "double_blocks": {s: _stack([stream(i, s) for i in range(cfg.depth)])
                           for s in ("img", "txt")},
         "single_blocks": _stack([single(i)
                                  for i in range(cfg.depth_single_blocks)]),
-        "final": {"linear": lin("final_layer.linear"),
-                  "mod": lin("final_layer.adaLN_modulation.1")},
+        "final": {"linear": lin("final_layer.linear")},
     }
+    if not cfg.radiance:
+        params["img_in"] = lin("img_in")
+    if cfg.chroma:
+        dg = "distilled_guidance_layer"
+        layers = [{"in": lin(f"{dg}.layers.{i}.in_layer", f32),
+                   "out": lin(f"{dg}.layers.{i}.out_layer", f32),
+                   "norm": r.vec(f"{dg}.norms.{i}.scale")}
+                  for i in range(CHROMA_MOD_LAYERS)]
+        params["distilled_guidance"] = {
+            "in_proj": lin(f"{dg}.in_proj", f32), "layers": _stack(layers),
+            "out_proj": lin(f"{dg}.out_proj", f32)}
+    else:
+        params["time_in"] = embedder("time_in")
+        params["final"]["mod"] = lin("final_layer.adaLN_modulation.1")
+    if cfg.flux2:
+        for name, key in (("mod_double_img", "double_stream_modulation_img"),
+                          ("mod_double_txt", "double_stream_modulation_txt"),
+                          ("mod_single", "single_stream_modulation")):
+            params[name] = lin(f"{key}.lin", f32)
+    elif not cfg.chroma:
+        params["vector_in"] = embedder("vector_in")
     if cfg.guidance_embed and r.has("guidance_in.in_layer.weight"):
         params["guidance_in"] = embedder("guidance_in")
+    if cfg.radiance:
+        from ..models.flux.dit import radiance_config
+        from ..models.flux.radiance import load_radiance_params
+        params["radiance"], left = load_radiance_params(
+            r.sd, radiance_config(cfg), device=r.device)
+        return params, left
     return params, r.leftover()
 
 
@@ -109,22 +147,39 @@ def _put_lin(sd, prefix, p, i=None):
 
 
 def flux_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
-    """A port FLUX.1 tree (float weights) as a BFL state dict, the keys
+    """A port Flux tree (float weights; FLUX.1, FLUX.2, Chroma or
+    Chroma-Radiance as cfg says) as a BFL state dict, the keys
     `load_flux_params` reads; linears [out, in]."""
     sd: Dict[str, torch.Tensor] = {}
-    _put_lin(sd, "img_in", params["img_in"])
+    if "img_in" in params:
+        _put_lin(sd, "img_in", params["img_in"])
     _put_lin(sd, "txt_in", params["txt_in"])
     for name in ("time_in", "vector_in", "guidance_in"):
         if name in params:
             _put_lin(sd, f"{name}.in_layer", params[name]["in"])
             _put_lin(sd, f"{name}.out_layer", params[name]["out"])
+    for name, key in (("mod_double_img", "double_stream_modulation_img"),
+                      ("mod_double_txt", "double_stream_modulation_txt"),
+                      ("mod_single", "single_stream_modulation")):
+        if name in params:
+            _put_lin(sd, f"{key}.lin", params[name])
+    if "distilled_guidance" in params:
+        dg, pre = params["distilled_guidance"], "distilled_guidance_layer"
+        _put_lin(sd, f"{pre}.in_proj", dg["in_proj"])
+        _put_lin(sd, f"{pre}.out_proj", dg["out_proj"])
+        for i in range(dg["layers"]["norm"].shape[0]):
+            _put_lin(sd, f"{pre}.layers.{i}.in_layer", dg["layers"]["in"], i)
+            _put_lin(sd, f"{pre}.layers.{i}.out_layer", dg["layers"]["out"],
+                     i)
+            sd[f"{pre}.norms.{i}.scale"] = dg["layers"]["norm"][i]
     for s, p in params["double_blocks"].items():
         for i in range(cfg.depth):
             pre = f"double_blocks.{i}.{s}"
             for key, name in (("qkv", "_attn.qkv"), ("proj", "_attn.proj"),
                               ("mlp1", "_mlp.0"), ("mlp2", "_mlp.2"),
                               ("mod", "_mod.lin")):
-                _put_lin(sd, pre + name, p[key], i)
+                if key in p:
+                    _put_lin(sd, pre + name, p[key], i)
             sd[f"{pre}_attn.norm.query_norm.scale"] = p["norm_q"][i]
             sd[f"{pre}_attn.norm.key_norm.scale"] = p["norm_k"][i]
     p = params["single_blocks"]
@@ -132,11 +187,18 @@ def flux_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
         pre = f"single_blocks.{i}"
         _put_lin(sd, f"{pre}.linear1", p["linear1"], i)
         _put_lin(sd, f"{pre}.linear2", p["linear2"], i)
-        _put_lin(sd, f"{pre}.modulation.lin", p["mod"], i)
+        if "mod" in p:
+            _put_lin(sd, f"{pre}.modulation.lin", p["mod"], i)
         sd[f"{pre}.norm.query_norm.scale"] = p["norm_q"][i]
         sd[f"{pre}.norm.key_norm.scale"] = p["norm_k"][i]
     _put_lin(sd, "final_layer.linear", params["final"]["linear"])
-    _put_lin(sd, "final_layer.adaLN_modulation.1", params["final"]["mod"])
+    if "mod" in params["final"]:
+        _put_lin(sd, "final_layer.adaLN_modulation.1", params["final"]["mod"])
+    if "radiance" in params:
+        from ..models.flux.dit import radiance_config
+        from ..models.flux.radiance import radiance_state_dict
+        sd.update(radiance_state_dict(params["radiance"],
+                                      radiance_config(cfg)))
     return sd
 
 

@@ -29,9 +29,10 @@ merges into its cached weights again at every request).  What the port
 cannot honour raises a ValueError before any work, naming ROADMAP Queue 1
 item 16: a LoRA on another family, on a second expert, on quantized
 weights, or with a multiplier that changes over the steps.  A handler's
-`check_request(base_model_type, model_def, merged)`, where it has one,
-refuses what its family does not run in the same way, before the model
-loads (Qwen-Image's reference images, the Z-Image control rows).
+`check_request(base_model_type, model_def, merged, from_files)`, where
+it has one, refuses what its family does not run in the same way, before
+the model loads (Qwen-Image's reference images, the Z-Image control rows,
+Flux's nvfp4 rows and the Flux definitions that need a LoRA from files).
 
 Not ported yet (ROADMAP Queue 1): plugins, config groups, multi-chip
 meshes and post-processing.
@@ -308,7 +309,7 @@ class GenerationService:
                         "check_request", None)
         if check is not None:
             check(self.registry.base_model_type(model_type), model_def,
-                  merged)
+                  merged, from_files=not self.init_random_weights)
         plan = self.lora_plan(merged)
         pipe = self.get_pipeline(model_type, model_def=model_def)
         self.sync_loras(model_type, pipe, plan, on_progress)
