@@ -61,7 +61,10 @@ the repository).  Phases, each printing one JSON line:
             modulation (2 x 3,072 x 18,432).
             The Wan2.2 VAE decode at full width (random
             weights) against the same decode on the CPU for one small tile
-            (2 x 4 x 4 latents): max abs err <= 1e-3.
+            (2 x 4 x 4 latents): max abs err <= 1e-3.  The HunyuanVideo 1
+            (884-16c) VAE at full width: decode (2 x 4 x 4 latents) and
+            encode (5 frames of 32 x 32) against the CPU within 1e-4 *
+            max|ref|, and a one-tile tiled decode equal to the whole.
 3. dit      a small DiT forward on the card, through the kernels, against
             the same forward on the CPU through the plain versions: Wan
             with bf16, int8 and int8a8 weights and dense attention (48
@@ -88,7 +91,10 @@ the repository).  Phases, each printing one JSON line:
             flash each): FLUX.2 Klein 9B, the same with pi-FLUX.2's
             mixture heads, Chroma, Chroma-Radiance (its head made
             non-zero), FLUX.1 dev with Kontext's conditioning tokens and
-            with USO's style tokens: max abs err <= 3e-2 * max|ref|.
+            with USO's style tokens; a HunyuanVideo 1 forward at full
+            width with 2 double + 2 single blocks, embedded guidance and
+            CLIP's vector, in bf16 and int8 (4 flash; 28 W8 and 8 fp32
+            GEMV launches): max abs err <= 3e-2 * max|ref|.
 4. time     each kernel at the main paths' shapes beside its bound, its
             plain version and one PyTorch library call (yardstick only);
             the kernel's output there is held to the plain version in fp32
@@ -148,6 +154,11 @@ the repository).  Phases, each printing one JSON line:
             (R)'s: flash at B1 L = S = 4,608 over 32 heads; (S)'s: flash
             at B1 L = S = 8,704 over 24 heads, W8 at its block linears
             (M = 8,192 image, 512 text, 8,704 single-block rows).
+            (U)'s: flash at HV1's joint B1 L = S = 39,256 over 24 heads,
+            W8 at the double blocks' image linears (M = 39,000: qkv, proj,
+            mlp1, mlp2) and the single blocks' linear1 / linear2 (M =
+            39,256), the fp32 W8 GEMV at the refiner's adaLN (1 x 3,072 x
+            6,144).
             The fp32 rows time the call (in turns
             with the library call) and the kernel alone (a CUDA graph of
             the launches); the tile kernel's bound is three bf16 products
@@ -183,7 +194,7 @@ the repository).  Phases, each printing one JSON line:
                 frames, overlap 5 (its last 5 frames encoded to the 2
                 latent frames pinned at the window's start, asserted),
                 2 UniPC steps, stitched to 233 frames;
-            (N) t2v (Wan2.1 14B) in bf16, dense, N_LAYERS = 20 of its 40
+            (N) t2v (Wan2.1 14B) in bf16, dense, N_LAYERS = 10 of its 40
                 layers, at
                 1280x720x81 through the service with the profile "wan/
                 Lightx2v t2v Cfg Step Distill Rank32 - 4 Steps" (guidance
@@ -278,7 +289,8 @@ the repository).  Phases, each printing one JSON line:
                 launches a layer a forward, none
                 padded; the 720p frame-chunked encode's seconds and peak;
             (I) ti2v_2_2 (Wan2.2 TI2V 5B: dim 3072, 24 heads, all
-                I_LAYERS = 30 layers, 48 latent channels) from its files, as (D): a quanto-int8
+                I_LAYERS = 30 layers, 48 latent channels) from its files,
+                as (D): a quanto-int8
                 DiT under the name of the definition's second URL and a
                 Wan2.2 VAE file (written from random weights, the loaded
                 trees equal to them), at 1280x704x121 (31 x 44 x 80
@@ -323,7 +335,7 @@ the repository).  Phases, each printing one JSON line:
                 write, load, quantize, step, decode and request
                 seconds and the peaks;
             (L) hunyuan_1_5_480_t2v (HunyuanVideo 1.5, 8.3 B: L_LAYERS =
-                27 of its 54 double blocks, hidden 2048, 16
+                14 of its 54 double blocks, hidden 2048, 16
                 heads of 128) at the definition's
                 832x480x97 and guidance 6.0 (CFG as batch 2: the empty
                 negative prompt through the same LM), flow_shift 5, 2 Euler
@@ -340,7 +352,7 @@ the repository).  Phases, each printing one JSON line:
                 padded; init, write, load, LM, byT5, CLIP,
                 step, decode and request seconds and the load, denoise and
                 decode peaks;
-            (M) ltx2_22B_distilled (LTX-2 22B: M_LAYERS = 24 of its 48
+            (M) ltx2_22B_distilled (LTX-2 22B: M_LAYERS = 12 of its 48
                 blocks, video 32 x 128,
                 audio 32 x 64, gated attention, prompt adaLN) at
                 1280x704x241 (the definition's 1280x720 does not divide by
@@ -352,8 +364,9 @@ the repository).  Phases, each printing one JSON line:
                 exported to an in-memory quanto-int8 state dict (every
                 linear) and read back by the loader; the untiled video
                 decode, the audio decode and vocoder; one AVI with a stereo
-                24 kHz PCM16 stream (asserted): 288 flash, 1,636 W8, 22 fp32
-                tile-kernel and 6 fp32 GEMV launches a forward, none padded;
+                24 kHz PCM16 stream (asserted): 6 flash and 34 W8 a block
+                (4 W8 more), 22 fp32 tile-kernel and 6 fp32 GEMV launches
+                a forward, none padded;
                 Gemma init, export/load and encode, DiT init, export and
                 load, step, decode, audio and request seconds and the encode,
                 load, denoise and decode peaks.  Then the DiT at 2 blocks
@@ -361,6 +374,30 @@ the repository).  Phases, each printing one JSON line:
                 VAE (bf16), the audio VAE, the vocoder and the caption
                 projection as files, loaded through the service's resolver
                 and held to the written tensors bit for bit.
+            (U) hunyuan (HunyuanVideo 1 13B: all U_DOUBLE = 20 double +
+                U_SINGLE = 40 single blocks of 3072) at its handler's
+                832x480x97 (39,000 image + 256 LM tokens), guidance 1 with
+                embedded guidance 6 (batch 1), flow_shift 7, 2 of its 30
+                steps: the DiT random on the card, exported to an
+                in-memory quanto-int8 state dict in the definition's second
+                URL's layout and served to the handler's loader (re-exported
+                equal); the 884 VAE (fp32) and CLIP-L written and read
+                through the resolver; the LLaMA-3 8B tower random on the
+                card over hash ids; the 15-tile decode (asserted); 60 flash,
+                248 W8 and 82 fp32 GEMV launches a forward, none padded;
+                init, export, write, load, LM, CLIP, step, decode and
+                request seconds and the peaks.  Then the DiT at 2 + 4
+                blocks as a file under the definition's second URL, loaded
+                with the VAE and CLIP files through the resolver and held
+                to the written tensors.
+            (V) hunyuan_i2v and hunyuan_1_5_480_i2v from an 832x480 PNG
+                through their own VAEs' encode (latent_concat),
+                hunyuan_custom with the PNG as its reference, hunyuan_avatar
+                through generate_custom (random Whisper-tiny window
+                features, a face box, motion, fps) and
+                hunyuan_1_5_upsampler (SR720, 4 meanflow steps at
+                1280x704), random weights at (T)'s depth (HV1 2 + 4
+                blocks, HV1.5 4), latents out; a flash a block a forward.
 6. t5       a full-width random UMT5-XXL encodes one prompt.
 7. disk     the bytes the script wrote (checkpoints, LoRA, outputs; files
             it deleted included).
@@ -391,17 +428,18 @@ PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 STEPS = 2                       # denoise steps per service request
 # depths cut to keep the script inside its 1200 s with (N) and (O), then
-# (P) and (Q) (each: the depths before -> now, of the model's own)
+# (P) and (Q), then (U) and (V) (each: the depths before -> now, of the
+# model's own)
 B_LAYERS = 5                    # (B) t2v 14B: 40 -> 10 -> 5 of 40 layers
 A_LAYERS = 20                   # (A) and (C) t2v 14B: 40 -> 30 -> 20 of 40
 F_LAYERS = 10                   # (F) i2v 14B: 40 -> 20 -> 10 of 40 layers
 G_LAYERS = 5                    # (G) i2v_2_2: 40 -> 10 -> 5 of each expert's
 J_LAYERS = 6                    # (J) vace_multitalk_14B: 40 -> 10 -> 6 of 40
 I_LAYERS = 30                   # (I) ti2v_2_2 5B: all 30 layers
-# cut to make room for (R), (S) and (T)
-N_LAYERS = 20                   # (N) t2v 14B + LoRA: 40 -> 20 of 40 layers
-M_LAYERS = 24                   # (M) ltx2_22B_distilled: 48 -> 24 of 48
-L_LAYERS = 27                   # (L) hunyuan_1_5_480_t2v: 54 -> 27 of 54
+# cut to make room for (R), (S) and (T), then for (U) and (V)
+N_LAYERS = 10                   # (N) t2v 14B + LoRA: 40 -> 20 -> 10 of 40
+M_LAYERS = 12                   # (M) ltx2_22B_distilled: 48 -> 24 -> 12
+L_LAYERS = 14                   # (L) hunyuan_1_5_480_t2v: 54 -> 27 -> 14
 O_LAYERS = 28                   # (O) krea2_raw: all 28 layers
 P_LAYERS = 60                   # (P) qwen_image_20B: all 60 blocks
 # (N): t2v 14B in bf16 at 1280x720x81 through the Lightx2v profile (one
@@ -480,6 +518,49 @@ M_PROMPT = ("a red fox trots through fresh snow at dawn, its breath "
             "steaming; crows call from the pines and the snow creaks")
 # (M)'s DiT file (written after the request, loaded back): its depth
 M_FILE_LAYERS = 2
+# (U): hunyuan (HunyuanVideo 1 13B, all 20 double + 40 single blocks) at
+# its handler's 832x480x97: 25 x 60 x 104 latents at the 884 VAE's (4, 8,
+# 8) stride, 25 x 30 x 52 = 39,000 image tokens after the 2x2 patch, then
+# the LM's 256 tokens; guidance 1 (embedded 6): batch 1
+U_W, U_H, U_FRAMES = 832, 480, 97
+U_DOUBLE, U_SINGLE = 20, 40
+U_IMG = ((U_FRAMES - 1) // 4 + 1) * (U_H // 16) * (U_W // 16)
+U_TXT = 256
+U_TOKENS = U_IMG + U_TXT
+# (U)'s DiT files (written after the request, loaded back): their depth
+U_FILE_DOUBLE, U_FILE_SINGLE = 2, 4
+U_PROMPT = (
+    "A lighthouse stands on a rocky cliff at dusk while heavy waves break "
+    "against the stones far below, sending white spray into the cold air; "
+    "gulls circle and cry in the strong wind, a small fishing boat with a "
+    "red hull rocks on the swell near the harbour wall, its lantern "
+    "swinging, and the lighthouse beam sweeps slowly across the dark sea "
+    "and the low clouds; the camera drifts along the cliff edge toward the "
+    "tower, the grass bending in the gusts, the last orange light fading "
+    "on the horizon, cinematic, detailed, gentle film grain and a calm, "
+    "quiet mood")
+# launches per (U) forward (int8 from a quanto state dict): a flash a
+# block; W8 on each double block's image and text qkv, proj, mlp1, mlp2,
+# on each single block's linear1 and linear2, and on the refiner's 2
+# blocks (4 each); the fp32 W8 GEMV on each double block's two
+# modulations, each single block's one and the refiner's 2 adaLN
+U_PER_FORWARD = {"joint_hv1_U": U_DOUBLE + U_SINGLE,
+                 f"{U_IMG}x3072x9216": U_DOUBLE,
+                 f"{U_IMG}x3072x3072": U_DOUBLE,
+                 f"{U_IMG}x3072x12288": U_DOUBLE,
+                 f"{U_IMG}x12288x3072": U_DOUBLE,
+                 f"{U_TOKENS}x3072x21504": U_SINGLE,
+                 f"{U_TOKENS}x15360x3072": U_SINGLE,
+                 "1x3072x18432": 2 * U_DOUBLE, "1x3072x9216": U_SINGLE,
+                 "1x3072x6144": 2}
+U_KERNELS = {"flash_attention": U_DOUBLE + U_SINGLE,
+             "matmul_w8": 8 * U_DOUBLE + 2 * U_SINGLE + 8,
+             "matmul_w8_gemv": 2 * U_DOUBLE + U_SINGLE + 2}
+# (V): the other HunyuanVideo rows at (T)'s depth (HV1: 2 double + 4
+# single blocks; HV1.5: 4 double blocks), random weights, latents out
+V_HV1 = (2, 4)
+V_HV15 = 4
+HV1_VAE_REL = 1e-4              # the 884 VAE, card against CPU (fp32)
 F32_REL_FRO = 1e-5              # the fp32 tile kernel: only the sum order
 # (R): flux2_klein_9b at 1024x1024, the definition's 4 steps: the Qwen3
 # tower's 512 text tokens, then 64 x 64 image tokens; batch 1; a forward:
@@ -924,9 +1005,11 @@ def phase_check():
     gemv = gemv_checks(gen)
     f32 = f32_checks(gen)
     vae22 = vae22_check()
+    hv1_vae = vae_hv1_check()
     emit("check", flash_attention=flash, flash_attention_kvmask=kvmask,
          matmul_w8=w8, matmul_w8a8=w8a8, sparse_flash=sparse, sol_flash=sol,
          matmul_w4=w4, matmul_w4a8=w4a8, act_quant=aq, vae22_decode=vae22,
+         hv1_vae=hv1_vae,
          **gemv, **f32, tolerance=TOLERANCE)
     return {"flash_attention": flash, "flash_attention_kvmask": kvmask,
             "matmul_w8": w8, "matmul_w8a8": w8a8, "sparse_flash": sparse,
@@ -1075,6 +1158,50 @@ def vae22_check():
            "cpu_s": cpu_s}
     if got.shape != (1, 5, 64, 64, 3) or not err <= VAE22_MAX_ABS:
         raise AssertionError(f"vae22 decode, card against CPU: {out}")
+    return out
+
+
+def vae_hv1_check():
+    """The HunyuanVideo 1 (884-16c) VAE at full width (random weights,
+    fp32, TF32 off) on the card against the CPU: the decode of 2 x 4 x 4
+    latents (5 frames of 32 x 32) and the encode of a 5-frame 32 x 32 clip,
+    each within HV1_VAE_REL * max|ref|; and the tiled decode of a latent of
+    one tile (3 x 8 x 8 cells) equal to the whole decode."""
+    from wan2gp_tpu_torch.models.hyvideo import vae as hv
+    cfg = hv.HunyuanVAEConfig()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = hv.init_hunyuan_vae(gen, cfg)
+    z = torch.randn((1, 16, 2, 4, 4), generator=gen, device="cuda")
+    video = torch.rand((1, 3, 5, 32, 32), generator=gen,
+                       device="cuda") * 2 - 1
+    got = {"decode": hv.hunyuan_vae_decode(params, cfg, z).cpu(),
+           "encode": hv.hunyuan_vae_encode(params, cfg, video).cpu()}
+    t0 = time.perf_counter()
+    pc = _tree_to(params, "cpu")
+    ref = {"decode": hv.hunyuan_vae_decode(pc, cfg, z.cpu()),
+           "encode": hv.hunyuan_vae_encode(pc, cfg, video.cpu())}
+    cpu_s = time.perf_counter() - t0
+    del pc
+    out = {"cpu_s": cpu_s}
+    for k in got:
+        err = float((got[k] - ref[k]).abs().max())
+        ref_max = float(ref[k].abs().max())
+        out[k] = {"shape": list(got[k].shape), "max_abs": err,
+                  "ref_max": ref_max}
+        if not err <= HV1_VAE_REL * ref_max:
+            raise AssertionError(f"HV1 VAE {k}, card against CPU: {out}")
+    if out["decode"]["shape"] != [1, 3, 5, 32, 32] or \
+            out["encode"]["shape"] != [1, 16, 2, 4, 4]:
+        raise AssertionError(f"HV1 VAE shapes: {out}")
+    one = torch.randn((1, 16, 3, 8, 8), generator=gen, device="cuda")
+    tiled = hv.hunyuan_vae_decode_tiled(params, cfg, one)
+    whole = hv.hunyuan_vae_decode(params, cfg, one)
+    out["one_tile_equal"] = bool(torch.equal(tiled, whole))
+    if not out["one_tile_equal"]:
+        raise AssertionError("HV1 VAE: a one-tile tiled decode is not the "
+                             "whole decode")
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1291,6 +1418,7 @@ def phase_dit():
     out["flux"] = dit_flux()
     out["flux_rest"] = dit_flux_rest()
     out["hv15"] = dit_hv15()
+    out["hv1"] = dit_hv1()
     out["ltx2"], int4_launches = dit_ltx2()
     emit("dit", tolerance="max_abs<=3e-2*max|ref|", **out)
     return {"ltx2_int4": int4_launches}
@@ -1661,6 +1789,61 @@ def dit_hv15():
     torch.cuda.empty_cache()
     return {"config": "hidden 2048, 16 heads of 128, mlp 8192, 2 double "
                       "blocks, batch 2 (a fully masked text item)", **out}
+
+
+def dit_hv1():
+    """A HunyuanVideo 1 forward at full width (hidden 3072, 24 heads of
+    128, MLP 12,288, the LM's 4096 and CLIP's 768 inputs, embedded
+    guidance) with 2 double and 2 single blocks, card against CPU, in bf16
+    and with int8 block weights, at batch 1 with a partly masked text:
+    4 joint attentions, and when quantized 28 W8 launches (8 a double
+    block, 2 a single block, 8 for the refiner's 2 blocks) and 8 fp32
+    GEMVs (2 modulations a double block, 1 a single block, the refiner's 2
+    adaLN)."""
+    from wan2gp_tpu_torch.families.hyvideo import HunyuanFamilyHandler
+    from wan2gp_tpu_torch.models.hyvideo import dit as hd
+    from wan2gp_tpu_torch.runtime.service import quantize_dit_params
+    cfg = dataclasses.replace(HunyuanFamilyHandler.dit_config("hunyuan"),
+                              mm_double_blocks_depth=2,
+                              mm_single_blocks_depth=2)
+    rng = np.random.default_rng(6)
+    lat, states, pooled = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)) for shape in (
+        (1, cfg.in_channels, 2, 8, 8), (1, 16, cfg.text_states_dim),
+        (1, cfg.text_states_dim_2)))
+    mask = torch.tensor([[1] * 11 + [0] * 5], dtype=torch.int32)
+    t, g = torch.tensor([900.0]), torch.tensor([6000.0])
+    p = hd.init_hunyuan(torch.Generator(device="cuda").manual_seed(7), cfg)
+    out = {}
+    for mode, want in (("bf16", {"flash_attention": 4}),
+                       ("int8", {"flash_attention": 4, "matmul_w8": 28,
+                                 "matmul_w8_gemv": 8})):
+        pm = p if mode == "bf16" else quantize_dit_params(_nodes(p), mode)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            pd = _tree_to(pm, "cpu") if dev == "cpu" else pm
+            before = read_counts()
+            res[dev] = hd.hunyuan_forward(
+                pd, cfg, lat.to(dev), t.to(dev), states.to(dev),
+                mask.to(dev), text_pooled=pooled.to(dev),
+                guidance=g.to(dev)).float().cpu()
+            launched = {k: v - before[k] for k, v in read_counts().items()
+                        if v != before[k]}
+            del pd
+        ref_max = res["cpu"].abs().max().item()
+        err = (res["cuda"] - res["cpu"]).abs().max().item()
+        out[mode] = {"tokens": 32 + 16, "max_abs": err, "ref_max": ref_max,
+                     "launches": launched,
+                     "finite": bool(torch.isfinite(res["cuda"]).all())}
+        if not (out[mode]["finite"] and err <= 3e-2 * ref_max
+                and launched == want):
+            raise AssertionError(f"small HV1 forward ({mode}): "
+                                 f"{out[mode]}, want launches {want}")
+        del pm
+    del p
+    torch.cuda.empty_cache()
+    return {"config": "hidden 3072, 24 heads of 128, mlp 12288, 2 double + "
+                      "2 single blocks, batch 1, embedded guidance", **out}
 
 
 # (M)'s small forward: grid and audio tokens of phase 3 (17 frames, so that
@@ -2405,6 +2588,7 @@ def phase_time(tokens: int):
     time_l(flash, w8, gemv)
     time_pq(flash, w8, gemv)
     time_rs(flash, w8, gemv)
+    time_u(flash, w8, gemv)
     f32 = time_m(flash, w8, gemv)
     for table in (flash, w8, *gemv.values()):
         for case, t in table.items():
@@ -2498,6 +2682,25 @@ def time_rs(flash, w8, gemv):
             for key, per in (("R", R_PER_FORWARD), ("S", S_PER_FORWARD)):
                 if case in per:
                     t[f"launches_per_forward_{key}"] = per[case]
+
+
+def time_u(flash, w8, gemv):
+    """(U)'s rows: HV1's joint attention at B1 L = S = 39,256 over 24
+    heads, W8 at the double blocks' image-stream linears (M = 39,000) and
+    the single blocks' linear1 / linear2 (M = 39,256), the fp32 W8 GEMV at
+    the refiner's adaLN (1 x 3072 x 6144; the modulations' shapes are
+    (K)'s), each with its launches per (U) forward."""
+    flash["joint_hv1_U"] = time_flash("joint_hv1_U", 1, U_TOKENS, U_TOKENS,
+                                      24, 128)
+    w8.update({case: time_w8(case, *map(int, case.split("x")))
+               for case in U_PER_FORWARD if case.count("x") == 2
+               and not case.startswith("1x")})
+    gemv["matmul_w8_gemv"]["1x3072x6144"] = time_gemv("matmul_w8_gemv", 1,
+                                                      3072, 6144)
+    for table in (flash, w8, gemv["matmul_w8_gemv"]):
+        for case, t in table.items():
+            if case in U_PER_FORWARD:
+                t["launches_per_forward_U"] = U_PER_FORWARD[case]
 
 
 # launches per DiT forward of (M) (LTX-2 22B at 1280x704x241, int8 from a
@@ -3054,7 +3257,7 @@ L_BYT5_VOCAB = 1510
 
 
 def run_l(out_dir, timed, split, seen):
-    """(L): hunyuan_1_5_480_t2v (HunyuanVideo 1.5 at L_LAYERS = 27 of its
+    """(L): hunyuan_1_5_480_t2v (HunyuanVideo 1.5 at L_LAYERS = 14 of its
     54 double blocks, hidden 2048, 8.3 B parameters at 54) at
     its definition's 832x480x97 from files.
     Random weights are written under the reference key names: the DiT as
@@ -3236,8 +3439,358 @@ def run_l(out_dir, timed, split, seen):
             **out}
 
 
+def run_u(out_dir, timed, split, seen):
+    """(U): hunyuan (HunyuanVideo 1 13B: all U_DOUBLE = 20 double and
+    U_SINGLE = 40 single blocks of 3072, 24 heads of 128) at its handler's
+    832x480x97 through the service, guidance 1 with embedded guidance 6
+    (batch 1), flow_shift 7, STEPS of its 30 Euler steps.  The DiT random
+    on the card, exported to an in-memory quanto-int8 state dict in the
+    layout of the definition's second URL (every block linear int8) and
+    served to the handler's loader by a `load_weights` stand-in (the disk
+    has no room for its file), the loaded tree re-exported equal to it;
+    the 884 VAE (fp32) and CLIP-L written as the files the handler names
+    and read back through the resolver; the LLaMA-3 8B tower random on the
+    card over hash ids.  The video decoded in 15 tiles of 256 pixels
+    (asserted).  Launches asserted: U_KERNELS a forward (a flash a block,
+    248 W8, 82 fp32 GEMVs), none padded.  Then the DiT at U_FILE_DOUBLE +
+    U_FILE_SINGLE blocks written under the definition's second URL with
+    the VAE and CLIP files, loaded through the resolver, the loaded tree
+    equal to the written tensors."""
+    from wan2gp_tpu_torch.families import hyvideo as hfam
+    from wan2gp_tpu_torch.io import hyvideo_checkpoint as vck
+    from wan2gp_tpu_torch.io import hyvideo_dit_checkpoint as hck
+    from wan2gp_tpu_torch.io import safetensors_reader as st
+    from wan2gp_tpu_torch.io.downloads import make_checkpoints_resolver
+    from wan2gp_tpu_torch.io.flux_checkpoint import clip_text_state_dict
+    from wan2gp_tpu_torch.models.flux import clip as fclip
+    from wan2gp_tpu_torch.models.hyvideo import dit as hdit
+    from wan2gp_tpu_torch.models.hyvideo import pipeline as hpipe
+    from wan2gp_tpu_torch.models.hyvideo import vae as hvae
+    from wan2gp_tpu_torch.models.qwen import text_encoder as lm
+    from wan2gp_tpu_torch.runtime import service as svc_mod
+    from wan2gp_tpu_torch.utils.tokenizer import HashTokenizer
+    handler = hfam.HunyuanFamilyHandler
+    model_type = "hunyuan"
+    out = {}
+    ckdir = os.path.join(OUT, "ckpts")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    model_def = svc_mod.GenerationService(
+        init_random_weights=True).registry.get(model_type)
+    dit_name = "hunyuan_video_720_quanto_int8.safetensors"
+    if not model_def["URLs"][1].endswith("/" + dit_name):
+        raise AssertionError(f"(U): the definition's URLs {model_def}")
+    specs = {f["role"]: f for f in handler.query_model_files(model_type,
+                                                              model_def)}
+    paths = {}
+    for role in ("vae", "clip"):
+        spec = specs[role]
+        os.makedirs(os.path.join(ckdir, spec.get("subdir", "")),
+                    exist_ok=True)
+        paths[role] = os.path.join(ckdir, spec.get("subdir", ""),
+                                   os.path.basename(spec["urls"][0]))
+    if os.path.basename(paths["vae"]) != "hunyuan_video_VAE_fp32.safetensors":
+        raise AssertionError(f"(U): the VAE file {paths['vae']}")
+    cfg = handler.dit_config(model_type)
+    if (cfg.mm_double_blocks_depth, cfg.mm_single_blocks_depth,
+            cfg.hidden_size) != (U_DOUBLE, U_SINGLE, 3072):
+        raise AssertionError(f"(U): the row's config {cfg}")
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    # 1. the DiT: random, a quanto-int8 state dict on the card
+    t0 = time.perf_counter()
+    params = hdit.init_hunyuan(gen, cfg)
+    out["init_s"] = sync_s(t0)
+    out["dit_params"] = sum(v.numel() for v in _leaves(params))
+    t0 = time.perf_counter()
+    sd = hck.hunyuan_dit_state_dict(params, cfg, quanto=True)
+    out["export_s"] = sync_s(t0)
+    del params
+    torch.cuda.empty_cache()
+    out["state_dict_gb"] = sum(v.numel() * v.element_size()
+                               for v in sd.values()) / 1e9
+    # 2. the VAE (fp32) and CLIP-L as files
+    vcfg = hvae.HunyuanVAEConfig()
+    gen.manual_seed(62)
+    vp = hvae.init_hunyuan_vae(gen, vcfg)
+    ccfg = fclip.ClipTextConfig()
+    gen.manual_seed(63)
+    cp = fclip.init_clip_text(gen, ccfg)
+    out["vae_params"] = sum(v.numel() for v in _leaves(vp))
+    t0 = time.perf_counter()
+    vae_sd = vck.hunyuan_vae_state_dict(vp)
+    st.save_safetensors(paths["vae"], vae_sd)
+    st.save_safetensors(paths["clip"], clip_text_state_dict(cp, ccfg))
+    out["write_s"] = sync_s(t0)
+    out["files_bytes"] = {os.path.basename(p_): os.path.getsize(p_)
+                          for p_ in paths.values()}
+    del vp, cp
+    # 3. the service loads the three roles
+    mem = {"memory:transformer": sd}
+
+    def resolver(model_type_, handler_, base, model_def_):
+        return {"transformer": "memory:transformer", **paths}
+    real_load = st.load_weights
+    st.load_weights = lambda path: mem[path] if path in mem \
+        else real_load(path)
+    svc = svc_mod.GenerationService(checkpoints_resolver=resolver,
+                                    output_dir=out_dir)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        pipe = svc.get_pipeline(model_type)
+    finally:
+        st.load_weights = real_load
+    out["load_s"] = sync_s(t0)
+    out["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    again = hck.hunyuan_dit_state_dict(pipe.dit_params, cfg, quanto=True)
+    if sorted(again) != sorted(sd) or any(
+            not torch.equal(again[k], v) for k, v in sd.items()):
+        raise AssertionError("(U) dit: the loaded tree is not the state dict")
+    out["tensors_equal"] = len(sd)
+    del sd, again, mem
+    back = vck.hunyuan_vae_state_dict(
+        vck.load_hunyuan_vae_params(real_load(paths["vae"]), vcfg,
+                                    device="cuda")[0])
+    if any(not torch.equal(back[k], v) for k, v in vae_sd.items()):
+        raise AssertionError("(U) VAE: the file read back differs")
+    del back, vae_sd
+    torch.cuda.empty_cache()
+    # 4. the LLaMA-3 8B tower, random on the card, over hash ids
+    lcfg = lm.QwenLMConfig(**hfam.LM_ARCH)
+    t0 = time.perf_counter()
+    lp = lm.init_qwen_lm(torch.Generator(device="cuda").manual_seed(64),
+                         lcfg)
+    out["lm_init_s"] = sync_s(t0)
+    out["lm_params"] = sum(v.numel() for v in _leaves(lp))
+    valid = []
+    encode = handler.text_encoder(lp, lcfg, HashTokenizer(lcfg.vocab_size),
+                                  timed("clip", pipe.clip_encode_fn))
+
+    def text_fn(prompts):
+        states, mask, pooled = encode(prompts)
+        valid.append(mask.sum(1).tolist())
+        return states, mask, pooled
+    pipe.text_encode_fn = timed("text", text_fn)
+    pipe.vae_decode_fn = timed("decode", pipe.vae_decode_fn)
+    tiles = []
+    real_tile, real_denoise = hvae.hunyuan_vae_decode, hpipe.hunyuan_denoise
+
+    def tile(p_, c_, z):
+        tiles.append(list(z.shape[2:]))
+        return real_tile(p_, c_, z)
+    hvae.hunyuan_vae_decode = tile
+    hpipe.hunyuan_denoise = timed("denoise", real_denoise)
+    try:
+        reset_counts()
+        reset_pads()
+        seen.clear()
+        split.clear()
+        t0 = time.perf_counter()
+        got = svc.generate({"model_type": model_type, "prompt": U_PROMPT,
+                            "seed": 7, "num_inference_steps": STEPS})
+        req_s = time.perf_counter() - t0
+    finally:
+        hvae.hunyuan_vae_decode = real_tile
+        hpipe.hunyuan_denoise = real_denoise
+    merged = svc.registry.default_settings(model_type)
+    ok = (len(got) == 1 and got[0].endswith(".avi") and seen
+          and seen[0]["finite"]
+          and seen[0]["shape"] == [U_FRAMES, U_H, U_W, 3]
+          and len(tiles) == 15 and valid == [[valid[0][0]]]
+          and valid[0][0] > 0)
+    if not ok:
+        raise AssertionError(f"(U): {got} {seen} tiles {tiles} valid LM "
+                             f"tokens {valid}")
+    counts = read_counts()
+    want = {k: U_KERNELS.get(k, 0) * STEPS for k in counts}
+    if counts != want or read_pads():
+        raise AssertionError(f"(U): launches {counts}, want {want}, padded "
+                             f"{read_pads()}")
+    out["request"] = {
+        "steps": STEPS, "request_s": req_s, **split,
+        "lm_s": split["text_s"] - split.get("clip_s", 0.0),
+        "step_s": split["denoise_s"] / STEPS, "decode_tiles": len(tiles),
+        "tile_latents": tiles[0], "lm_valid_tokens": valid[0],
+        "video_bytes": os.path.getsize(got[0])}
+    os.remove(got[0])
+    svc.release_model()
+    del svc, pipe, lp, encode
+    torch.cuda.empty_cache()
+    # 5. the DiT as a file at U_FILE_DOUBLE + U_FILE_SINGLE blocks, loaded
+    # with the VAE and CLIP files through the resolver
+    fcfg = dataclasses.replace(cfg, mm_double_blocks_depth=U_FILE_DOUBLE,
+                               mm_single_blocks_depth=U_FILE_SINGLE)
+    gen.manual_seed(65)
+    t0 = time.perf_counter()
+    fsd = hck.hunyuan_dit_state_dict(hdit.init_hunyuan(gen, fcfg), fcfg,
+                                     quanto=True)
+    dit_path = os.path.join(ckdir, dit_name)
+    st.save_safetensors(dit_path, fsd)
+    out["file_write_s"] = sync_s(t0)
+    out["file_bytes"] = os.path.getsize(dit_path)
+    arch = hfam._ARCH[model_type]
+    hfam._ARCH[model_type] = {**arch,
+                              "mm_double_blocks_depth": U_FILE_DOUBLE,
+                              "mm_single_blocks_depth": U_FILE_SINGLE}
+    svc = svc_mod.GenerationService(
+        checkpoints_resolver=make_checkpoints_resolver(
+            [ckdir], quantization="int8",
+            roles=("transformer", "vae", "clip")), output_dir=out_dir)
+    t0 = time.perf_counter()
+    try:
+        pipe = svc.get_pipeline(model_type)
+    finally:
+        hfam._ARCH[model_type] = arch
+    out["file_load_s"] = sync_s(t0)
+    again = hck.hunyuan_dit_state_dict(pipe.dit_params, fcfg, quanto=True)
+    if sorted(again) != sorted(fsd) or any(
+            not torch.equal(again[k], v) for k, v in fsd.items()):
+        raise AssertionError("(U) dit file: not the written tensors")
+    out["file_tensors_equal"] = len(fsd)
+    svc.release_model()
+    del svc, pipe, fsd, again
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"label": "(U) hunyuan (HunyuanVideo 1 13B) 832x480x97, all "
+                     "20 + 40 blocks, int8 (quanto state dict), guidance 1 "
+                     "with embedded guidance 6",
+            "resolution": f"{U_W}x{U_H}", "frames": U_FRAMES,
+            "guidance_scale": merged["guidance_scale"],
+            "embedded_guidance_scale": merged["embedded_guidance_scale"],
+            "flow_shift": merged["flow_shift"],
+            "definition_steps": merged["num_inference_steps"],
+            "tokens": U_TOKENS, "image_tokens": U_IMG, "launches": counts,
+            "launches_per_forward": dict(U_KERNELS), "padded_launches": 0,
+            **out}
+
+
+def run_v(out_dir, timed, split, seen):
+    """(V): the other HunyuanVideo rows from random weights on the card at
+    (T)'s depth (HV1: V_HV1 = 2 double + 4 single blocks; HV1.5: V_HV15 =
+    4 double blocks), bf16, latents out (no decode), STEPS Euler steps each
+    (the upsampler: 4 meanflow steps): `hunyuan_i2v` (latent_concat, 33
+    channels) and `hunyuan_1_5_480_i2v` (latent_concat, 65 channels, CFG
+    at 6), each from an 832x480 PNG through its own VAE's encode;
+    `hunyuan_custom` with the PNG as its reference (CFG at 7.5);
+    `hunyuan_avatar` through `generate_custom` with the PNG's latents on
+    every frame, random Whisper-tiny window features, a face box, motion
+    and fps (CFG at 7.5); `hunyuan_1_5_upsampler` at 1280x704 from random
+    low-resolution latents through SR720 (full width, random).  Each row's
+    flash launches asserted (one a block a forward)."""
+    from wan2gp_tpu_torch.families import hyvideo as hfam
+    from wan2gp_tpu_torch.models.hyvideo import custom as hcustom
+    from wan2gp_tpu_torch.models.hyvideo.pipeline import \
+        HunyuanSamplingConfig
+    from wan2gp_tpu_torch.runtime import service as svc_mod
+    from wan2gp_tpu_torch.utils import media
+    png = os.path.join(OUT, "hv_image.png")
+    yy, xx = np.meshgrid(np.linspace(0, 1, U_H), np.linspace(0, 1, U_W),
+                         indexing="ij")
+    media.save_image((np.stack([xx, yy, 1 - xx * yy], -1) * 2 - 1)
+                     .astype(np.float32), png)
+    rows = (("hunyuan_i2v", "hunyuan_i2v"),
+            ("hunyuan_1_5_480_i2v", "hunyuan_1_5_i2v"),
+            ("hunyuan_custom", "hunyuan_custom"),
+            ("hunyuan_avatar", "hunyuan_avatar"),
+            ("hunyuan_1_5_upsampler", "hunyuan_1_5_upsampler"))
+    out = {}
+    for model_type, base in rows:
+        hv15 = hfam.is_hv15(base)
+        arch = hfam._ARCH[base]
+        depth = ({"mm_double_blocks_depth": V_HV15} if hv15 else
+                 {"mm_double_blocks_depth": V_HV1[0],
+                  "mm_single_blocks_depth": V_HV1[1]})
+        hfam._ARCH[base] = {**arch, **depth}
+        try:
+            svc = svc_mod.GenerationService(init_random_weights=True,
+                                            output_dir=out_dir)
+            t0 = time.perf_counter()
+            pipe = svc.get_pipeline(model_type)
+            torch.cuda.synchronize()
+            rec = {"init_s": time.perf_counter() - t0}
+        finally:
+            hfam._ARCH[base] = arch
+        merged = svc.registry.default_settings(model_type)
+        steps = 4 if base == "hunyuan_1_5_upsampler" else STEPS
+        sampling = HunyuanSamplingConfig(
+            steps=steps, shift=float(merged["flow_shift"]),
+            guide_scale=float(merged.get("guidance_scale", 1.0)),
+            embedded_guidance=float(merged["embedded_guidance_scale"]))
+        kw = hfam._text_kwargs(pipe, merged, sampling.guide_scale != 1.0)
+        common = dict(width=U_W, height=U_H, frame_num=U_FRAMES, seed=3,
+                      sampling=sampling, return_latents=True, **kw)
+        split.clear()
+        encode = timed("encode", lambda: hfam._encode_image(pipe, png, U_W,
+                                                            U_H))
+        reset_counts()
+        reset_pads()
+        t0 = time.perf_counter()
+        if "i2v" in base:
+            img = encode()
+            rec["image_latents"] = list(img.shape)
+            lat = pipe.generate(img_latents=img,
+                                i2v_condition_type="latent_concat", **common)
+        elif base == "hunyuan_custom":
+            ref = encode()
+            rec["ref_latents"] = list(ref.shape)
+            lat = pipe.generate_custom(ref_latents=ref, **common)
+        elif base == "hunyuan_avatar":
+            ref = encode()
+            f_lat = (U_FRAMES - 1) // 4 + 1
+            ref = ref.expand(-1, -1, f_lat, -1, -1).contiguous()
+            gen = torch.Generator().manual_seed(5)
+            feats = hcustom.window_audio_features(
+                torch.randn((2 * U_FRAMES + 10, 5, 384),
+                            generator=gen).numpy(), U_FRAMES)
+            face = np.zeros((U_H, U_W), np.float32)
+            face[U_H // 4:3 * U_H // 4, U_W // 3:2 * U_W // 3] = 1.0
+            rec["ref_latents"] = list(ref.shape)
+            rec["audio_windows"] = list(feats.shape)
+            lat = pipe.generate_custom(
+                ref_latents=ref, audio_prompts=torch.from_numpy(feats),
+                face_mask=face, motion_exp=torch.full((1, 4), 5.0),
+                motion_pose=torch.full((1, 4), 2.0), fps_value=25.0,
+                **common)
+        else:
+            u_w, u_h = 1280, 704
+            lq = torch.randn((1, 32, (U_FRAMES - 1) // 4 + 1, u_h // 16,
+                              u_w // 16), generator=torch.Generator(
+                                  device="cuda").manual_seed(6),
+                             device="cuda")
+            lat = pipe.generate_upsample(
+                lq, sr_params=pipe.sr_params, sr_cfg=pipe.sr_cfg, seed=3,
+                sampling=sampling, text_states=kw["text_states"],
+                text_mask=kw["text_mask"])
+            rec["sr"] = type(pipe.sr_cfg).__name__
+        torch.cuda.synchronize()
+        rec["run_s"] = time.perf_counter() - t0
+        rec.update(split)
+        counts = read_counts()
+        per = (V_HV15 if hv15 else sum(V_HV1))
+        want = {k: (per * steps if k == "flash_attention" else 0)
+                for k in counts}
+        rec.update(latents=list(lat.shape), steps=steps,
+                   guidance_scale=sampling.guide_scale,
+                   finite=bool(torch.isfinite(lat).all()), launches=counts)
+        if counts != want or read_pads() or not rec["finite"]:
+            raise AssertionError(f"(V) {model_type}: {rec}, want launches "
+                                 f"{want}, padded {read_pads()}")
+        out[model_type] = rec
+        svc.release_model()
+        del svc, pipe, lat
+        torch.cuda.empty_cache()
+    os.remove(png)
+    return {"label": "(V) the other HunyuanVideo rows from random weights, "
+                     f"HV1 at {V_HV1[0]} + {V_HV1[1]} blocks, HV1.5 at "
+                     f"{V_HV15}, latents out",
+            "resolution": f"{U_W}x{U_H}", "frames": U_FRAMES, **out}
+
+
 def run_m(out_dir, timed, split, seen):
-    """(M): ltx2_22B_distilled (LTX-2 22B at M_LAYERS = 24 of its 48
+    """(M): ltx2_22B_distilled (LTX-2 22B at M_LAYERS = 12 of its 48
     blocks, 19.5 B parameters in the DiT at 48) at
     1280x704x241 (the definition's 1280x720 gives 22.5 latent rows; the
     handler refuses it): 31 x 22 x 40 = 27,280 video and 251 audio
@@ -4228,7 +4781,7 @@ def phase_service(frames: int):
                 "launches_per_forward": per_forward, **out}
 
     def run_n():
-        """(N): t2v (Wan2.1 14B) in bf16, dense, N_LAYERS = 20 of its 40
+        """(N): t2v (Wan2.1 14B) in bf16, dense, N_LAYERS = 10 of its 40
         layers (all 40 before), at
         1280x720x81 through GenerationService with the Lightx2v profile:
         its rank-32 LoRA (n_lora_state_dict, written under the profile
@@ -5169,6 +5722,8 @@ def phase_service(frames: int):
         results["flux_schnell_K"] = run_k(out_dir, timed, split, seen)
         results["hv15_t2v_L"] = run_l(out_dir, timed, split, seen)
         results["ltx2_22B_distilled_M"] = run_m(out_dir, timed, split, seen)
+        results["hunyuan_U"] = run_u(out_dir, timed, split, seen)
+        results["hunyuan_rows_V"] = run_v(out_dir, timed, split, seen)
     finally:
         media.save_video, media.save_image = real_save, real_save_image
         pipe_mod.wan_dit_forward = real_forward
@@ -5188,9 +5743,9 @@ def phase_service(frames: int):
                      "G": f"{G_LAYERS} of each expert's 40 layers (cut "
                           "from 10)",
                      "J": f"{J_LAYERS} of 40 layers (cut from 10)",
-                     "N": f"{N_LAYERS} of 40 layers (cut from 40)",
-                     "L": f"{L_LAYERS} of 54 double blocks (cut from 54)",
-                     "M": f"{M_LAYERS} of 48 blocks (cut from 48)",
+                     "N": f"{N_LAYERS} of 40 layers (cut from 20)",
+                     "L": f"{L_LAYERS} of 54 double blocks (cut from 27)",
+                     "M": f"{M_LAYERS} of 48 blocks (cut from 24)",
                      "K": f"{K_DOUBLE} + {K_SINGLE} of 19 + 38 blocks (cut "
                           "from 10 + 19)",
                      "T": f"{T_DOUBLE} double + {T_SINGLE} single blocks "

@@ -158,8 +158,16 @@ def test_rope_tables_and_head_layout_match_jax():
                               8).numpy(),
         np.asarray(jdit.unpatchify_cmajor(jnp.asarray(x), (1, 3, 4),
                                           (1, 2, 2), 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        dit.build_hunyuan_rope((1, 2, 2), ref_mode="timecat")
+    # the reference-frame tables of HunyuanCustom ("timecat-w") and Avatar
+    # ("timecat"): one frame at t = -1 in front (w moved by +W for custom)
+    for mode in ("timecat", "timecat-w"):
+        cos, sin = dit.build_hunyuan_rope((2, 3, 4), (8, 12, 12), 5,
+                                          ref_mode=mode)
+        jcos, jsin = jdit.build_hunyuan_rope((2, 3, 4), (8, 12, 12), 5,
+                                             ref_mode=mode)
+        assert cos.shape == (3 * 12 + 5, 16)
+        np.testing.assert_array_equal(cos.numpy(), np.asarray(jcos))
+        np.testing.assert_array_equal(sin.numpy(), np.asarray(jsin))
 
 
 def test_double_block_matches_reference_goldens():

@@ -38,7 +38,8 @@ from wan2gp_tpu_torch.io.safetensors_reader import (load_weights,
 from wan2gp_tpu_torch.io.wan_checkpoint import hf_t5_state_dict
 from wan2gp_tpu_torch.models.flux import clip
 from wan2gp_tpu_torch.models.hyvideo import dit, glyph, vae15
-from wan2gp_tpu_torch.models.hyvideo.pipeline import HunyuanPipeline
+from wan2gp_tpu_torch.models.hyvideo.pipeline import (HunyuanPipeline,
+                                                       HunyuanSamplingConfig)
 from wan2gp_tpu_torch.models.qwen import text_encoder as lm
 from wan2gp_tpu_torch.models.wan import t5
 from wan2gp_tpu_torch.runtime.service import GenerationService
@@ -212,7 +213,8 @@ def test_service_guidance_6_writes_a_video(tiny_row, tmp_path, monkeypatch):
 def test_service_refusals_beside_jax(tiny_row, tmp_path):
     """1280x720 (45 latent rows) raises a ValueError naming 1280x704
     before any work, where JAX's patchify raises a TypeError; int8a8 is
-    refused before loading anything; the other rows raise."""
+    refused before loading anything; `generate_custom` runs, an unknown
+    i2v condition and `apply_mesh` raise."""
     svc = GenerationService(output_dir=str(tmp_path),
                             init_random_weights=True, device="cpu")
     real = HunyuanPipeline.generate
@@ -237,19 +239,25 @@ def test_service_refusals_beside_jax(tiny_row, tmp_path):
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
         a8.generate({"model_type": "hunyuan_1_5_480_t2v", "prompt": "x"})
     assert not a8._pipelines
-    for row in ("hunyuan", "hunyuan_1_5_i2v", "hunyuan_avatar",
-                "hunyuan_1_5_upsampler", "hunyuan_custom"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            fam.HunyuanFamilyHandler.load_model(row, {}, init_random=True,
-                                                device="cpu")
+    # the rows and entry points that raised until HunyuanVideo's other
+    # variants were ported now load and run (tests/test_torch_hyvideo_hv1.py
+    # and test_torch_hyvideo_custom.py hold them to JAX); what still raises
+    # names its own item
     pipe = svc.get_pipeline("hunyuan_1_5_t2v")
-    for call in (pipe.generate_upsample, pipe.generate_custom,
-                 lambda: pipe.apply_mesh(None),
-                 lambda: pipe.generate(text_states=torch.zeros(1, 4, 32),
-                                       text_mask=torch.ones(1, 4),
-                                       img_latents=torch.zeros(1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            call()
+    text = dict(text_states=torch.zeros(1, 4, 32),
+                text_mask=torch.ones(1, 4, dtype=torch.int32))
+    one = HunyuanSamplingConfig(steps=1)
+    out = pipe.generate_custom(width=32, height=32, frame_num=5,
+                               sampling=one, return_latents=True, **text)
+    assert out.shape == (1, 8, 2, 2, 2)
+    with pytest.raises(ValueError, match="i2v_condition_type"):
+        pipe.generate(width=32, height=32, frame_num=5, sampling=one,
+                      img_latents=torch.zeros(1, 8, 1, 2, 2),
+                      i2v_condition_type="other", return_latents=True,
+                      **text)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        pipe.apply_mesh(None)
+    assert set(fam.HUNYUAN_VIDEO_CONFIGS) == set(jdit.HUNYUAN_VIDEO_CONFIGS)
 
 
 def test_service_from_five_files(tiny_row, tmp_path, monkeypatch):

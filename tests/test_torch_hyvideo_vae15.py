@@ -9,8 +9,8 @@ VAE on a 5 x 5 latent: four tiles, both seams) matches JAX's
 `hunyuan15_vae_decode_tiled` (its tiling and blending around the port's tile
 decoder) within 1e-5 * max|ref|; the port's handler
 decodes tiled where the JAX handler decodes the whole clip (pinned).  The
-exporter's file loads back to the same tree; leftover keys and an HV1
-VAE file raise.
+exporter's file loads back to the same tree; leftover keys raise, and an
+HV1 VAE file raises here, naming the HV1 loader, which reads it.
 """
 import numpy as np
 import pytest
@@ -110,7 +110,16 @@ def test_loader_round_trip_and_refusals(golden_tree):
     with pytest.raises(ValueError, match="unconsumed HV1.5 VAE keys"):
         _refuse_leftovers("HV1.5 VAE", vae15.load_hunyuan15_vae_params(
             {**out, "extra.weight": torch.zeros(1)}, cfg, device="cpu")[1])
-    hv1 = {"encoder.down_blocks.0.resnets.0.norm1.weight": torch.ones(4),
-           **out}
-    with pytest.raises(ValueError, match="HV1 .*ROADMAP Queue 1 item 5"):
+    # an HV1 (884-16c) file is refused here, naming the loader that reads
+    # it, and loads there
+    from wan2gp_tpu_torch.io.hyvideo_checkpoint import (
+        hunyuan_vae_state_dict, load_hunyuan_vae_params)
+    from wan2gp_tpu_torch.models.hyvideo import vae
+    hcfg = vae.HunyuanVAEConfig(block_out_channels=(8, 16, 16, 16),
+                                latent_channels=4, norm_groups=4,
+                                layers_per_block=1)
+    hv1 = hunyuan_vae_state_dict(vae.init_hunyuan_vae(
+        torch.Generator().manual_seed(0), hcfg))
+    with pytest.raises(ValueError, match="HV1 .*load_hunyuan_vae_params"):
         vae15.load_hunyuan15_vae_params(hv1, cfg, device="cpu")
+    assert load_hunyuan_vae_params(hv1, hcfg, device="cpu")[1] == []

@@ -42,6 +42,9 @@ ENTRY_MODULES = (
     "wan2gp_tpu_torch.models.hyvideo.pipeline",
     "wan2gp_tpu_torch.models.hyvideo.vae",
     "wan2gp_tpu_torch.models.hyvideo.vae15",
+    "wan2gp_tpu_torch.models.hyvideo.custom",
+    "wan2gp_tpu_torch.models.hyvideo.upsampler",
+    "wan2gp_tpu_torch.io.hyvideo_checkpoint",
     "wan2gp_tpu_torch.models.qwen.text_encoder",
     "wan2gp_tpu_torch.io.hyvideo_dit_checkpoint",
     "wan2gp_tpu_torch.families.ltx2",

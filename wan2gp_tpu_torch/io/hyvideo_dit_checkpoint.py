@@ -10,18 +10,24 @@ self_attn_qkv, self_attn_proj, norm2, mlp.fc1/fc2, adaLN_modulation.1}},
 double_blocks.N.{img,txt}_{mod.linear, attn_qkv (or split attn_q/k/v),
 attn_{q,k}_norm, attn_proj, mlp.fc1/fc2}, single_blocks.N.{linear1,
 linear2, q_norm, k_norm, modulation.linear}, final_layer.{linear,
-adaLN_modulation.1}, and HV1.5's byt5_in.{layernorm, fc1, fc2, fc3} and
-cond_type_embedding.  Quanto-int8 entries (weight._data, weight._scale)
-load as {w_q, scale}.  Linears become [K, N] in the loader's dtype (fp32
-for the embedders, the refiner's adaLN, the glyph mapper and the final
-layer), biases in the same dtype, norms fp32.
+adaLN_modulation.1}, HV1.5's byt5_in.{layernorm, fc1, fc2, fc3} and
+cond_type_embedding, the upsampler's time_r_in.mlp.{0,2}, and the
+HunyuanCustom / Avatar modules (`load_custom_params`): ref_in.proj,
+bg_in.proj (Conv3d patch embeddings), bg_proj, before_proj,
+{motion_exp, motion_pose, fps_proj}.mlp.{0,2}, audio_proj.{proj1, proj2,
+proj3, norm} and the adapters `audio_models.N` (custom-audio) or
+`audio_adapter_blocks.N` (avatar).  Quanto-int8 entries (weight._data,
+weight._scale) load as {w_q, scale}.  Linears become [K, N] in the
+loader's dtype (fp32 for the embedders, the refiner's adaLN, the glyph
+mapper, the final layer and the Custom / Avatar modules), biases in the
+same dtype, norms fp32.
 
 A quanto `final_layer.linear` (fp32 x at M = the image tokens) loads as
 {w_q, scale} and runs through ops/quant.py's fp32 tile kernel, as the JAX
 loader reads it.  Refusals: a quanto `byt5_in.fc1/2/3`, which the JAX
 loader does not read (it looks for `byt5_in.fc1.weight` only, and leaves
-the entries over); the HunyuanCustom / Avatar modules (ROADMAP Queue 1
-item 5).
+the entries over).  The JAX loader leaves `time_r_in` over (so its handler
+refuses an upsampler file); this one reads it.
 """
 from __future__ import annotations
 
@@ -33,9 +39,6 @@ from ..ops.quant import quantize_int8
 from .wan_checkpoint import _Reader, _stack, _tensor
 
 _QUANTO_UNREAD = ("byt5_in.fc1", "byt5_in.fc2", "byt5_in.fc3")
-_CUSTOM_KEYS = ("ref_in.", "bg_in.", "bg_proj.", "before_proj.",
-                "motion_exp.", "motion_pose.", "fps_proj.", "audio_proj.",
-                "audio_models.", "audio_adapter_blocks.")
 
 
 def _strip(sd: Dict[str, Any]) -> Dict[str, Any]:
@@ -56,11 +59,6 @@ def _refuse_unported(keys):
                 f"{name}.weight._data: a quanto-int8 byT5 mapper is not read "
                 "(the JAX loader reads only a float byt5_in and leaves these "
                 "entries over); keep it in fp32 in the file")
-    custom = sorted(k for k in keys if k.startswith(_CUSTOM_KEYS))
-    if custom:
-        raise NotImplementedError(
-            f"HunyuanCustom / Avatar keys ({custom[:3]}) are not ported yet "
-            "(ROADMAP Queue 1 item 5)")
 
 
 def load_hunyuan_dit_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
@@ -145,7 +143,53 @@ def load_hunyuan_dit_params(sd: Dict[str, Any], cfg, dtype=torch.bfloat16,
     if cfg.guidance_embed and r.has("guidance_in.mlp.0.weight"):
         params["guidance_in"] = embed("guidance_in")
     load_glyph_params(r, params)
+    if cfg.meanflow and r.has("time_r_in.mlp.0.weight"):
+        params["time_r_in"] = embed("time_r_in")
+    load_custom_params(r, params, cfg)
     return params, r.leftover()
+
+
+def _audio_prefix(r, cfg):
+    """The adapters' key prefix: `audio_adapter_blocks` on Avatar,
+    `audio_models` on custom-audio, the other where only it is present."""
+    first, other = (("audio_adapter_blocks", "audio_models")
+                    if cfg.avatar else ("audio_models",
+                                        "audio_adapter_blocks"))
+    return first if r.has(f"{first}.0.norm1.weight") else other
+
+
+def load_custom_params(r: _Reader, params: Dict, cfg) -> Dict:
+    """The HunyuanCustom / Avatar modules that ride in the DiT file, fp32;
+    nothing for the keys that are absent."""
+    f32 = torch.float32
+
+    def conv_pe(name):
+        w = _tensor(r.sd.pop(f"{name}.proj.weight"), f32, r.device)
+        return {"w": w.reshape(w.shape[0], -1).t().contiguous(),
+                "b": r.vec(f"{name}.proj.bias")}
+
+    if r.has("ref_in.proj.weight"):
+        params["ref_in"] = conv_pe("ref_in")
+    if r.has("bg_in.proj.weight"):
+        params["bg_in"] = conv_pe("bg_in")
+        params["bg_proj"] = r.lin("bg_proj", f32)
+    if r.has("before_proj.weight"):
+        params["before_proj"] = r.lin("before_proj", f32)
+    for name in ("motion_exp", "motion_pose", "fps_proj"):
+        if r.has(f"{name}.mlp.0.weight"):
+            params[name] = {"in": r.lin(f"{name}.mlp.0", f32),
+                            "out": r.lin(f"{name}.mlp.2", f32)}
+    if r.has("audio_proj.proj1.weight"):
+        from ..models.hyvideo.custom import (AUDIO_LAYERS_AVATAR,
+                                             AUDIO_LAYERS_CUSTOM,
+                                             load_audio_adapters,
+                                             load_audio_proj)
+        params["audio_proj"] = load_audio_proj(r.sd, device=r.device)
+        params["audio_adapters"] = load_audio_adapters(
+            r.sd, cfg.mm_double_blocks_depth,
+            AUDIO_LAYERS_AVATAR if cfg.avatar else AUDIO_LAYERS_CUSTOM,
+            _audio_prefix(r, cfg), device=r.device)
+    return params
 
 
 def load_glyph_params(r: _Reader, params: Dict) -> Dict:
@@ -258,4 +302,25 @@ def hunyuan_dit_state_dict(params, cfg, quanto: bool = False,
             put(f"byt5_in.{k}", bi[k])
     if "cond_type_embedding" in params:
         sd["cond_type_embedding.weight"] = params["cond_type_embedding"]
+    for name in ("time_r_in", "motion_exp", "motion_pose", "fps_proj"):
+        if name in params:
+            embed(name, params[name])
+    for name, c in (("ref_in", cfg.in_channels),
+                    ("bg_in", 2 * cfg.in_channels)):
+        if name in params:
+            w = params[name]["w"].t()
+            sd[f"{name}.proj.weight"] = w.reshape(w.shape[0], c, pt, ph,
+                                                  pw).contiguous()
+            sd[f"{name}.proj.bias"] = params[name]["b"]
+    for name in ("bg_proj", "before_proj"):
+        if name in params:
+            put(name, params[name])
+    if "audio_proj" in params:
+        from ..models.hyvideo.custom import (AUDIO_LAYERS_AVATAR,
+                                             AUDIO_LAYERS_CUSTOM,
+                                             audio_state_dict)
+        sd.update(audio_state_dict(
+            params["audio_proj"], params["audio_adapters"],
+            AUDIO_LAYERS_AVATAR if cfg.avatar else AUDIO_LAYERS_CUSTOM,
+            "audio_adapter_blocks" if cfg.avatar else "audio_models"))
     return sd

@@ -1,4 +1,4 @@
-"""HunyuanVideo diffusion transformer (HV1.5, and HV1's single blocks).
+"""HunyuanVideo diffusion transformer (HV1, HV1.5 and their variants).
 
 Counterpart of wan2gp_tpu/models/hyvideo/dit.py: MMDiT double-stream
 blocks (image and text streams, each with its own 6-way adaLN modulation,
@@ -9,25 +9,32 @@ einsum attention with a key-padding bias), the HV1.5 byT5 glyph branch
 (`_byt5_mapper`, `cond_type_embedding`, valid-first token order), and the
 (c, pt, ph, pw) head layout.
 
-Variants: HV1.5 (54 double blocks, hidden 2048, 16 heads of 128, byT5)
-and HV1 (20 double + 40 single, hidden 3072, CLIP `vector_in`, embedded
-`guidance_in`).  Params keep the JAX tree layout ([K, N] linears, blocks
-stacked on a leading layer axis); the block loops are Python loops.  The
-residual streams and the modulation are fp32, the block linears run in
-`compute_dtype`; the modulation linears (`mod`, the refiner's `ada`) are
-fp32 products at M = batch, which under quantization take the fp32 GEMV
-kernel (ops/quant.py).
+Variants: HV1 (20 double + 40 single, hidden 3072, 24 heads of 128, CLIP
+`vector_in`, embedded `guidance_in`; i2v with 33 input channels),
+HunyuanCustom (reference-image tokens in front, RoPE `timecat-w`; edit:
+`bg_in` / `bg_proj` over the background latents; audio: the adapters over
+the double blocks), HunyuanAvatar (`ref_in` / `before_proj` over the
+reference latents, its first frame in front with RoPE `timecat`,
+`motion_exp` / `motion_pose` / `fps_proj` in the modulation vector, the
+audio adapters weighted by a face mask), HV1.5 (54 double blocks, hidden
+2048, 16 heads of 128, byT5; i2v with 65 input channels) and the HV1.5
+upsampler (98 input channels, meanflow `time_r_in`).  Params keep the JAX
+tree layout ([K, N] linears, blocks stacked on a leading layer axis); the
+block loops are Python loops.  The residual streams and the modulation are
+fp32, the block linears run in `compute_dtype`; the modulation linears
+(`mod`, the refiner's `ada`) are fp32 products at M = batch, which under
+quantization take the fp32 GEMV kernel (ops/quant.py).
 
 The joint attention goes through ops/attention.py (the flash kernel on the
 card) with no key mask, as in the JAX module: padded text tokens take part.
 The refiner's attention follows the JAX einsum: fp32 scores plus a
 finfo.min bias, so a row whose text mask is all zero gives the mean of v
-(the masked flash kernel would give zeros).
+(the masked flash kernel would give zeros).  The audio adapters
+(`custom.perceiver_ca`) are plain fp32 PyTorch and run on their active
+blocks only (JAX runs all and multiplies the others by 0).
 
-Not ported yet (ROADMAP Queue 1 item 5): HunyuanCustom / Avatar (`custom`,
-`avatar`, the audio adapters, `video_condition`), the upsampler's
-`meanflow` and reference RoPE (`ref_mode`); the unfused tensor-parallel
-layout waits for item 13.  Each raises, naming its item.
+Not ported: the unfused tensor-parallel layout, which waits for ROADMAP
+Queue 1 item 13; it raises, naming that item.
 """
 from __future__ import annotations
 
@@ -45,7 +52,6 @@ from ...ops.rope import apply_rope
 from ..flux.dit import _embed, timestep_embedding
 from ..wan.dit import _dense, _heads, layer_params, patchify
 
-_LATER = "ROADMAP Queue 1 item 5"
 _TP = "ROADMAP Queue 1 item 13"
 
 
@@ -69,12 +75,11 @@ class HunyuanConfig:
     byt5_in_dim: int = 1472
     byt5_hidden: int = 2048
     cond_type_embed: bool = False
-    # the JAX config's other variants: not ported
-    meanflow: bool = False
-    custom: bool = False
-    avatar: bool = False
-    audio_condition: bool = False
-    video_condition: bool = False
+    meanflow: bool = False           # the upsampler's time_r_in
+    custom: bool = False             # HunyuanCustom
+    avatar: bool = False             # HunyuanAvatar
+    audio_condition: bool = False    # the audio adapters
+    video_condition: bool = False    # custom-edit's background branch
     compute_dtype: Any = torch.bfloat16
     # activations of the quantized block linears; the service sets it
     # ("bf16" only: the a8 modes are refused for this family)
@@ -121,41 +126,41 @@ def make_hunyuan_config(base_model_type: str, **overrides) -> HunyuanConfig:
     return HunyuanConfig(**kw)
 
 
-def check_ported(cfg: HunyuanConfig):
-    """Raises NotImplementedError for a variant the port does not have."""
-    for flag, what in (("custom", "HunyuanCustom"),
-                       ("avatar", "HunyuanAvatar"),
-                       ("audio_condition", "the audio adapters"),
-                       ("video_condition", "the custom-edit background"),
-                       ("meanflow", "the HV1.5 upsampler (meanflow)")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{what} is not ported yet ({_LATER})")
-
-
 def build_hunyuan_rope(grid_fhw, rope_dim_list=(16, 56, 56),
                        txt_len: int = 0, theta: float = 10000.0,
                        ref_mode: str = None, device=None):
-    """(cos, sin) fp32 [img_len + txt_len, head_dim / 2] on `device`
-    (float64 on the host); the text rows are identity (cos 1, sin 0): HV
-    ropes the image tokens only."""
-    if ref_mode is not None:
-        raise NotImplementedError(
-            f"the reference-frame RoPE of HunyuanCustom / Avatar is not "
-            f"ported yet ({_LATER})")
+    """(cos, sin) fp32 [ref_len + img_len + txt_len, head_dim / 2] on
+    `device` (float64 on the host); the text rows are identity (cos 1, sin
+    0): HV ropes the image tokens only.  ref_mode (HunyuanCustom / Avatar):
+    "timecat" puts one frame of reference tokens in front at t = -1,
+    "timecat-w" also moves their w positions by +W."""
     f, h, w = (int(v) for v in grid_fhw)
-    parts = []
-    for dim, n in zip(rope_dim_list, (f, h, w)):
-        omega = 1.0 / (theta ** (np.arange(0, dim, 2, np.float64) / dim))
-        parts.append(np.arange(n, dtype=np.float64)[:, None] * omega)
-    ang = np.concatenate([
-        np.broadcast_to(parts[0][:, None, None, :],
-                        (f, h, w, parts[0].shape[-1])),
-        np.broadcast_to(parts[1][None, :, None, :],
-                        (f, h, w, parts[1].shape[-1])),
-        np.broadcast_to(parts[2][None, None, :, :],
-                        (f, h, w, parts[2].shape[-1])),
-    ], axis=-1).reshape(f * h * w, -1)
+
+    def angles(tf, th, tw):
+        parts = []
+        for dim, pos in zip(rope_dim_list, (tf, th, tw)):
+            omega = 1.0 / (theta ** (np.arange(0, dim, 2, np.float64) / dim))
+            parts.append(pos[:, None] * omega)
+        nf, nh, nw = len(tf), len(th), len(tw)
+        return np.concatenate([
+            np.broadcast_to(parts[0][:, None, None, :],
+                            (nf, nh, nw, parts[0].shape[-1])),
+            np.broadcast_to(parts[1][None, :, None, :],
+                            (nf, nh, nw, parts[1].shape[-1])),
+            np.broadcast_to(parts[2][None, None, :, :],
+                            (nf, nh, nw, parts[2].shape[-1])),
+        ], axis=-1).reshape(nf * nh * nw, -1)
+
+    def ar(n):
+        return np.arange(n, dtype=np.float64)
+    ang = angles(ar(f), ar(h), ar(w))
+    if ref_mode in ("timecat", "timecat-w"):
+        w_off = float(w) if ref_mode == "timecat-w" else 0.0
+        ang = np.concatenate([angles(np.asarray([-1.0]), ar(h), ar(w) + w_off),
+                              ang])
+    elif ref_mode is not None:
+        raise ValueError(f"unknown ref_mode {ref_mode!r} (use 'timecat' or "
+                         "'timecat-w')")
     cos = np.concatenate([np.cos(ang), np.ones((txt_len, ang.shape[1]))])
     sin = np.concatenate([np.sin(ang), np.zeros((txt_len, ang.shape[1]))])
     return (torch.from_numpy(cos.astype(np.float32)).to(device),
@@ -191,14 +196,14 @@ def init_hunyuan(gen: torch.Generator, cfg: HunyuanConfig,
                  dtype=torch.bfloat16) -> Dict[str, Any]:
     """Random params on the generator's device in the JAX tree layout: block
     and refiner linears in `dtype` (the refiner's `ada` fp32), embedders,
-    `img_in`, the byT5 mapper and the final layer fp32, norms fp32."""
-    check_ported(cfg)
+    `img_in`, the byT5 mapper, the final layer and the Custom / Avatar
+    modules fp32, norms fp32."""
     h, hd, dev = cfg.hidden_size, cfg.head_dim, gen.device
     f32 = torch.float32
 
-    def embedder(d_in):
-        return {"in": _linear(gen, None, d_in, h, f32),
-                "out": _linear(gen, None, h, h, f32)}
+    def embedder(d_in, d_out=h):
+        return {"in": _linear(gen, None, d_in, d_out, f32),
+                "out": _linear(gen, None, d_out, d_out, f32)}
 
     def stream(n):
         return {"mod": _linear(gen, n, h, 6 * h, dtype),
@@ -255,6 +260,25 @@ def init_hunyuan(gen: torch.Generator, cfg: HunyuanConfig,
             "fc3": _linear(gen, None, cfg.byt5_hidden, h, f32)}
     if cfg.cond_type_embed:
         params["cond_type_embedding"] = torch.zeros((3, h), device=dev)
+    patch_in = cfg.in_channels * pt * ph * pw
+    if cfg.meanflow:
+        params["time_r_in"] = embedder(256)
+    if cfg.video_condition:
+        params["bg_in"] = _linear(gen, None, 2 * patch_in, h, f32)
+        params["bg_proj"] = _linear(gen, None, h, h, f32)
+    if cfg.avatar:
+        params["ref_in"] = _linear(gen, None, patch_in, h, f32)
+        params["before_proj"] = _linear(gen, None, h, h, f32)
+        params["motion_exp"] = embedder(256, h // 4)
+        params["motion_pose"] = embedder(256, h // 4)
+        params["fps_proj"] = embedder(256)
+    if cfg.audio_condition:
+        from .custom import (AUDIO_LAYERS_AVATAR, AUDIO_LAYERS_CUSTOM,
+                             init_audio_proj, stack_audio_adapters)
+        params["audio_proj"] = init_audio_proj(gen, output_dim=h)
+        params["audio_adapters"] = stack_audio_adapters(
+            gen, cfg.mm_double_blocks_depth,
+            AUDIO_LAYERS_AVATAR if cfg.avatar else AUDIO_LAYERS_CUSTOM, dim=h)
     return params
 
 
@@ -412,6 +436,11 @@ def _single_block(bp, x, vec, cos, sin, cfg, attn_backend):
     return x + gate * out.float()
 
 
+def _tokens(params, name, latents, patch):
+    return _dense(patchify(latents.float(), patch), params[name],
+                  torch.float32)
+
+
 def hunyuan_forward(params, cfg: HunyuanConfig, latents, t, text_states,
                     text_mask, text_pooled=None, guidance=None,
                     rope_cos=None, rope_sin=None, attn_backend="auto",
@@ -422,39 +451,66 @@ def hunyuan_forward(params, cfg: HunyuanConfig, latents, t, text_states,
     """latents: [B, C, F, H, W]; t: [B] in 0..1000; text_states: [B, L,
     text_states_dim] with text_mask [B, L]; text_pooled: [B, 768] (HV1);
     guidance: [B] (HV1, cfg_scale * 1000); byt5_states / byt5_mask: [B, Lb,
-    1472] glyph features (HV1.5), merged valid-first with the refined text.
-    Returns the velocity [B, C_out, F, H, W] in fp32.  The JAX function's
-    reference, background, audio and motion inputs raise."""
-    check_ported(cfg)
-    if any(a is not None for a in (t_r, ref_latents, bg_latents,
-                                   audio_prompts, face_mask, motion_exp,
-                                   motion_pose, fps)):
-        raise NotImplementedError(
-            f"HunyuanCustom / Avatar / upsampler inputs are not ported yet "
-            f"({_LATER})")
+    1472] glyph features (HV1.5), merged valid-first with the refined text;
+    t_r: [B] the meanflow second time (upsampler); ref_latents: [B, C, 1 |
+    F, H, W] (Custom: its tokens in front; Avatar: all frames through
+    `ref_in` added, the first frame in front); bg_latents: [B, 2C, F, H, W]
+    (Custom edit); audio_prompts: [B, F_pix, 10, 5, 384] window features
+    with face_mask [1, img tokens, 1] (or None); motion_exp / motion_pose:
+    [B, 4]; fps: [B].  Returns the velocity [B, C_out, F, H, W] in fp32."""
     f32 = torch.float32
-    pt, ph, pw = cfg.patch_size
+    b = latents.shape[0]
+    patch = cfg.patch_size
+    pt, ph, pw = patch
     grid = (latents.shape[2] // pt, latents.shape[3] // ph,
             latents.shape[4] // pw)
-    img = _dense(patchify(latents.float(), cfg.patch_size),
-                 params["img_in"], f32)
+    img = _tokens(params, "img_in", latents, patch)
+    ref_len = 0
+    if cfg.avatar and ref_latents is not None:
+        ref = _tokens(params, "ref_in", ref_latents, patch)
+        img = img + _dense(ref, params["before_proj"], f32)
+        del ref
+        rf = _tokens(params, "img_in", ref_latents[:, :, :1], patch)
+        ref_len = rf.shape[1]
+        img = torch.cat([rf, img], dim=1)
+    elif cfg.custom:
+        if bg_latents is not None and cfg.video_condition:
+            bg = _tokens(params, "bg_in", bg_latents, patch)
+            img = img + _dense(bg, params["bg_proj"], f32)
+            del bg
+        if ref_latents is not None:
+            rf = _tokens(params, "img_in", ref_latents, patch)
+            ref_len = rf.shape[1]
+            img = torch.cat([rf, img], dim=1)
     img_len = img.shape[1]
     use_glyph = byt5_states is not None \
         and params.get("byt5_in") is not None
     if rope_cos is None:
         txt_len = text_states.shape[1] + (byt5_states.shape[1] if use_glyph
                                           else 0)
-        rope_cos, rope_sin = build_hunyuan_rope(grid, cfg.rope_dim_list,
-                                                txt_len,
-                                                device=latents.device)
-    vec = _embed(params["time_in"], timestep_embedding(t, 256,
-                                                       time_factor=1.0))
+        rope_cos, rope_sin = build_hunyuan_rope(
+            grid, cfg.rope_dim_list, txt_len,
+            ref_mode=None if ref_len == 0 else
+            ("timecat" if cfg.avatar else "timecat-w"),
+            device=latents.device)
+
+    def temb(x):
+        return timestep_embedding(x, 256, time_factor=1.0)
+    vec = _embed(params["time_in"], temb(t))
+    if cfg.avatar:
+        for name, m in (("motion_exp", motion_exp),
+                        ("motion_pose", motion_pose)):
+            if m is not None:
+                vec = vec + _embed(params[name], temb(
+                    torch.as_tensor(m).reshape(-1))).reshape(b, -1)
+        if fps is not None:
+            vec = vec + _embed(params["fps_proj"], temb(fps))
+    if cfg.meanflow and t_r is not None and "time_r_in" in params:
+        vec = vec + _embed(params["time_r_in"], temb(t_r))
     if cfg.text_pool and text_pooled is not None:
         vec = vec + _embed(params["vector_in"], text_pooled.float())
     if cfg.guidance_embed and guidance is not None:
-        vec = vec + _embed(params["guidance_in"],
-                           timestep_embedding(guidance, 256,
-                                              time_factor=1.0))
+        vec = vec + _embed(params["guidance_in"], temb(guidance))
     txt = _refine_text(params, cfg, text_states, text_mask, t)
     cte = params.get("cond_type_embedding")
     if cte is not None:
@@ -464,16 +520,37 @@ def hunyuan_forward(params, cfg: HunyuanConfig, latents, t, text_states,
         if cte is not None:
             bt = bt + cte[1].float()
         txt, text_mask = reorder_glyph_tokens(bt, txt, byt5_mask, text_mask)
+    audio = None
+    if audio_prompts is not None and params.get("audio_adapters") is not None:
+        # per-frame audio tokens: project, repeat the first frame 3 times,
+        # fold 4 pixel frames into a latent frame
+        from .custom import active_layers, audio_proj_forward, perceiver_ca
+        af = audio_proj_forward(params["audio_proj"], audio_prompts)
+        af = torch.cat([af[:, :1].expand(-1, 3, -1, -1), af], dim=1)
+        ot = grid[0]
+        audio_tok = af[:, :4 * ot].reshape(b, ot, -1, af.shape[-1])
+        audio = set(active_layers(params["audio_adapters"]))
     for i in range(cfg.mm_double_blocks_depth):
         img, txt = _double_block(layer_params(params["double_blocks"], i),
                                  img, txt, vec, rope_cos, rope_sin, img_len,
                                  cfg, attn_backend)
+        if audio is not None and i in audio:
+            ap = layer_params(params["audio_adapters"], i)
+            real = img[:, ref_len:].reshape(b, ot, -1, img.shape[-1])
+            delta = perceiver_ca(ap, audio_tok, real).reshape(
+                b, -1, img.shape[-1])
+            if face_mask is not None:
+                delta = delta * face_mask
+            img[:, ref_len:] += delta * (audio_strength * ap["active"]
+                                         .reshape(()))
+            del real, delta
     if params.get("single_blocks") is not None:
         x = torch.cat([img, txt], dim=1)
         for i in range(cfg.mm_single_blocks_depth):
             x = _single_block(layer_params(params["single_blocks"], i), x,
                               vec, rope_cos, rope_sin, cfg, attn_backend)
         img = x[:, :img_len]
+    img = img[:, ref_len:]
     shift, scale = _dense(F.silu(vec), params["final"]["mod"],
                           f32)[:, None, :].chunk(2, dim=-1)
     img = layer_norm(img) * (1 + scale) + shift

@@ -26,10 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .vae import _causal_conv3d
-
-_LATER = "ROADMAP Queue 1 item 5"
-
+from .vae import _causal_conv3d, decode_tiled
 
 @dataclasses.dataclass(frozen=True)
 class Hunyuan15VAEConfig:
@@ -294,56 +291,14 @@ def hunyuan15_vae_decode(params, cfg: Hunyuan15VAEConfig, latents):
                           dec["conv_out"]["w"], dec["conv_out"]["b"])
 
 
-def _blend_axis(prev, tile, extent: int, axis: int):
-    """The first `extent` slices of `tile` along `axis` ramp linearly from
-    the last `extent` slices of `prev`."""
-    extent = min(prev.shape[axis], tile.shape[axis], int(extent))
-    if extent <= 0:
-        return tile
-    shape = [1] * tile.ndim
-    shape[axis] = extent
-    w = (torch.arange(extent, dtype=tile.dtype, device=tile.device)
-         / extent).reshape(shape)
-    head = tile.narrow(axis, 0, extent)
-    tail = prev.narrow(axis, prev.shape[axis] - extent, extent)
-    out = tile.clone()
-    out.narrow(axis, 0, extent).copy_(head * w + tail * (1.0 - w))
-    return out
-
-
-def tile_starts(n: int, tile_size: int, ffactor: int):
-    """The latent offsets of the tiles along an axis of n latent cells."""
-    return list(range(0, n, int(tile_size // ffactor * 0.75)))
-
-
 def hunyuan15_vae_decode_tiled(params, cfg: Hunyuan15VAEConfig, latents,
                                tile_size: int = 256, decode_fn=None):
-    """Spatially tiled decode: latent tiles of tile_size / 16 cells on a
-    0.75 stride, each decoded whole (all frames), the seams blended over a
-    quarter tile, each tile cropped to the rows and columns it keeps.  One
-    tile (a latent no larger than a tile) is decoded directly.  latents:
-    [B, z, T', H', W'] -> [B, 3, T, H, W]."""
+    """Spatially tiled decode (`vae.decode_tiled`): latent tiles of
+    tile_size / 16 cells on a 0.75 stride, each decoded whole (all frames),
+    the seams blended over a quarter tile.  latents: [B, z, T', H', W'] ->
+    [B, 3, T, H, W]."""
     dec = decode_fn or (lambda z: hunyuan15_vae_decode(params, cfg, z))
-    tl = tile_size // cfg.ffactor_spatial
-    blend = int(tile_size * 0.25)
-    row_limit = tile_size - blend
-    h, w = latents.shape[3], latents.shape[4]
-    if h <= tl and w <= tl:
-        return dec(latents)
-    rows = [[dec(latents[:, :, :, i:i + tl, j:j + tl])
-             for j in tile_starts(w, tile_size, cfg.ffactor_spatial)]
-            for i in tile_starts(h, tile_size, cfg.ffactor_spatial)]
-    out_rows = []
-    for i, row in enumerate(rows):
-        out_row = []
-        for j, tile in enumerate(row):
-            if i > 0:
-                tile = _blend_axis(rows[i - 1][j], tile, blend, 3)
-            if j > 0:
-                tile = _blend_axis(row[j - 1], tile, blend, 4)
-            out_row.append(tile[:, :, :, :row_limit, :row_limit])
-        out_rows.append(torch.cat(out_row, dim=4))
-    return torch.cat(out_rows, dim=3)
+    return decode_tiled(dec, latents, tile_size, cfg.ffactor_spatial)
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +313,8 @@ def load_hunyuan15_vae_params(sd: Dict[str, Any],
     conv1.conv, norm2.gamma, conv2.conv, nin_shortcut}, downsample /
     upsample.conv.conv}, mid.{block_1, attn_1.{norm.gamma, q, k, v,
     proj_out}, block_2}, norm_out.gamma, conv_out.conv}; fp32.  An HV1
-    (884-16c) VAE file, recognized by its diffusers block names, raises.
+    (884-16c) VAE file, recognized by its diffusers block names, raises,
+    naming `io.hyvideo_checkpoint.load_hunyuan_vae_params`, which reads it.
     Returns (params, leftover keys)."""
     from ...io.wan_checkpoint import _Reader
     sd = {k[4:] if k.startswith("vae.") else k: v for k, v in sd.items()}
@@ -366,7 +322,8 @@ def load_hunyuan15_vae_params(sd: Dict[str, Any],
                                               "mid_block.")):
         raise ValueError(
             "this is an HV1 (884-16c AutoencoderKLCausal3D) VAE file, not "
-            f"HunyuanVideo 1.5's; the HV1 VAE is not ported yet ({_LATER})")
+            "HunyuanVideo 1.5's: read it with "
+            "io.hyvideo_checkpoint.load_hunyuan_vae_params")
     r = _Reader(sd, device)
 
     def conv(name):
